@@ -13,8 +13,10 @@ import torch
 
 # The block-tridiagonal Cholesky is only SPD-stable at full float32
 # accumulation: the reference pins ``Precision.HIGHEST`` on every matmul
-# after reduced-precision products broke the factorization. TF32 keeps ~10
-# mantissa bits, so it is switched off for matmuls and for cuDNN alike.
+# after reduced-precision products broke the factorization, and on every
+# einsum of the ip path (linearization, costs, the trajectory QP's
+# residuals). TF32 keeps ~10 mantissa bits, so it is switched off for
+# matmuls and for cuDNN alike.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -25,6 +27,8 @@ from diff_qp_mpc_tpu_torch.core.types import (  # noqa: E402,F401
     Bounds,
     DiagQuadCost,
     Lambdas,
+    LinDx,
+    QuadCost,
     SolveStats,
 )
 from diff_qp_mpc_tpu_torch.utils.device import resolve_device  # noqa: E402,F401

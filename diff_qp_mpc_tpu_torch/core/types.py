@@ -14,6 +14,28 @@ Tensor = torch.Tensor
 
 
 @dataclasses.dataclass
+class QuadCost:
+    """Dense quadratic cost Σₜ ½ τᵀ C τ + cᵀ τ.
+
+    C: [bsz, T, n, n], c: [bsz, T, n] with n = nx + nu.
+    """
+
+    C: Tensor
+    c: Tensor
+
+
+@dataclasses.dataclass
+class LinDx:
+    """Affine dynamics x' = F [x; u] + f.
+
+    F: [bsz, T-1, nx, nx+nu], f: [bsz, T-1, nx].
+    """
+
+    F: Tensor
+    f: Tensor
+
+
+@dataclasses.dataclass
 class DiagQuadCost:
     """Diagonal quadratic cost Σₜ ½ τᵀ diag(Cd) τ + cᵀ τ.
 

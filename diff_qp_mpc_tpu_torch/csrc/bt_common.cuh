@@ -1,5 +1,6 @@
 // Per-thread block helpers for the block-tridiagonal Cholesky, shared by
-// btsolve.cu (K1) and al_fused.cu (K2).
+// btsolve.cu (K1) and al_fused.cu (K2); the Riccati solve of riccati.cu (K3)
+// and trajqp_fused.cu (K4) factors its Quu blocks with them too.
 //
 // Each helper works on one batch element's N×N blocks held in registers
 // (N a template parameter, every loop fully unrolled). The arithmetic and

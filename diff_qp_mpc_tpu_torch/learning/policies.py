@@ -1,5 +1,5 @@
 """DEQ-MPC policy: an equilibrium network interleaved with the tracking MPC
-(port of diff_qp_mpc_tpu.learning.policies, AL branch).
+(port of diff_qp_mpc_tpu.learning.policies; AL and ip tracking solvers).
 
 The DEQ cell proposes a reference trajectory, the tracking MPC projects it
 onto the dynamics, and the solution feeds the next equilibrium iteration.
@@ -16,16 +16,20 @@ from torch import nn
 from diff_qp_mpc_tpu_torch.core.types import ALState, Bounds, DiagQuadCost
 from diff_qp_mpc_tpu_torch.learning.deq import DEQLayer
 from diff_qp_mpc_tpu_torch.models.base import DynamicsModel
-from diff_qp_mpc_tpu_torch.solvers import al_mpc
+from diff_qp_mpc_tpu_torch.solvers import al_mpc, sqp_mpc
 
 Tensor = torch.Tensor
 
 
 @dataclasses.dataclass
 class TrackingMPC:
-    """Diagonal-cost tracking MPC: Cd = diag(Q, R), c = −Cd·τ_ref, solved
-    with the box-constrained AL solver (scan path, or kernel K2 with
-    ``use_fused``)."""
+    """Diagonal-cost tracking MPC: Cd = diag(Q, R), c = −Cd·τ_ref.
+
+    ``solver_type`` "al" solves it with the box-constrained AL solver (scan
+    path, or kernel K2 with ``use_fused``); "ip" with the interior-point SQP
+    solver ``solvers.sqp_mpc`` (scan IPM over kernel K3, or kernel K4 when
+    ``sqp_cfg.qp.kernel`` is "fused").
+    """
 
     model: DynamicsModel
     T: int
@@ -40,6 +44,8 @@ class TrackingMPC:
     # with the operator they were trained with. True/False apply to both
     # paths.
     carry_state: Optional[bool] = None
+    solver_type: str = "al"  # "al" | "ip"
+    sqp_cfg: sqp_mpc.SQPConfig = sqp_mpc.SQPConfig(qp_iter=2)
 
     @property
     def carry(self) -> bool:
@@ -67,8 +73,19 @@ class TrackingMPC:
     def solve(self, x0: Tensor, x_ref: Tensor, u_ref: Tensor, state: ALState,
               x_init: Optional[Tensor] = None,
               u_init: Optional[Tensor] = None):
-        """Returns (x, u, new_state, stats or dyn_res)."""
+        """Returns (x, u, new_state, diagnostics): the AL stats or residual,
+        or the last QP residual on the ip path."""
         cost = self.cost(torch.cat([x_ref, u_ref], dim=-1))
+        if self.solver_type == "ip":
+            # the fused trajectory-QP kernel takes the box as python floats
+            ip_bounds = (Bounds(u_lo=self.u_lo, u_hi=self.u_hi)
+                         if self.sqp_cfg.qp.kernel == "fused"
+                         else self.bounds(x0))
+            res = sqp_mpc.solve(
+                self.model, cost, x0, ip_bounds,
+                u_init=u_init if u_init is not None else u_ref,
+                x_init=x_init, cfg=self.sqp_cfg, differentiable=True)
+            return res.x, res.u, state, res.qp_resid
         if self.use_fused:
             bounds = Bounds(u_lo=self.u_lo, u_hi=self.u_hi)
             if self.carry:

@@ -9,6 +9,8 @@ import numpy as np
 
 from diff_qp_mpc_tpu_torch.learning.policies import DEQMPCPolicy, TrackingMPC
 from diff_qp_mpc_tpu_torch.solvers import al_mpc
+from diff_qp_mpc_tpu_torch.solvers.sqp_mpc import SQPConfig
+from diff_qp_mpc_tpu_torch.solvers.trajqp import TrajQPConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -21,9 +23,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--deq_iter", type=int, default=6)
     p.add_argument("--T", type=int, default=5)
     p.add_argument("--hdim", type=int, default=128)
-    p.add_argument("--solver_type", type=str, default="al")
+    p.add_argument("--solver_type", type=str, default="al",
+                   choices=["al", "ip"],
+                   help="tracking MPC: augmented Lagrangian or the "
+                        "interior-point SQP")
     p.add_argument("--qp_iter", type=int, default=2,
-                   help="AL outer iterations (reference al_iter)")
+                   help="AL outer iterations (reference al_iter); SQP "
+                        "iterations on the ip path")
     p.add_argument("--rho_max", type=float, default=None,
                    help="cap on the AL penalty rho (default: ALConfig's 1e6)")
     p.add_argument("--al_reg", type=float, default=None,
@@ -37,7 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--layer_type", type=str, default="mlp",
                    choices=["mlp", "conv"])
     p.add_argument("--fused", action="store_true",
-                   help="solve the tracking MPC with the fused AL kernel")
+                   help="solve the tracking MPC with the fused kernel (AL: "
+                        "K2; ip: the whole trajectory-QP IPM, K4)")
     p.add_argument("--solver_carry", type=str, default="auto",
                    choices=["auto", "on", "off"],
                    help="carry AL warm-start state across successive "
@@ -56,11 +63,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def make_policy(args, env) -> DEQMPCPolicy:
-    """The DEQ-MPC policy the flags describe (AL solver path)."""
-    if getattr(args, "solver_type", "al") != "al":
-        raise NotImplementedError("only --solver_type al is ported")
+    """The DEQ-MPC policy the flags describe."""
+    solver_type = getattr(args, "solver_type", "al")
+    if solver_type not in ("al", "ip"):
+        raise ValueError(f"--solver_type must be 'al' or 'ip', got "
+                         f"{solver_type!r}")
     if getattr(args, "terminal_lqr", False):
-        raise NotImplementedError("--terminal_lqr needs the ip solver path")
+        raise NotImplementedError(
+            "--terminal_lqr needs solvers/lqr.py, which is not ported yet")
     if not args.deq:
         raise NotImplementedError("only the DEQ-MPC policy (--deq) is ported")
     R = np.asarray(env.Rlqr, dtype=float)
@@ -78,7 +88,13 @@ def make_policy(args, env) -> DEQMPCPolicy:
         u_hi=tuple(float(v) for v in env.action_space.high),
         cfg=cfg, use_fused=getattr(args, "fused", False),
         carry_state={"auto": None, "on": True, "off": False}[
-            getattr(args, "solver_carry", "auto")])
+            getattr(args, "solver_carry", "auto")],
+        solver_type=solver_type,
+        # --fused on the ip path runs the whole IPM as kernel K4, otherwise
+        # the scan IPM over kernel K3
+        sqp_cfg=SQPConfig(qp_iter=args.qp_iter, qp=TrajQPConfig(
+            kernel="fused" if solver_type == "ip" and getattr(
+                args, "fused", False) else "scan")))
     return DEQMPCPolicy(
         nx=env.nx, nu=env.nu, nq=env.nq, T=args.T, hdim=args.hdim,
         dt=env.dt, tracking=tracking, deq_iter=args.deq_iter,

@@ -3,7 +3,8 @@
 A model is an object with ``nx, nu, nq, dt`` and a batched ``step(x, u)``
 over leading batch axes. Jacobians come from ``torch.func.jacfwd`` under
 ``vmap`` unless the model overrides ``jac`` with its analytic form (the
-form the fused CUDA kernel evaluates in-register).
+form the fused CUDA kernel evaluates in-register); ``linearize`` evaluates
+them along a whole trajectory in one batched call.
 """
 from __future__ import annotations
 
@@ -35,6 +36,10 @@ class DynamicsModel:
             torch.func.jacfwd(single, argnums=(0, 1)))(x, u)
         return self.step(x, u), (jx, ju)
 
+    def linearize(self, x: Tensor, u: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+        """(x_next, A, B) along the trajectory; see linearize_trajectory."""
+        return linearize_trajectory(self.jac, x, u)
+
     def rollout(self, x0: Tensor, u: Tensor) -> Tensor:
         """x0 [bsz, nx], u [bsz, T, nu] -> [bsz, T, nx]; x0 is the first row
         and u[:, T-1] is unused."""
@@ -53,6 +58,18 @@ class DynamicsModel:
 def step_with_jac(model: DynamicsModel):
     """Batched (x_next, (J_x, J_u)) function of ``model``."""
     return model.jac
+
+
+def linearize_trajectory(jac, x: Tensor, u: Tensor
+                         ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Linearize the dynamics along a trajectory in one batched ``jac`` call
+    over all (batch × time) pairs: x [bsz, T, nx], u [bsz, T, nu] ->
+    (x_next [bsz, T-1, nx], A [bsz, T-1, nx, nx], B [bsz, T-1, nx, nu])."""
+    bsz, T, nx = x.shape
+    nu = u.shape[-1]
+    x_next, (A, B) = jac(x[:, :-1].reshape(-1, nx), u[:, :-1].reshape(-1, nu))
+    return (x_next.reshape(bsz, T - 1, nx), A.reshape(bsz, T - 1, nx, nx),
+            B.reshape(bsz, T - 1, nx, nu))
 
 
 def angle_normalize(x: Tensor) -> Tensor:

@@ -1,5 +1,6 @@
 """Augmented-Lagrangian merit numerics, block-structured (port of
-diff_qp_mpc_tpu.ops.almerit, diagonal cost).
+diff_qp_mpc_tpu.ops.almerit: the diagonal-cost merit, and the trajectory
+cost of a diagonal or dense quadratic).
 
 Problem:
     min_{x,u}  Σₜ ½ τₜᵀ diag(Cdₜ) τₜ + cₜᵀ τₜ
@@ -11,11 +12,16 @@ directly as block-tridiagonal D [bsz, T, n, n] / O [bsz, T-1, n, n].
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Union
 
 import torch
 
-from diff_qp_mpc_tpu_torch.core.types import Bounds, DiagQuadCost, Lambdas
+from diff_qp_mpc_tpu_torch.core.types import (
+    Bounds,
+    DiagQuadCost,
+    Lambdas,
+    QuadCost,
+)
 
 Tensor = torch.Tensor
 
@@ -58,10 +64,14 @@ def residuals(dynamics, x: Tensor, u: Tensor, x0: Tensor,
                                   bounds)
 
 
-def compute_cost(cost: DiagQuadCost, xu: Tensor) -> Tensor:
-    """Σₜ ½ τᵀ diag(Cd) τ + cᵀτ. xu: [bsz, T, n] -> [bsz]."""
-    return 0.5 * (xu * cost.Cd * xu).sum(dim=(-1, -2)) \
-        + (cost.c * xu).sum(dim=(-1, -2))
+def compute_cost(cost: Union[DiagQuadCost, QuadCost], xu: Tensor) -> Tensor:
+    """Σₜ ½ τᵀCτ + cᵀτ (C = diag(Cd) for a DiagQuadCost). xu: [..., T, n]
+    -> [...]; the cost broadcasts against xu's leading axes."""
+    if isinstance(cost, QuadCost):
+        quad = 0.5 * torch.einsum("...ti,...tij,...tj->...", xu, cost.C, xu)
+    else:
+        quad = 0.5 * (xu * cost.Cd * xu).sum(dim=(-1, -2))
+    return quad + (cost.c * xu).sum(dim=(-1, -2))
 
 
 def _penalty_and_lagrangian(res: Residuals, lam: Lambdas, rho: Tensor):

@@ -1,0 +1,257 @@
+"""Box-constrained trajectory QP by interior point and Riccati KKT solves
+(port of diff_qp_mpc_tpu.solvers.trajqp, forward solves).
+
+Solves batches of
+
+    min_{x,u}  Σₜ ½ wₜᵀ Cₜ wₜ + cₜᵀ wₜ          (w = (x, u))
+    s.t.       x_{t+1} = Aₜ xₜ + Bₜ uₜ + fₜ,  x₀ = x0,  u_lo ≤ u ≤ u_hi
+
+with a Mehrotra predictor-corrector in which the box block is eliminated
+analytically each iteration (the slack/dual pairs fold into a diagonal
+modification of Cuu and the u-gradient) and the remaining equality-
+constrained Newton system is solved by the Riccati recursion. A fixed trip
+count with best-iterate tracking keeps the cost of a solve known.
+
+Two paths: the scan IPM (``kernel="scan"``) runs the iteration in
+Python around ``ops.riccati_cuda`` (kernel K3 on CUDA tensors, two launches
+per iteration); ``kernel="fused"`` hands the whole solve to kernel K4
+(``ops.trajqp_fused_cuda``). Everything here runs under ``torch.no_grad``:
+the implicit backward (``_bwd`` in the JAX package) is not ported yet.
+
+Elimination algebra (per bound side, per (t, j)):
+    Z ds + S dz = −r_s           (linearized complementarity)
+    ±du + ds    = −r_p           (primal feasibility rows)
+  ⇒ dz = (Z/S)·(±du) + (Z r_p − r_s)/S
+so the u-stationarity row gains diag(z_hi/s_hi + z_lo/s_lo) and the
+gradient gains (Z r_p − r_s)/S terms.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from diff_qp_mpc_tpu_torch.core.types import Bounds
+from diff_qp_mpc_tpu_torch.ops import riccati_cuda, trajqp_fused_cuda
+from diff_qp_mpc_tpu_torch.ops.riccati import mv
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class TrajQPConfig:
+    max_iter: int = 12
+    reg: float = 1e-9  # Levenberg damping on Quu in the Riccati pass
+    min_slack: float = 1e-8
+    # "scan": the IPM in Python, Riccati solves by K3 on CUDA tensors;
+    # "fused": the whole IPM as kernel K4. The JAX spelling "auto" reads as
+    # "scan".
+    kernel: str = "scan"
+
+    def __post_init__(self):
+        if self.kernel == "auto":
+            object.__setattr__(self, "kernel", "scan")
+        if self.kernel == "pprefix":
+            raise NotImplementedError(
+                "the associative-scan Riccati (pprefix) is not ported yet")
+        if self.kernel not in ("scan", "fused"):
+            raise ValueError(f"unknown trajectory-QP kernel {self.kernel!r} "
+                             "(have 'scan', 'fused')")
+
+
+def riccati_solver(kernel: str = "scan"):
+    """(Cxx, Cxu, Cuu, gx, gu, A, B, r, dx0, reg) -> (dx, du, lam), the
+    scan IPM's Riccati solve."""
+    if kernel != "scan":
+        raise ValueError(f"the Riccati solve serves the scan IPM only, "
+                         f"got kernel {kernel!r}")
+    return riccati_cuda.batched_lqr_kkt_solve
+
+
+class TrajQPSolution(NamedTuple):
+    x: Tensor  # [bsz, T, nx]
+    u: Tensor  # [bsz, T, nu]
+    lam: Tensor  # [bsz, T, nx] costates (Riccati convention)
+    z_hi: Tensor  # [bsz, T, nu]
+    z_lo: Tensor
+    s_hi: Tensor
+    s_lo: Tensor
+    resids: Tensor  # [bsz]
+
+
+class _CostBlocks(NamedTuple):
+    Cxx: Tensor  # [bsz, T, nx, nx]
+    Cxu: Tensor  # [bsz, T, nx, nu]
+    Cuu: Tensor  # [bsz, T, nu, nu]
+    cx: Tensor  # [bsz, T, nx]
+    cu: Tensor  # [bsz, T, nu]
+
+
+def split_cost(C: Tensor, c: Tensor, nx: int) -> _CostBlocks:
+    """C [bsz, T, n, n], c [bsz, T, n] -> per-variable blocks, each
+    contiguous (the Riccati kernel takes contiguous tensors)."""
+    return _CostBlocks(*(a.contiguous() for a in (
+        C[..., :nx, :nx], C[..., :nx, nx:], C[..., nx:, nx:], c[..., :nx],
+        c[..., nx:])))
+
+
+def _stationarity(cb: _CostBlocks, x, u, lam, z_hi, z_lo, A, B):
+    """(r_x, r_u) stationarity residuals; the multiplier of dynamics row t
+    is lam[t+1], of the initial-state row lam[0]."""
+    nu_dyn = lam[:, 1:]
+    r_x = mv(cb.Cxx, x) + mv(cb.Cxu, u) + cb.cx
+    r_x[:, :-1] -= mv(A.transpose(-1, -2), nu_dyn)
+    r_x[:, 1:] += nu_dyn
+    r_x[:, 0] += lam[:, 0]
+    r_u = mv(cb.Cxu.transpose(-1, -2), x) + mv(cb.Cuu, u) + cb.cu \
+        + z_hi - z_lo
+    r_u[:, :-1] -= mv(B.transpose(-1, -2), nu_dyn)
+    return r_x, r_u
+
+
+def _affine_rollout(A, B, f, x0, u):
+    """x of the linearized dynamics from x0 under u (u[:, T-1] unused)."""
+    xs = [x0]
+    for t in range(A.shape[1]):
+        xs.append(mv(A[:, t], xs[-1]) + mv(B[:, t], u[:, t]) + f[:, t])
+    return torch.stack(xs, dim=1)
+
+
+@torch.no_grad()
+def solve(C: Tensor, c: Tensor, A: Tensor, B: Tensor, f: Tensor, x0: Tensor,
+          bounds: Bounds, cfg: TrajQPConfig = TrajQPConfig(),
+          x_init: Optional[Tensor] = None, u_init: Optional[Tensor] = None
+          ) -> TrajQPSolution:
+    """Batched IPM solve. C [bsz,T,n,n], c [bsz,T,n], A [bsz,T-1,nx,nx],
+    B [bsz,T-1,nx,nu], f [bsz,T-1,nx], x0 [bsz,nx]; bounds tensors [nu] or
+    python float tuples. Without ``x_init`` x starts from the affine rollout
+    of u, and without ``u_init`` u starts at the box midpoint."""
+    bsz, Tm1, nx, nu = B.shape
+    T = Tm1 + 1
+    kw = dict(dtype=C.dtype, device=C.device)
+    u_hi = torch.as_tensor(bounds.u_hi, **kw).expand(bsz, T, nu)
+    u_lo = torch.as_tensor(bounds.u_lo, **kw).expand(bsz, T, nu)
+    A, B, f, x0 = (a.contiguous() for a in (A, B, f, x0))
+    u = (torch.clamp(u_init, u_lo + 1e-3, u_hi - 1e-3)
+         if u_init is not None else 0.5 * (u_hi + u_lo))
+    x = x_init if x_init is not None else _affine_rollout(A, B, f, x0, u)
+
+    if cfg.kernel == "fused":
+        out = trajqp_fused_cuda.fused_trajqp_solve(
+            C.contiguous(), c.contiguous(), A, B, f, x0, x.contiguous(),
+            u.contiguous(), bounds.u_lo, bounds.u_hi, max_iter=cfg.max_iter,
+            reg=cfg.reg, min_slack=cfg.min_slack)
+        return TrajQPSolution(*out)
+
+    cb = split_cost(C, c, nx)
+    solve_fn = riccati_solver(cfg.kernel)
+    lam = torch.zeros(bsz, T, nx, **kw)
+    s_hi = torch.clamp(u_hi - u, min=0.1)
+    s_lo = torch.clamp(u - u_lo, min=0.1)
+    z_hi = torch.ones(bsz, T, nu, **kw)
+    z_lo = torch.ones(bsz, T, nu, **kw)
+    n_comp = 2 * T * nu
+    nrm = lambda a: torch.linalg.vector_norm(a.reshape(bsz, -1), dim=1)
+    col = lambda m: m.reshape(bsz, 1, 1)
+
+    def full_residuals(x, u, lam, z_hi, z_lo, s_hi, s_lo):
+        r_x, r_u = _stationarity(cb, x, u, lam, z_hi, z_lo, A, B)
+        r_dyn = x[:, 1:] - (mv(A, x[:, :-1]) + mv(B, u[:, :-1]) + f)
+        return (r_x, r_u, r_dyn, x[:, 0] - x0, u - u_hi + s_hi,
+                u_lo - u + s_lo, s_hi * z_hi, s_lo * z_lo)
+
+    def resid_norm(rs):
+        r_x, r_u, r_dyn, r_init, r_p_hi, r_p_lo, r_s_hi, r_s_lo = rs
+        mu = (r_s_hi.sum(dim=(1, 2)) + r_s_lo.sum(dim=(1, 2))) / n_comp
+        pri = nrm(r_dyn) + nrm(r_init) + nrm(r_p_hi) + nrm(r_p_lo)
+        return pri + nrm(r_x) + nrm(r_u) + n_comp * mu.abs(), mu
+
+    def kkt_step(z_hi, z_lo, s_hi, s_lo, r_x, r_u, r_dyn, r_init,
+                 r_p_hi, r_p_lo, r_s_hi, r_s_lo):
+        """Eliminate bound rows → Riccati solve → recover (ds, dz)."""
+        gu_extra = (z_hi * r_p_hi - r_s_hi) / s_hi \
+            - (z_lo * r_p_lo - r_s_lo) / s_lo
+        Cuu_eff = cb.Cuu + torch.diag_embed(z_hi / s_hi + z_lo / s_lo)
+        dx, du, dlam = solve_fn(cb.Cxx, cb.Cxu, Cuu_eff, r_x, r_u + gu_extra,
+                                A, B, -r_dyn, -r_init, cfg.reg)
+        ds_hi = -r_p_hi - du
+        ds_lo = -r_p_lo + du
+        dz_hi = -(r_s_hi + z_hi * ds_hi) / s_hi
+        dz_lo = -(r_s_lo + z_lo * ds_lo) / s_lo
+        return dx, du, dlam, ds_hi, ds_lo, dz_hi, dz_lo
+
+    def max_step(vs, dvs):
+        """min over the four (v, dv) pairs of the largest step in (0, 1]."""
+        big = torch.finfo(C.dtype).max
+        v = torch.cat([a.reshape(bsz, -1) for a in vs], dim=1)
+        dv = torch.cat([a.reshape(bsz, -1) for a in dvs], dim=1)
+        neg = dv < 0
+        steps = torch.where(neg, -v / torch.where(neg, dv, -1.0), big)
+        return torch.clamp(steps.amin(dim=1), max=1.0)
+
+    state = (x, u, lam, z_hi, z_lo, s_hi, s_lo)
+    best = state
+    b_tot = torch.full((bsz,), float("inf"), **kw)
+    for _ in range(cfg.max_iter):
+        x, u, lam, z_hi, z_lo, s_hi, s_lo = state
+        rs = full_residuals(*state)
+        total, mu = resid_norm(rs)
+        # best-iterate tracking
+        better = col(total < b_tot)
+        best = tuple(torch.where(better, a, b) for a, b in zip(state, best))
+        b_tot = torch.minimum(total, b_tot)
+
+        # affine (predictor)
+        dx_a, du_a, dl_a, dsh_a, dsl_a, dzh_a, dzl_a = kkt_step(
+            z_hi, z_lo, s_hi, s_lo, *rs)
+        a = col(max_step((s_hi, s_lo, z_hi, z_lo),
+                         (dsh_a, dsl_a, dzh_a, dzl_a)))
+        mu_aff = (((s_hi + a * dsh_a) * (z_hi + a * dzh_a)).sum(dim=(1, 2))
+                  + ((s_lo + a * dsl_a) * (z_lo + a * dzl_a)).sum(dim=(1, 2))
+                  ) / n_comp
+        ratio = mu_aff / torch.clamp(mu, min=1e-300)
+        smu = col(ratio * ratio * ratio * mu)
+
+        # centering-corrector (zero other residuals)
+        zr = torch.zeros_like
+        d_c = kkt_step(z_hi, z_lo, s_hi, s_lo, *(zr(r) for r in rs[:6]),
+                       dsh_a * dzh_a - smu, dsl_a * dzl_a - smu)
+        dx, du, dl, dsh, dsl, dzh, dzl = (
+            p + q for p, q in zip((dx_a, du_a, dl_a, dsh_a, dsl_a, dzh_a,
+                                   dzl_a), d_c))
+        alpha = col(0.99 * max_step((s_hi, s_lo, z_hi, z_lo),
+                                    (dsh, dsl, dzh, dzl)))
+        ms = cfg.min_slack
+        state = (x + alpha * dx, u + alpha * du, lam + alpha * dl,
+                 torch.clamp(z_hi + alpha * dzh, min=ms),
+                 torch.clamp(z_lo + alpha * dzl, min=ms),
+                 torch.clamp(s_hi + alpha * dsh, min=ms),
+                 torch.clamp(s_lo + alpha * dsl, min=ms))
+
+    total, _ = resid_norm(full_residuals(*state))
+    better = col(total < b_tot)
+    out = (torch.where(better, a, b) for a, b in zip(state, best))
+    return TrajQPSolution(*out, resids=torch.minimum(total, b_tot))
+
+
+def traj_qp_layer(C: Tensor, c: Tensor, A: Tensor, B: Tensor, f: Tensor,
+                  x0: Tensor, bounds: Bounds,
+                  cfg: TrajQPConfig = TrajQPConfig()) -> Tensor:
+    """w = [x, u] [bsz, T, n] of the QP, solved cold (u from the box
+    midpoint, x from its affine rollout). Forward only: the implicit
+    backward (∂ w.r.t. C, c, x0) comes with the training path."""
+    sol = solve(C, c, A, B, f, x0, bounds, cfg)
+    return torch.cat([sol.x, sol.u], dim=-1)
+
+
+def traj_qp_layer_static(C: Tensor, c: Tensor, A: Tensor, B: Tensor,
+                         f: Tensor, x0: Tensor, bounds: Bounds,
+                         cfg: TrajQPConfig) -> Tensor:
+    """traj_qp_layer for the fused kernel, whose box bounds are python
+    float tuples (run-time scalars of K4, static constants of the JAX
+    kernel); tensor bounds raise."""
+    if isinstance(bounds.u_lo, Tensor) or isinstance(bounds.u_hi, Tensor):
+        raise TypeError("traj_qp_layer_static takes the box bounds as "
+                        "python float tuples")
+    return traj_qp_layer(C, c, A, B, f, x0, bounds, cfg)

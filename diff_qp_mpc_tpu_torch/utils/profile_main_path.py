@@ -1,11 +1,12 @@
 """Where the main path's time goes on the card.
 
-Runs the evaluate entry point's policy closed-loop on the pendulum (the
-committed checkpoint, 64 episodes) and traces a window of steps with
-torch.profiler, once per solver path. Prints one JSON line per path: host
-ms per closed-loop step, device busy ms per step (kernels, copies and
-memsets from the trace), the device's idle share, launches per step, and the
-kernels that take the most device time.
+Runs the evaluate entry point's policy closed-loop on the pendulum (64
+episodes) and traces a window of steps with torch.profiler, once per solver
+path: the AL checkpoint on the scan (K1) and fused (K2) paths, the ip
+checkpoint on the ip scan (K3) and ip fused (K4) paths. Prints one JSON line
+per path: host ms per closed-loop step, device busy ms per step (kernels,
+copies and memsets from the trace), the device's idle share, launches per
+step, and the kernels that take the most device time.
 
     python -m diff_qp_mpc_tpu_torch.utils.profile_main_path [--steps 10]
 
@@ -27,6 +28,10 @@ from diff_qp_mpc_tpu_torch.learning.train import make_policy
 from diff_qp_mpc_tpu_torch.utils.checkpoint import load_policy_params
 
 CKPT = "logs/deqmpc_pendulum_sac_fused_T5_bsz256/ckpt.msgpack"
+IP_CKPT = "logs/deqmpc_pendulum_ip_fused_v2/ckpt.msgpack"
+# path name -> (checkpoint, --fused)
+PATHS = {"scan": (CKPT, False), "fused": (CKPT, True),
+         "ip-scan": (IP_CKPT, False), "ip-fused": (IP_CKPT, True)}
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -48,11 +53,12 @@ def _trace_device_time(path: str):
     return busy, kernels
 
 
-def profile_path(fused: bool, steps: int, warmup: int, episodes: int,
+def profile_path(name: str, steps: int, warmup: int, episodes: int,
                  out: str, seed: int = 0):
     from torch.profiler import ProfilerActivity, profile
 
-    argv = ["--env", "pendulum", "--deq", "--ckpt", CKPT] + (
+    ckpt, fused = PATHS[name]
+    argv = ["--env", "pendulum", "--deq", "--ckpt", ckpt] + (
         ["--fused"] if fused else [])
     args = evaluate.parse_args(argv)
     device = torch.device("cuda")
@@ -78,7 +84,6 @@ def profile_path(fused: bool, steps: int, warmup: int, episodes: int,
         for _ in range(steps):
             state = step(state)
         wall_us = (time.perf_counter() - t0) * 1e6
-    name = "fused" if fused else "scan"
     os.makedirs(out, exist_ok=True)
     trace = os.path.join(out, f"trace_main_path_{name}.json")
     prof.export_chrome_trace(trace)
@@ -110,8 +115,8 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profiling the main path needs a CUDA device")
-    for fused in (False, True):
-        print(json.dumps(profile_path(fused, args.steps, args.warmup,
+    for name in PATHS:
+        print(json.dumps(profile_path(name, args.steps, args.warmup,
                                       args.episodes, args.out)), flush=True)
 
 

@@ -10,7 +10,14 @@ import torch
 
 from diff_qp_mpc_tpu_torch.core.types import ALState, Bounds, DiagQuadCost
 from diff_qp_mpc_tpu_torch.models import Pendulum
-from diff_qp_mpc_tpu_torch.ops import al_fused_cuda, btsolve, btsolve_cuda
+from diff_qp_mpc_tpu_torch.ops import (
+    al_fused_cuda,
+    btsolve,
+    btsolve_cuda,
+    riccati,
+    riccati_cuda,
+    trajqp_fused_cuda,
+)
 from diff_qp_mpc_tpu_torch.solvers import al_mpc
 
 pytestmark = pytest.mark.cuda
@@ -86,3 +93,84 @@ def test_solve_fused_stateful_launches_once_per_al_iteration(cuda):
         Bounds(u_lo=(-3.0,), u_hi=(3.0,)), st, al_mpc.ALConfig())
     assert al_fused_cuda.launches == before + 2
     assert torch.isfinite(x).all() and torch.isfinite(stats.dyn_res).all()
+
+
+def _lqr_problem(B, T, nx, nu, dtype, device, seed=0):
+    """Random LQR-KKT system with SPD stage costs (K3's inputs)."""
+    rng = np.random.RandomState(seed)
+    M = rng.randn(B, T, nx, nx)
+    Mu = rng.randn(B, T, nu, nu)
+    arrays = (M @ M.transpose(0, 1, 3, 2) + np.eye(nx),
+              0.2 * rng.randn(B, T, nx, nu),
+              Mu @ Mu.transpose(0, 1, 3, 2) + np.eye(nu),
+              rng.randn(B, T, nx), rng.randn(B, T, nu),
+              np.eye(nx) + 0.1 * rng.randn(B, T - 1, nx, nx),
+              0.2 * rng.randn(B, T - 1, nx, nu),
+              0.1 * rng.randn(B, T - 1, nx), rng.randn(B, nx))
+    return [torch.tensor(a, dtype=dtype, device=device) for a in arrays]
+
+
+@pytest.mark.parametrize("T,nx,nu", riccati_cuda.BUILT)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-10)])
+def test_riccati_kernel_matches_plain(cuda, T, nx, nu, dtype, tol):
+    args = _lqr_problem(100, T, nx, nu, dtype, cuda, seed=nx)
+    before = riccati_cuda.launches
+    out = riccati_cuda.batched_lqr_kkt_solve(*args, 1e-9)
+    assert riccati_cuda.launches == before + 1
+    ref = riccati.batched_lqr_kkt_solve(*args, 1e-9)
+    for got, want in zip(out, (ref.dx, ref.du, ref.lam)):
+        assert float((got - want).abs().max() / want.abs().max()) <= tol
+
+
+def test_riccati_kernel_refuses_unbuilt_size(cuda):
+    args = _lqr_problem(4, 4, 2, 1, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        riccati_cuda.batched_lqr_kkt_solve(*args)
+
+
+def _trajqp_problem(B, T, nx, nu, dtype, device, seed=0):
+    """Random box-constrained trajectory QP (tests/test_trajqp_fused.py's
+    inputs) and a cold start: u at the box midpoint, x its rollout."""
+    n = nx + nu
+    rng = np.random.RandomState(seed)
+    M = rng.randn(B, T, n, n)
+    arrays = (0.1 * M @ M.transpose(0, 1, 3, 2) + np.eye(n),
+              0.3 * rng.randn(B, T, n),
+              np.eye(nx) + 0.1 * rng.randn(B, T - 1, nx, nx),
+              0.3 * rng.randn(B, T - 1, nx, nu),
+              0.1 * rng.randn(B, T - 1, nx), 0.5 * rng.randn(B, nx))
+    C, c, A, Bm, f, x0 = (torch.tensor(a, dtype=dtype, device=device)
+                          for a in arrays)
+    xs = [x0]
+    for t in range(T - 1):  # u = 0
+        xs.append((A[:, t] @ xs[-1][..., None])[..., 0] + f[:, t])
+    return (C, c, A, Bm, f, x0, torch.stack(xs, 1),
+            torch.zeros(B, T, nu, dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("T,nx,nu", trajqp_fused_cuda.BUILT)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-8)])
+def test_trajqp_fused_kernel_matches_plain(cuda, T, nx, nu, dtype, tol):
+    args = _trajqp_problem(100, T, nx, nu, dtype, cuda, seed=nx)
+    box = ((-1.5,) * nu, (1.5,) * nu)
+    before = trajqp_fused_cuda.launches
+    out = trajqp_fused_cuda.fused_trajqp_solve(*args, *box)
+    assert trajqp_fused_cuda.launches == before + 1
+    ref = trajqp_fused_cuda.fused_trajqp_solve_reference(*args, *box)
+    # all eight outputs (x, u, λ, z_hi, z_lo, s_hi, s_lo, resids), each
+    # error over max(1, the field's largest entry), as chip_smoke.py
+    names = ("x", "u", "lam", "z_hi", "z_lo", "s_hi", "s_lo", "resids")
+    assert len(out) == len(ref) == len(names)
+    for name, got, want in zip(names, out, ref):
+        assert bool(torch.isfinite(got).all()), name
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) / scale <= tol, name
+    assert float(out[1].abs().max()) <= 1.5 + 1e-4
+
+
+def test_trajqp_fused_kernel_refuses_unbuilt_size(cuda):
+    args = _trajqp_problem(4, 5, 2, 2, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        trajqp_fused_cuda.fused_trajqp_solve(*args, (-1.0,) * 2, (1.0,) * 2)

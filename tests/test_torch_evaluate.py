@@ -1,6 +1,7 @@
 """The port's evaluate entry point: a short closed loop of the committed
 pendulum checkpoint against the JAX package's evaluate_policy from the same
-initial states, the meta.json adoption rules, and the device rule."""
+initial states, the meta.json adoption rules, the device rule, and a short
+CPU evaluation of the ip checkpoint on both ip solver paths."""
 import jax
 import numpy as np
 import pytest
@@ -8,6 +9,7 @@ import torch
 
 from _torch_port_common import (
     CKPT,
+    IP_CKPT,
     jax_params,
     jax_policy,
     policy_argv,
@@ -79,6 +81,43 @@ def test_adopted_policy_solves_fresh(fused):
     assert pol.tracking.use_fused is fused
     assert pol.tracking.carry is False
     assert pol.tracking.cfg.al_iter == 2 and pol.deq_iter == 6
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["scan", "fused"])
+def test_ip_checkpoint_adopts_its_solver(fused):
+    """The ip checkpoint's meta.json sets solver_type ip and out_type 1;
+    make_policy builds the SQP tracker (K4's IPM with --fused)."""
+    from diff_qp_mpc_tpu_torch.envs import make_env
+    from diff_qp_mpc_tpu_torch.learning.train import make_policy
+
+    args = evaluate.parse_args(["--env", "pendulum", "--deq", "--ckpt",
+                                IP_CKPT] + (["--fused"] if fused else []))
+    assert (args.solver_type, args.deq_out_type, args.qp_iter,
+            args.terminal_lqr) == ("ip", 1, 2, False)
+    pol = make_policy(args, make_env(args.env))
+    assert pol.tracking.solver_type == "ip" and pol.out_type == 1
+    assert pol.tracking.sqp_cfg.qp_iter == 2
+    assert pol.tracking.sqp_cfg.qp.kernel == ("fused" if fused else "scan")
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["scan", "fused"])
+def test_ip_closed_loop_on_cpu(fused):
+    """8 episodes × 30 steps of the ip checkpoint through evaluate.main on
+    the CPU (the kernels' plain versions): finite metrics. Thirty steps do
+    not finish the swing-ups, so success is not required here; the card's
+    64-episode run (chip_smoke.py) holds it to 0.95."""
+    from diff_qp_mpc_tpu_torch.ops import riccati_cuda, trajqp_fused_cuda
+
+    k3, k4 = riccati_cuda.launches, trajqp_fused_cuda.launches
+    metrics = evaluate.main(["--env", "pendulum", "--deq", "--ckpt", IP_CKPT,
+                             "--device", "cpu", "--episodes", "8",
+                             "--max_steps", "30"]
+                            + (["--fused"] if fused else []))
+    assert (riccati_cuda.launches, trajqp_fused_cuda.launches) == (k3, k4)
+    assert metrics["episodes"] == 8 and 0 < metrics["steps_run"] <= 30
+    for k in ("success_rate", "mean_reward", "mean_episode_len",
+              "median_final_goal_err"):
+        assert np.isfinite(metrics[k]), k
 
 
 def test_entry_point_needs_cuda_unless_cpu_is_asked(capsys):
