@@ -15,31 +15,64 @@ Phases, each of which raises on failure (there is no CPU fallback):
      20, rho_max 1e6, reg 1e-7), B 64 and 256, float32 and float64;
   4. K3 (the Riccati LQR-KKT solve, csrc/riccati.cu) against its plain
      version on random SPD problems, T 5, (nx, nu) = (2, 1), B 64 (the ip
-     path's shape), 256 and 4096, float32 and float64;
+     path's shape), 256 and 4096, and (4, 1), B 4096 (the K4 profiler's
+     third case), float32 and float64;
   5. K4 (the whole trajectory-QP IPM, csrc/trajqp_fused.cu) against its
      plain version on pendulum tracking QPs at the ip path's budget
-     (max_iter 12, reg 1e-9, box ±3), B 64 and 256, float32 and float64;
-  6. one DEQ-MPC policy forward on the card against the same forward on the
+     (max_iter 12, reg 1e-9, box ±3), B 64 and 256, and on the K4
+     profiler's (4, 1) problem, B 256, float32 and float64;
+  6. K5 (the saturated sin chain, csrc/sin_chain.cu) against its plain
+     version at 64 tiles, 8 streams, 256 sins, float32;
+  7. one DEQ-MPC policy forward on the card against the same forward on the
      CPU (float64), for the AL checkpoint on both AL paths and the ip
      checkpoint on both ip paths;
-  7. the main paths: closed-loop evaluation through the evaluate entry point,
+  8. the main paths: closed-loop evaluation through the evaluate entry point,
      64 episodes of up to 200 steps, of the AL checkpoint on the scan path
      (K1) and the fused path (K2), and of the ip checkpoint on the ip scan
      path (K3) and the ip fused path (K4). The launch counts are set to 0
      just before each run and read just after; each path must launch its
      kernel, the ip paths no other and exactly 432 (K3) or 18 (K4) per
-     closed-loop step, and each must reach a success rate of at least 0.95.
+     closed-loop step, and each must reach a success rate of at least 0.95;
+  9. the roofline path, counts set to 0 before it and read after: the
+     roofline entry point's functions in quick mode (K2 at B 262144 at the
+     reference budget, K5's saturated rate from both chain lengths), then
+     the K4 profiler's three cases (K4 against the scan IPM on K3), with
+     fewer timing windows than the full runs. Every share of a bound must
+     lie in [0, 1.1], K5's slope must be positive and K5 must have been
+     launched; after the counts are read, K5 at the roofline's shape (4096
+     tiles, 8 streams, 4096 sins) and K2 at its problem (B 262144, rho_max
+     1e4, reg 1e-5, float32 and float64) are held against their plain
+     versions, and K4 and the scan IPM must agree on u on the profiler's
+     cases (PROF_U_TOL, float32 and float64).
+Bounds: the larger of the bytes over the HBM rate and the operations over
+the float32 peak (diff_qp_mpc_tpu_torch/benchmarks/flops.py); each sin or
+cos counts as the 15 FP32 instructions of its fast path (SINF_FP32_INSTR).
 It prints one JSON line per kernel summary, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.
 """
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from diff_qp_mpc_tpu_torch.benchmarks.flops import (
+    SINF_FP32_INSTR,
+    bound,
+    k1_bytes,
+    k1_ops,
+    k2_bytes,
+    k2_ops,
+    k2_ops_with_sin,
+    k3_bytes,
+    k3_ops,
+    k4_bytes,
+    k4_ops,
+    k5_bytes,
+    k5_ops,
+)
 
 CKPT = "logs/deqmpc_pendulum_sac_fused_T5_bsz256/ckpt.msgpack"
 # the ip (interior-point SQP) tracking checkpoint, out_type 1
@@ -48,10 +81,6 @@ EPISODES, MAX_STEPS = 64, 200
 MIN_SUCCESS = 0.95
 T, NX, NU = 5, 2, 1
 N = NX + NU
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 outside the
-# tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 # K2's budget on the main path (ALConfig defaults, qp_iter 2)
 AL_BUDGET = dict(al_iter=2, n_newton=4, n_ls=20, rho_factor=10.0,
                  rho_max=1e6, reg=1e-7)
@@ -88,6 +117,36 @@ K4_FIELDS = ("x", "u", "lam", "z_hi", "z_lo", "s_hi", "s_lo", "resids")
 # × 2 Riccati solves on the scan path, one K4 launch on the fused path)
 IP_LAUNCHES_PER_STEP = {"ip-scan": ("K3", 6 * 3 * 12 * 2),
                         "ip-fused": ("K4", 6 * 3)}
+# K5 at 64 tiles, 8 streams, 256 sins: each output is a sum of 8 chains in
+# (0, 1). sin is contractive on (0, 1], so a one- or two-ulp difference per
+# step between the kernel's sinf and PyTorch's sin does not grow along the
+# chain; 1e-5 absolute on sums of magnitude ≤ 8 is ~20 float32 ulps of 8
+K5_SHAPE = dict(n_tiles=64, n_streams=8, n_ops=256)
+K5_TOL = 1e-5
+# K2 on the roofline's problem (B 262144, rho_max 1e4, reg 1e-5): at this
+# budget the solve is discontinuous in its inputs for a few elements (the
+# line search's first minimum and the ±3 bound switch), so a per-element
+# tolerance cannot hold for all 262144. Measured with the plain version on
+# the CPU, B 65536: float32 alone moves 0.22% of the elements by more than
+# 1e-2 on xu (54 by more than 1; median 2.0e-5 on xu, 4.7e-8 on res), one
+# float32 ulp in x0 moves 0.07%; in float64 a relative change of 1e-7 in
+# x0 moves 0.008% by more than 1e-6. So each element is held to K2_TOL's
+# xu tolerance, and the share of elements outside it to ROOF_K2_SHARE
+# (about five and thirteen times those shares); the median element error
+# on xu and the median |Δres| to ROOF_K2_MEDIAN
+ROOF_K2_SHARE = {torch.float32: 1e-2, torch.float64: 1e-3}
+ROOF_K2_MEDIAN = {torch.float32: 1e-3, torch.float64: 1e-8}
+# K4 against the scan IPM (on K3) on the K4 profiler's cases, max |Δu|.
+# float64: the two run one IPM and differ only in corner semantics these
+# QPs do not reach (≤ 5.8e-10 on u, plain versions on the CPU, B 4096),
+# held to 1e-8. float32: the last stage's u sits at the ±1.5 box, where 12
+# IPM iterations stall in float32; float32 alone moves each path up to
+# 2.5e-3 from its float64 solution on these QPs (plain versions on the CPU,
+# B 16384), so the two are held to twice that. (The JAX profiler saw
+# ≤ 1.4e-3 on its own chip; each run records the float32 paths' errors.)
+PROF_U_TOL = {torch.float32: 5e-3, torch.float64: 1e-8}
+# timing windows of the roofline phase (the full runs take 10 × 5)
+ROOF_REP, ROOF_OUTER = 3, 3
 
 
 def log(*a):
@@ -132,26 +191,7 @@ def device_kernel_ms(fn, reps, name):
     return total / count / 1e3
 
 
-def bound(nbytes, nops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 # ---------------------------------------------------------------- K1 ----
-def k1_ops(T_, n):
-    """Floating-point operations of one element's factor + solve, counted
-    from csrc/btsolve.cu (a multiply-subtract is 2, a divide or sqrt 1)."""
-    chol = sum(2 * j + 1 for i in range(n) for j in range(i + 1))
-    lower_mat = n ** 3
-    schur = n * n * (n + 1) + n
-    tri = n * n  # one triangular vector solve
-    stage0 = n + chol + tri
-    stage = lower_mat + schur + chol + 2 * n * n + tri
-    backward = tri + (T_ - 1) * (2 * n * n + tri)
-    return stage0 + (T_ - 1) * stage + backward
-
-
 def random_bt_spd(B, T_, n, dtype, seed):
     """SPD block-tridiagonal H = L Lᵀ, L block lower bidiagonal with
     well-conditioned diagonal blocks; returns D, O, b on the card."""
@@ -198,8 +238,7 @@ def phase_k1():
                 row["plain_ms"] = cuda_ms(
                     lambda: btsolve.batched_factor_solve(D, O, b, reg), 20)
                 row["library_ms"] = cuda_ms(library, 50)
-                nbytes = 4 * B * (T * N * N + (T - 1) * N * N + 2 * T * N)
-                row["bound_ms"], row["bound_by"] = bound(nbytes,
+                row["bound_ms"], row["bound_by"] = bound(B * k1_bytes(T, N),
                                                          B * k1_ops(T, N))
                 rows[B] = row
             log("K1", json.dumps(row))
@@ -210,28 +249,6 @@ def phase_k1():
 
 
 # ---------------------------------------------------------------- K2 ----
-def k2_ops(T_, nx, nu, al_iter, n_newton, n_ls):
-    """Floating-point operations of one element's solve, counted from
-    csrc/al_fused.cu with the pendulum functor (step 8 incl. one sin,
-    Jacobian 9 incl. one cos; a multiply-add is 2, a compare or select 0)."""
-    n = nx + nu
-    step, jac = 8, 9
-    dyn_terms = (T_ - 1) * (step + nx * 7)  # r, λr, ρ/2 r²
-    bound_terms = T_ * nu * 14
-    constraints = dyn_terms + bound_terms
-    cost_terms = T_ * n * 5
-    grad = ((T_ - 1) * (step + jac + nx * 3) + T_ * n * 2
-            + (T_ - 1) * (2 * nx * nx + 2 * nu * nx + nx) + T_ * nu * 10)
-    gtg = n * (n + 1) // 2 * (2 * nx + 2)
-    build = T_ * (n + nx + 2 * nu) + (T_ - 1) * (gtg + 2 * nx * n)
-    newton = (grad + build + k1_ops(T_, n) + T_ * n + T_ * n * 11
-              + n_ls * (2 * T_ * n + constraints + 5) + 2 * T_ * n)
-    al_update = (T_ - 1) * (step + nx * 3) + T_ * nu * 6 + 2
-    per_al = constraints + cost_terms + n_newton * newton + al_update
-    residual = (T_ - 1) * (step + nx * 3) + T_ * nu * 6 + 1
-    return al_iter * per_al + residual
-
-
 def k2_inputs(B, dtype, seed):
     """Tracking problems like the policy's: x0 in the pendulum env's range,
     a reference that drifts from x0, Cd = (Q, R), c = −Cd·τ_ref."""
@@ -248,6 +265,8 @@ def k2_inputs(B, dtype, seed):
 
 
 def phase_k2():
+    """K2 against its plain version; its bound counts each sin or cos as
+    SINF_FP32_INSTR FP32 instructions (and, beside it, as one operation)."""
     from diff_qp_mpc_tpu_torch.models import Pendulum
     from diff_qp_mpc_tpu_torch.ops import al_fused_cuda
 
@@ -280,13 +299,14 @@ def phase_k2():
                 row["plain_ms"] = cuda_ms(
                     lambda: al_fused_cuda.fused_al_solve_reference(
                         *args, **AL_BUDGET), 3, warmup=1)
-                ins = (2 * T * N + NX + T * NX + T * NU + (T - 1) * NX
-                       + 2 * T * NU + 1)
-                outs = T * N + (T - 1) * NX + 2 * T * NU + 1
                 budget = {k: AL_BUDGET[k] for k in
                           ("al_iter", "n_newton", "n_ls")}
+                nbytes = B * k2_bytes(T, NX, NU)
                 row["bound_ms"], row["bound_by"] = bound(
-                    4 * B * (ins + outs), B * k2_ops(T, NX, NU, **budget))
+                    nbytes, B * k2_ops_with_sin(
+                        T, NX, NU, **budget, sin_fp32_instr=SINF_FP32_INSTR))
+                row["bound_ms_sin_as_one_op"] = bound(
+                    nbytes, B * k2_ops(T, NX, NU, **budget))[0]
                 rows[B] = row
             log("K2", json.dumps(row))
             if not ok:
@@ -296,30 +316,6 @@ def phase_k2():
 
 
 # ---------------------------------------------------------------- K3 ----
-def _mm_ops(r, k, c):
-    """Operations of an r×k by k×c product: a first product, then k−1
-    multiply-adds of 2 per entry."""
-    return r * c * (2 * k - 1)
-
-
-def k3_ops(T_, nx, nu):
-    """Floating-point operations of one element's Riccati solve, counted
-    from csrc/riccati_common.cuh (a multiply-add is 2, a divide or sqrt 1,
-    a negation 0)."""
-    chol = sum(2 * j + 1 for i in range(nu) for j in range(i + 1))
-    dyn = (_mm_ops(nx, nx, nx) + _mm_ops(nx, nx, nu) + _mm_ops(nx, nx, 1)
-           + nx  # PA, PB, m = P r + p
-           + _mm_ops(nx, nx, nx) + nx * nx + _mm_ops(nx, nx, nu) + nx * nu
-           + _mm_ops(nu, nx, nu) + nu * nu  # Qxx, Qxu, Quu
-           + _mm_ops(nx, nx, 1) + nx + _mm_ops(nu, nx, 1) + nu)  # qx, qu
-    stage = (nu + chol + (nx + 1) * 2 * nu * nu  # reg, Cholesky, K and k
-             + _mm_ops(nx, nu, nx) + nx * nx + nx * (nx - 1)  # P, symmetrize
-             + _mm_ops(nx, nu, 1) + nx)  # p
-    fwd = _mm_ops(nu, nx, 1) + nu + _mm_ops(nx, nx, 1) + nx  # du, λ
-    fwd_dyn = _mm_ops(nx, nx, 1) + _mm_ops(nx, nu, 1) + 2 * nx
-    return (T_ - 1) * dyn + T_ * stage + T_ * fwd + (T_ - 1) * fwd_dyn
-
-
 def lqr_problem(B, T_, nx, nu, dtype, seed):
     """Random LQR-KKT system with SPD stage costs, on the card."""
     rng = np.random.RandomState(seed)
@@ -390,8 +386,9 @@ def phase_k3():
     reg = IP_BUDGET["reg"]
     rows = {}
     for dtype in (torch.float32, torch.float64):
-        for B in (64, 256, 4096):
-            args = lqr_problem(B, T, NX, NU, dtype, seed=B)
+        for nx, nu, B in ((NX, NU, 64), (NX, NU, 256), (NX, NU, 4096),
+                          (4, 1, 4096)):
+            args = lqr_problem(B, T, nx, nu, dtype, seed=B)
             kern = lambda: riccati_cuda.batched_lqr_kkt_solve(*args, reg)
             out_k = kern()
             ref = riccati.batched_lqr_kkt_solve(*args, reg)
@@ -399,9 +396,9 @@ def phase_k3():
             abs_err, err = _max_errs(out_k, (ref.dx, ref.du, ref.lam))
             ok = all(bool(torch.isfinite(o).all()) for o in out_k) \
                 and err <= K3_TOL[dtype]
-            row = dict(B=B, dtype=str(dtype), max_rel_err=err,
+            row = dict(B=B, nx=nx, nu=nu, dtype=str(dtype), max_rel_err=err,
                        max_abs_err=abs_err, tol=K3_TOL[dtype])
-            if dtype == torch.float32:
+            if dtype == torch.float32 and (nx, nu) == (NX, NU):
                 Kd, rhs = dense_kkt(*args, reg)
                 library = lambda: torch.linalg.solve(Kd, rhs)
                 _, lib_err = _max_errs(dense_kkt_split(library(), T, NX, NU),
@@ -413,11 +410,8 @@ def phase_k3():
                 row["plain_ms"] = cuda_ms(
                     lambda: riccati.batched_lqr_kkt_solve(*args, reg), 20)
                 row["library_ms"] = cuda_ms(library, 50)
-                ins = (T * (NX * NX + NX * NU + NU * NU + NX + NU)
-                       + (T - 1) * (NX * NX + NX * NU + NX) + NX)
-                outs = T * (2 * NX + NU)
                 row["bound_ms"], row["bound_by"] = bound(
-                    4 * B * (ins + outs), B * k3_ops(T, NX, NU))
+                    B * k3_bytes(T, NX, NU), B * k3_ops(T, NX, NU))
                 rows[B] = row
             log("K3", json.dumps(row))
             if not ok:
@@ -427,24 +421,6 @@ def phase_k3():
 
 
 # ---------------------------------------------------------------- K4 ----
-def k4_ops(T_, nx, nu, max_iter):
-    """Floating-point operations of one element's IPM, counted from
-    csrc/trajqp_fused.cu as k3_ops counts (a compare or select 0)."""
-    resid = (T_ * nx * (2 * nx + 2 * nu) + T_ * nu * (2 + 2 * nx + 2 * nu)
-             + (T_ - 1) * (nx * (2 * nx + 1) + nu * 2 * nx) + nx
-             + (T_ - 1) * nx * (1 + 2 * nx + 2 * nu) + nx + 6 * T_ * nu)
-    norm = (2 * T_ * nu + 1
-            + 2 * ((T_ - 1) * nx + nx + 2 * T_ * nu + T_ * nx + T_ * nu)
-            + 6 + 9)  # squares, six square roots, the sums
-    kkt = 12 * T_ * nu + k3_ops(T_, nx, nu) + 8 * T_ * nu
-    step = 2 * 4 * T_ * nu  # divide and minimum per (v, dv) pair
-    per_iter = (resid + norm + 2 * kkt + 2 * step + 1
-                + 10 * T_ * nu + 1 + 5  # μ_aff, σμ
-                + 4 * T_ * nu + T_ * (2 * nx + 5 * nu)  # corrector rhs, sum
-                + T_ * (4 * nx + 14 * nu))  # the update and clamps
-    return max_iter * per_iter + resid + norm
-
-
 def k4_inputs(B, dtype, seed):
     """Pendulum tracking QPs as the ip path's first SQP QP poses them: the
     dynamics linearized along a reference that drifts from x0, C = diag(Q,
@@ -478,6 +454,7 @@ def k4_errors(got, want):
 
 
 def phase_k4():
+    from diff_qp_mpc_tpu_torch.benchmarks import prof_trajqp_fused as prof
     from diff_qp_mpc_tpu_torch.ops import trajqp_fused_cuda
 
     rows = {}
@@ -512,18 +489,160 @@ def phase_k4():
                 row["plain_ms"] = cuda_ms(
                     lambda: trajqp_fused_cuda.fused_trajqp_solve_reference(
                         *args, **IP_BUDGET), 3, warmup=1)
-                ins = (T * N * N + T * N + (T - 1) * (NX * NX + NX * NU + NX)
-                       + NX + T * N)
-                outs = T * (2 * NX + 5 * NU) + 1
                 row["bound_ms"], row["bound_by"] = bound(
-                    4 * B * (ins + outs),
+                    B * k4_bytes(T, NX, NU),
                     B * k4_ops(T, NX, NU, IP_BUDGET["max_iter"]))
                 rows[B] = row
             log("K4", json.dumps(row))
             if not ok:
                 raise RuntimeError(f"K4 disagrees with its plain version: "
                                    f"{row}")
+    budget = dict(max_iter=prof.MAX_ITER, reg=prof.REG)
+    for dtype in (torch.float32, torch.float64):
+        args, bounds = prof.problem(256, T, 4, 1, dtype)
+        args = (*args, *prof.cold_start(*args), bounds.u_lo, bounds.u_hi)
+        out_k = trajqp_fused_cuda.fused_trajqp_solve(*args, **budget)
+        out_p = trajqp_fused_cuda.fused_trajqp_solve_reference(*args,
+                                                               **budget)
+        torch.cuda.synchronize()
+        errs = k4_errors(out_k, out_p)
+        row = dict(B=256, nx=4, nu=1, dtype=str(dtype), scaled_err=errs,
+                   tol=K4_TOL[dtype])
+        log("K4", json.dumps(row))
+        if not (all(bool(torch.isfinite(o).all()) for o in out_k)
+                and max(errs.values()) <= K4_TOL[dtype]):
+            raise RuntimeError(f"K4 disagrees with its plain version: {row}")
     return rows
+
+
+# ---------------------------------------------------------------- K5 ----
+def phase_k5():
+    """K5 against its plain version at K5_SHAPE, timed, with its bound (each
+    sin as SINF_FP32_INSTR FP32 instructions)."""
+    from diff_qp_mpc_tpu_torch.ops import sin_chain_cuda
+
+    n_tiles, n_streams, n_ops = (K5_SHAPE[k] for k in
+                                 ("n_tiles", "n_streams", "n_ops"))
+    rng = np.random.RandomState(0)
+    x = torch.tensor(rng.uniform(0.1, 0.9, (n_tiles, n_streams, 8, 128)),
+                     dtype=torch.float32, device="cuda")
+    kern = lambda: sin_chain_cuda.sin_chain(x, n_ops)
+    out_k = kern()
+    out_p = sin_chain_cuda.sin_chain_reference(x, n_ops)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    row = dict(K5_SHAPE, max_abs_err=err, tol=K5_TOL,
+               out_absmax=float(out_k.abs().max()))
+    row["ms_events"] = cuda_ms(kern, 50)
+    row["ms"] = device_kernel_ms(kern, 20, "sin_chain_kernel")
+    row["plain_ms"] = cuda_ms(
+        lambda: sin_chain_cuda.sin_chain_reference(x, n_ops), 3, warmup=1)
+    row["bound_ms"], row["bound_by"] = bound(
+        k5_bytes(n_tiles, n_streams),
+        k5_ops(n_tiles, n_streams, n_ops, SINF_FP32_INSTR))
+    log("K5", json.dumps(row))
+    if not (bool(torch.isfinite(out_k).all()) and err <= K5_TOL):
+        raise RuntimeError(f"K5 disagrees with its plain version: {row}")
+    return row
+
+
+# ---------------------------------------------------------- roofline ----
+def phase_roofline():
+    """The roofline entry point's functions in quick mode and the K4
+    profiler's cases, with the launch counts set to 0 before and read
+    after; K5 must have been launched."""
+    from diff_qp_mpc_tpu_torch.benchmarks import prof_trajqp_fused as prof
+    from diff_qp_mpc_tpu_torch.benchmarks import roofline_fused
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    roof = roofline_fused.roofline(quick=True, n_rep=ROOF_REP,
+                                   n_outer=ROOF_OUTER)
+    log("roofline", json.dumps(roof))
+    cases = []
+    for case in prof.CASES:
+        row = prof.bench(*case, n_rep=ROOF_REP, n_outer=ROOF_OUTER)
+        log("prof_trajqp_fused", json.dumps(row))
+        cases.append(row)
+    counts = {k: w.launches for k, w in wrappers.items()}
+    log("roofline launches", json.dumps(counts))
+    if counts["K5"] <= 0:
+        raise RuntimeError("the roofline path launched K5 no time")
+    check_roofline_k5()
+    check_roofline_k2()
+    for case in prof.CASES:
+        u = {}
+        for dtype in PROF_U_TOL:
+            args, bounds = prof.problem(*case, dtype=dtype)
+            u.update({(k, dtype): prof.solve_u(args, bounds, k)
+                      for k in ("scan", "fused")})
+        diff = {str(dt): float((u["fused", dt] - u["scan", dt]).abs().max())
+                for dt in PROF_U_TOL}
+        f32_err = {k: float((u[k, torch.float32].double()
+                             - u["scan", torch.float64]).abs().max())
+                   for k in ("scan", "fused")}
+        row = dict(zip(("B", "T", "nx", "nu"), case), max_abs_u_diff=diff,
+                   tol={str(dt): v for dt, v in PROF_U_TOL.items()},
+                   f32_vs_f64_u=f32_err)
+        log("prof agreement", json.dumps(row))
+        if not all(diff[str(dt)] <= tol for dt, tol in PROF_U_TOL.items()):
+            raise RuntimeError(f"K4 and the scan IPM disagree on u: {row}")
+    return dict(roofline=roof, prof=cases, launches=counts)
+
+
+def check_roofline_k5():
+    """K5 against its plain version on the roofline's input and its shorter
+    chain."""
+    from diff_qp_mpc_tpu_torch.benchmarks import roofline_fused as rf
+    from diff_qp_mpc_tpu_torch.ops import sin_chain_cuda
+
+    x = rf.sin_input()
+    n_ops = rf.SIN_CHAINS[0]
+    out_k = sin_chain_cuda.sin_chain(x, n_ops)
+    out_p = sin_chain_cuda.sin_chain_reference(x, n_ops)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    row = dict(n_tiles=x.shape[0], n_streams=x.shape[1], n_ops=n_ops,
+               max_abs_err=err, tol=K5_TOL)
+    log("roofline K5", json.dumps(row))
+    if not (bool(torch.isfinite(out_k).all()) and err <= K5_TOL):
+        raise RuntimeError(f"K5 disagrees with its plain version on the "
+                           f"roofline's input: {row}")
+
+
+def check_roofline_k2():
+    """K2 against its plain version on the roofline's problem and budget,
+    float32 (what the roofline times) and float64; see ROOF_K2_SHARE."""
+    from diff_qp_mpc_tpu_torch.benchmarks import roofline_fused as rf
+    from diff_qp_mpc_tpu_torch.ops import al_fused_cuda
+
+    model, *arrays = rf._problem(262144)
+    kw = dict(rf.KERNEL_KW, **rf.BASE)
+    for dtype in (torch.float32, torch.float64):
+        Cd, c, x0, xi, ui = (a.to(dtype) for a in arrays)
+        args = (model, Cd, c, x0, (-3.0,), (3.0,), xi, ui)
+        out_k = al_fused_cuda.fused_al_solve(*args, **kw)
+        out_p = al_fused_cuda.fused_al_solve_reference(*args, **kw)
+        torch.cuda.synchronize()
+        el = (out_k[0] - out_p[0]).abs().reshape(Cd.shape[0], -1).max(
+            dim=1).values
+        tol = K2_TOL[dtype][0]
+        row = dict(B=Cd.shape[0], dtype=str(dtype), **kw,
+                   share_over_tol=float((el > tol).double().mean()),
+                   median_abs_err_xu=float(el.median()),
+                   max_abs_err_xu=float(el.max()),
+                   median_abs_err_res=float(
+                       (out_k[4] - out_p[4]).abs().median()),
+                   tol=tol, share_limit=ROOF_K2_SHARE[dtype],
+                   median_limit=ROOF_K2_MEDIAN[dtype])
+        log("roofline K2", json.dumps(row))
+        if not (all(bool(torch.isfinite(o).all()) for o in out_k)
+                and row["share_over_tol"] <= ROOF_K2_SHARE[dtype]
+                and row["median_abs_err_xu"] <= ROOF_K2_MEDIAN[dtype]
+                and row["median_abs_err_res"] <= ROOF_K2_MEDIAN[dtype]):
+            raise RuntimeError(f"K2 disagrees with its plain version on the "
+                               f"roofline's problem: {row}")
 
 
 # ------------------------------------------------------------ policy ----
@@ -564,17 +683,25 @@ def phase_policy():
 
 
 # --------------------------------------------------------- main path ----
-def phase_main_path():
-    from diff_qp_mpc_tpu_torch.learning import evaluate
+def kernel_wrappers():
+    """Each kernel's wrapper module, whose ``launches`` counts its
+    launches."""
     from diff_qp_mpc_tpu_torch.ops import (
         al_fused_cuda,
         btsolve_cuda,
         riccati_cuda,
+        sin_chain_cuda,
         trajqp_fused_cuda,
     )
 
-    wrappers = {"K1": btsolve_cuda, "K2": al_fused_cuda, "K3": riccati_cuda,
-                "K4": trajqp_fused_cuda}
+    return {"K1": btsolve_cuda, "K2": al_fused_cuda, "K3": riccati_cuda,
+            "K4": trajqp_fused_cuda, "K5": sin_chain_cuda}
+
+
+def phase_main_path():
+    from diff_qp_mpc_tpu_torch.learning import evaluate
+
+    wrappers = kernel_wrappers()
     need = {"scan": "K1", "fused": "K2", "ip-scan": "K3", "ip-fused": "K4"}
     runs = {}
     for path, ckpt, flags in PATHS:
@@ -612,10 +739,11 @@ def main():
         return 1
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     from diff_qp_mpc_tpu_torch.utils import cuda_build
+    from diff_qp_mpc_tpu_torch.utils.device import card_name_and_power_limit
 
     t0 = time.perf_counter()
     logs = cuda_build.build(["btsolve", "al_fused", "riccati",
-                             "trajqp_fused"])
+                             "trajqp_fused", "sin_chain"])
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -635,8 +763,12 @@ def main():
     k2 = phase_k2()
     k3 = phase_k3()
     k4 = phase_k4()
+    k5 = phase_k5()
     phase_policy()
     runs = phase_main_path()
+    t_roof = time.perf_counter()
+    roof = phase_roofline()
+    log(f"roofline phase: {time.perf_counter() - t_roof:.1f} s")
 
     main_b = EPISODES  # the batch the main paths hand every kernel
     kernels = []
@@ -666,12 +798,22 @@ def main():
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
             "shape": f"B={main_b} T={T} nx={NX} nu={NU} float32"})
+        if kid == "K2":
+            kernels[-1]["bound_ms_sin_as_one_op"] = r["bound_ms_sin_as_one_op"]
+    kernels.append({
+        "name": "sin_chain (K5)", "route": "cuda",
+        "source": "diff_qp_mpc_tpu_torch/csrc/sin_chain.cu",
+        "replaces": "benchmarks/roofline_fused.py:116",
+        "launches": roof["launches"]["K5"],
+        "max_abs_err": k5["max_abs_err"], "tolerance": k5["tol"],
+        "ms": k5["ms"] if k5["ms"] is not None else k5["ms_events"],
+        "ms_events": k5["ms_events"], "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+        "library_ms": None,
+        "shape": "n_tiles={n_tiles} n_streams={n_streams} n_ops={n_ops} "
+                 "float32".format(**K5_SHAPE)})
     log(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    log(card_name_and_power_limit())
     log(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

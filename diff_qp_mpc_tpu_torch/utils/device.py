@@ -1,6 +1,7 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the card's record."""
 from __future__ import annotations
 
+import subprocess
 from typing import Optional, Union
 
 import torch
@@ -16,3 +17,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device is available; pass device='cpu' (--device cpu)"
             " to run on the CPU")
     return dev
+
+
+def card_name_and_power_limit() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]

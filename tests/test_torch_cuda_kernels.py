@@ -16,6 +16,7 @@ from diff_qp_mpc_tpu_torch.ops import (
     btsolve_cuda,
     riccati,
     riccati_cuda,
+    sin_chain_cuda,
     trajqp_fused_cuda,
 )
 from diff_qp_mpc_tpu_torch.solvers import al_mpc
@@ -174,3 +175,25 @@ def test_trajqp_fused_kernel_refuses_unbuilt_size(cuda):
     args = _trajqp_problem(4, 5, 2, 2, torch.float32, cuda)
     with pytest.raises(ValueError):
         trajqp_fused_cuda.fused_trajqp_solve(*args, (-1.0,) * 2, (1.0,) * 2)
+
+
+@pytest.mark.parametrize("n_streams", [1, 3, 8])
+def test_sin_chain_kernel_matches_plain(cuda, n_streams):
+    """K5 on 64 tiles, 256 sins, inputs in (0.1, 0.9); 1e-5 absolute as
+    chip_smoke.py holds it (sin is contractive on (0, 1], so per-step ulp
+    differences do not grow)."""
+    rng = np.random.RandomState(n_streams)
+    x = torch.tensor(rng.uniform(0.1, 0.9, (64, n_streams, 8, 128)),
+                     dtype=torch.float32, device=cuda)
+    before = sin_chain_cuda.launches
+    out = sin_chain_cuda.sin_chain(x, 256)
+    assert sin_chain_cuda.launches == before + 1
+    ref = sin_chain_cuda.sin_chain_reference(x, 256)
+    assert out.shape == (64, 8, 128)
+    assert float((out - ref).abs().max()) <= 1e-5
+
+
+def test_sin_chain_kernel_refuses_unbuilt_streams(cuda):
+    x = torch.full((2, 9, 8, 128), 0.5, device=cuda)
+    with pytest.raises(ValueError):
+        sin_chain_cuda.sin_chain(x, 4)

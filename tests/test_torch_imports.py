@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of diff_qp_mpc_tpu_torch, and
-not chip_smoke.py, imports JAX, flax, msgpack or the JAX package; the
-package turns TF32 off; chip_smoke.py refuses to run without a card."""
+not chip_smoke.py, imports JAX, flax, msgpack, the JAX package or the
+repo-root benchmarks (the port has its own diff_qp_mpc_tpu_torch.benchmarks);
+the package turns TF32 off; chip_smoke.py refuses to run without a card."""
 import ast
 import os
 import pathlib
@@ -13,7 +14,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "diff_qp_mpc_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "optax", "diff_qp_mpc_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "optax", "diff_qp_mpc_tpu",
+             "benchmarks"}
 
 
 def _imported_roots(path):

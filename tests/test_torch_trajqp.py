@@ -17,6 +17,7 @@ import torch
 from _torch_port_common import npy
 from diff_qp_mpc_tpu.core.types import Bounds as JaxBounds
 from diff_qp_mpc_tpu.solvers import trajqp as jax_trajqp
+from diff_qp_mpc_tpu_torch.benchmarks import prof_trajqp_fused as prof
 from diff_qp_mpc_tpu_torch.core.types import Bounds
 from diff_qp_mpc_tpu_torch.ops import trajqp_fused_cuda
 from diff_qp_mpc_tpu_torch.solvers import trajqp
@@ -156,3 +157,53 @@ def test_fused_initial_best_total_is_float32_max():
     f32_max = float(np.finfo(np.float32).max)
     assert (totals["fused"] == f32_max).all()
     assert (totals["scan"] > 1e39).all()
+
+
+# The K4 profiler's problem (benchmarks/prof_trajqp_fused.py, seed 0) at
+# (nx, nu) = (4, 1), B 8: box ±1.5, max_iter 12, reg 1e-7.
+PROF_CASE = (8, 5, 4, 1)
+
+
+def _prof_cfg(kernel):
+    return trajqp.TrajQPConfig(max_iter=prof.MAX_ITER, reg=prof.REG,
+                               kernel=kernel)
+
+
+def test_scan_ipm_matches_jax_on_profiler_problem():
+    """float64, every field to 1e-9 as the cases above."""
+    arrays = prof.problem_arrays(*PROF_CASE)
+    ref = jax_trajqp.solve(
+        *(jnp.asarray(a) for a in arrays),
+        JaxBounds(u_lo=jnp.full((1,), -prof.BOX), u_hi=jnp.full((1,),
+                                                               prof.BOX)),
+        jax_trajqp.TrajQPConfig(max_iter=prof.MAX_ITER, reg=prof.REG,
+                                kernel="scan"))
+    got = trajqp.solve(
+        *(torch.tensor(a) for a in arrays),
+        Bounds(u_lo=torch.full((1,), -prof.BOX, dtype=torch.float64),
+               u_hi=torch.full((1,), prof.BOX, dtype=torch.float64)),
+        _prof_cfg("scan"))
+    for name in ref._fields:
+        np.testing.assert_allclose(
+            npy(getattr(got, name)), np.asarray(getattr(ref, name)),
+            rtol=1e-9, atol=1e-9, err_msg=name)
+
+
+def test_fused_plain_matches_scan_on_profiler_problem():
+    """K4's plain version against the port's scan IPM at (5, 4, 1),
+    float64, as the profiler compares them on the card. They differ only in
+    their corner semantics (u clipped again inside, σ's floor, the
+    best-total select): measured spread 1.7e-10 on u and the slacks (u sits
+    at the box on some stages), ≤ 7.1e-14 on the other fields. Held to
+    1e-8, K4's float64 tolerance in chip_smoke.py."""
+    arrays = [torch.tensor(a) for a in prof.problem_arrays(*PROF_CASE)]
+    bounds = Bounds(u_lo=(-prof.BOX,), u_hi=(prof.BOX,))
+    before = trajqp_fused_cuda.launches
+    fused = trajqp.solve(*arrays, bounds, _prof_cfg("fused"))
+    assert trajqp_fused_cuda.launches == before  # CPU: the plain version
+    scan = trajqp.solve(*arrays, bounds, _prof_cfg("scan"))
+    for name in scan._fields:
+        np.testing.assert_allclose(
+            npy(getattr(fused, name)), npy(getattr(scan, name)),
+            rtol=1e-8, atol=1e-8, err_msg=name)
+    assert float(fused.u.abs().max()) <= prof.BOX + 1e-9
