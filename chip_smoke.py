@@ -16,7 +16,10 @@ Phases, each of which raises on failure (there is no CPU fallback):
   4. K3 (the Riccati LQR-KKT solve, csrc/riccati.cu) against its plain
      version on random SPD problems, T 5, (nx, nu) = (2, 1), B 64 (the ip
      path's shape), 256 and 4096, and (4, 1), B 4096 (the K4 profiler's
-     third case), float32 and float64;
+     third case), float32 and float64; then timed at a filled card (B
+     262144, (2, 1), float32) with its share of the bytes bound, and the
+     launch floor (the device time of one one-block PyTorch kernel) beside
+     its time at B 64;
   5. K4 (the whole trajectory-QP IPM, csrc/trajqp_fused.cu) against its
      plain version on pendulum tracking QPs at the ip path's budget
      (max_iter 12, reg 1e-9, box ±3), B 64 and 256, and on the K4
@@ -117,6 +120,8 @@ K4_FIELDS = ("x", "u", "lam", "z_hi", "z_lo", "s_hi", "s_lo", "resids")
 # × 2 Riccati solves on the scan path, one K4 launch on the fused path)
 IP_LAUNCHES_PER_STEP = {"ip-scan": ("K3", 6 * 3 * 12 * 2),
                         "ip-fused": ("K4", 6 * 3)}
+# K3 on a filled card: 262144 elements, (nx, nu) = (2, 1), float32
+K3_FILLED_B = 262144
 # K5 at 64 tiles, 8 streams, 256 sins: each output is a sum of 8 chains in
 # (0, 1). sin is contractive on (0, 1], so a one- or two-ulp difference per
 # step between the kernel's sinf and PyTorch's sin does not grow along the
@@ -417,7 +422,42 @@ def phase_k3():
             if not ok:
                 raise RuntimeError(f"K3 disagrees with its plain version "
                                    f"(or the library): {row}")
+    z = torch.empty(64, device="cuda")
+    rows[EPISODES]["launch_floor_ms"] = device_kernel_ms(
+        lambda: z.zero_(), 200, "elementwise_kernel")
+    log("launch floor", json.dumps(dict(
+        what="zero_ of 64 floats, one block",
+        ms=rows[EPISODES]["launch_floor_ms"], k3_ms=rows[EPISODES]["ms"])))
+    rows["filled"] = phase_k3_filled(reg)
     return rows
+
+
+def phase_k3_filled(reg):
+    """K3 at K3_FILLED_B elements, float32, against its plain version on
+    the whole batch, timed, with its share of the bytes bound."""
+    from diff_qp_mpc_tpu_torch.ops import riccati, riccati_cuda
+
+    B = K3_FILLED_B
+    args = lqr_problem(B, T, NX, NU, torch.float32, seed=B)
+    kern = lambda: riccati_cuda.batched_lqr_kkt_solve(*args, reg)
+    out_k = kern()
+    ref = riccati.batched_lqr_kkt_solve(*args, reg)
+    torch.cuda.synchronize()
+    abs_err, err = _max_errs(out_k, (ref.dx, ref.du, ref.lam))
+    row = dict(B=B, nx=NX, nu=NU, dtype=str(torch.float32), max_rel_err=err,
+               max_abs_err=abs_err, tol=K3_TOL[torch.float32])
+    row["ms_events"] = cuda_ms(kern, 50)
+    row["ms"] = device_kernel_ms(kern, 20, "riccati_kernel")
+    row["bound_ms"], row["bound_by"] = bound(B * k3_bytes(T, NX, NU),
+                                             B * k3_ops(T, NX, NU))
+    ms = row["ms"] if row["ms"] is not None else row["ms_events"]
+    row["bound_share"] = row["bound_ms"] / ms
+    log("K3 filled", json.dumps(row))
+    if not (all(bool(torch.isfinite(o).all()) for o in out_k)
+            and err <= K3_TOL[torch.float32]
+            and 0.0 <= row["bound_share"] <= 1.1):
+        raise RuntimeError(f"K3 at a filled card: {row}")
+    return row
 
 
 # ---------------------------------------------------------------- K4 ----
@@ -775,7 +815,7 @@ def main():
     for name, rows, path, src, replaces in (
             ("btsolve (K1)", k1, "scan",
              "diff_qp_mpc_tpu_torch/csrc/btsolve.cu",
-             "diff_qp_mpc_tpu/ops/btsolve_pallas.py:202"),
+             "diff_qp_mpc_tpu/ops/btsolve_pallas.py:203"),
             ("al_fused (K2)", k2, "fused",
              "diff_qp_mpc_tpu_torch/csrc/al_fused.cu",
              "diff_qp_mpc_tpu/ops/al_fused_pallas.py:340"),
@@ -800,6 +840,12 @@ def main():
             "shape": f"B={main_b} T={T} nx={NX} nu={NU} float32"})
         if kid == "K2":
             kernels[-1]["bound_ms_sin_as_one_op"] = r["bound_ms_sin_as_one_op"]
+        if kid == "K3":
+            f = rows["filled"]
+            kernels[-1]["launch_floor_ms"] = r["launch_floor_ms"]
+            kernels[-1]["filled_card"] = {
+                k: f[k] for k in ("B", "ms", "ms_events", "bound_ms",
+                                  "bound_share", "max_rel_err")}
     kernels.append({
         "name": "sin_chain (K5)", "route": "cuda",
         "source": "diff_qp_mpc_tpu_torch/csrc/sin_chain.cu",

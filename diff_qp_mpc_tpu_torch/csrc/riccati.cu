@@ -15,8 +15,14 @@
 // Bound on the H100: ~480 flops and ~440 bytes (float32) per element at
 // the ip path's shape (T 5, nx 2, nu 1), so the card's bound is the bytes;
 // at 64 elements (the closed loop's batch) a launch occupies one SM and each
-// thread runs one serial chain, so it is latency-bound. Spreading an element
-// over several threads is later work; this version is the simple, right one.
+// thread runs one serial chain, so it is latency-bound, a few µs above the
+// device's fixed cost per launch. Serving an element with a group of lanes,
+// its blocks in shared memory, was measured and lost at the ip path's shape
+// at every batch timed (it won only at nx 4, where one thread's state
+// outgrows its registers): each sub-step is a few multiply-adds, so lanes
+// trade register operands for shared-memory round trips, while the chain of
+// IEEE divisions and square roots that sets the time stays as deep
+// (PERF.md, Findings).
 #include <cstddef>
 
 #include "riccati_common.cuh"

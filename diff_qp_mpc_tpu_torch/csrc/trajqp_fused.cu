@@ -32,8 +32,11 @@
 // the operations; at 64 elements a launch occupies one SM and each thread
 // runs one long serial chain, so it is latency-bound. The state and the
 // stage blocks exceed the 255 registers a thread may hold, so part of them
-// lives in local memory (L1). Spreading an element over a warp is later
-// work; this version is the simple, right one.
+// lives in local memory (L1). Serving an element with a group of lanes, its
+// state in shared memory, removes the spills but was measured slower at every
+// batch timed: three quarters of this kernel's time is the chain of IEEE
+// divisions and square roots, which the lanes do not shorten (PERF.md,
+// Findings).
 #include <cfloat>
 #include <cmath>
 #include <cstddef>

@@ -124,6 +124,53 @@ def test_riccati_kernel_matches_plain(cuda, T, nx, nu, dtype, tol):
         assert float((got - want).abs().max() / want.abs().max()) <= tol
 
 
+# K3 runs one thread per element in blocks of 128, K4 in blocks of 64: one
+# element alone, and one more than a block of either (65, 129), leave the
+# last block ragged.
+EDGE_BATCHES = (1, 65, 129)
+# Element isolation: (batch, poisoned elements). 264 = 2·128 + 8 = 4·64 + 8
+# puts element 263 in a ragged last block of either kernel, beside 5 in a
+# full one.
+ISOLATION_CASES = [(40, (5,)), (264, (5, 263))]
+
+
+def _unpoisoned(B, poisoned, device):
+    keep = torch.ones(B, dtype=torch.bool, device=device)
+    keep[list(poisoned)] = False
+    return keep
+
+
+@pytest.mark.parametrize("B", EDGE_BATCHES)
+@pytest.mark.parametrize("T,nx,nu", riccati_cuda.BUILT)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-10)])
+def test_riccati_kernel_edge_batches(cuda, B, T, nx, nu, dtype, tol):
+    args = _lqr_problem(B, T, nx, nu, dtype, cuda, seed=B)
+    out = riccati_cuda.batched_lqr_kkt_solve(*args, 1e-9)
+    ref = riccati.batched_lqr_kkt_solve(*args, 1e-9)
+    for got, want in zip(out, (ref.dx, ref.du, ref.lam)):
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max() / want.abs().max()) <= tol
+
+
+@pytest.mark.parametrize("B,poisoned", ISOLATION_CASES)
+@pytest.mark.parametrize("poison", [float("nan"), 1e30])
+@pytest.mark.parametrize("T,nx,nu", riccati_cuda.BUILT)
+def test_riccati_kernel_isolates_elements(cuda, B, poisoned, poison, T, nx,
+                                          nu):
+    """A non-finite or huge input of some elements leaves every other
+    element's outputs bit-identical."""
+    args = _lqr_problem(B, T, nx, nu, torch.float32, cuda, seed=nx)
+    clean = riccati_cuda.batched_lqr_kkt_solve(*args, 1e-9)
+    bad = [a.clone() for a in args]
+    for a in bad:
+        a[list(poisoned)] = poison
+    dirty = riccati_cuda.batched_lqr_kkt_solve(*bad, 1e-9)
+    keep = _unpoisoned(B, poisoned, cuda)
+    for c, d in zip(clean, dirty):
+        assert torch.equal(c[keep], d[keep])
+
+
 def test_riccati_kernel_refuses_unbuilt_size(cuda):
     args = _lqr_problem(4, 4, 2, 1, torch.float32, cuda)
     with pytest.raises(ValueError):
@@ -169,6 +216,44 @@ def test_trajqp_fused_kernel_matches_plain(cuda, T, nx, nu, dtype, tol):
         scale = max(1.0, float(want.abs().max()))
         assert float((got - want).abs().max()) / scale <= tol, name
     assert float(out[1].abs().max()) <= 1.5 + 1e-4
+
+
+def _trajqp_errors(out, ref):
+    """Per output, max |out − ref| over max(1, max |ref|)."""
+    return [float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+            for g, w in zip(out, ref)]
+
+
+@pytest.mark.parametrize("B", EDGE_BATCHES)
+@pytest.mark.parametrize("T,nx,nu", trajqp_fused_cuda.BUILT)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-8)])
+def test_trajqp_fused_kernel_edge_batches(cuda, B, T, nx, nu, dtype, tol):
+    args = _trajqp_problem(B, T, nx, nu, dtype, cuda, seed=B)
+    box = ((-1.5,) * nu, (1.5,) * nu)
+    out = trajqp_fused_cuda.fused_trajqp_solve(*args, *box)
+    ref = trajqp_fused_cuda.fused_trajqp_solve_reference(*args, *box)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    assert max(_trajqp_errors(out, ref)) <= tol
+
+
+@pytest.mark.parametrize("B,poisoned", ISOLATION_CASES)
+@pytest.mark.parametrize("poison", [float("nan"), 1e30])
+@pytest.mark.parametrize("T,nx,nu", trajqp_fused_cuda.BUILT)
+def test_trajqp_fused_kernel_isolates_elements(cuda, B, poisoned, poison, T,
+                                               nx, nu):
+    """A non-finite or huge input of some elements leaves every other
+    element's outputs bit-identical."""
+    args = _trajqp_problem(B, T, nx, nu, torch.float32, cuda, seed=nx)
+    box = ((-1.5,) * nu, (1.5,) * nu)
+    clean = trajqp_fused_cuda.fused_trajqp_solve(*args, *box)
+    bad = [a.clone() for a in args]
+    for a in bad:
+        a[list(poisoned)] = poison
+    dirty = trajqp_fused_cuda.fused_trajqp_solve(*bad, *box)
+    keep = _unpoisoned(B, poisoned, cuda)
+    for c, d in zip(clean, dirty):
+        assert torch.equal(c[keep], d[keep])
 
 
 def test_trajqp_fused_kernel_refuses_unbuilt_size(cuda):

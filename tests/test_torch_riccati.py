@@ -1,7 +1,8 @@
 """The port's plain Riccati LQR-KKT solve (K3's plain version,
 diff_qp_mpc_tpu_torch.ops.riccati) against the JAX package's scan solve
 (ops.riccati) and its Pallas kernel in interpret mode (ops.riccati_pallas),
-at (nx, nu) = (2, 1) (the pendulum) and (3, 2), T 5, B 16.
+at (nx, nu) = (2, 1) (the pendulum), (3, 2) and (4, 1) (every shape K3 is
+built for), T 5, B 16.
 
 Tolerances: a direct linear solve, so float64 agrees to 1e-10 relative to
 the largest entry; float32 to 1e-4 (the recursion's rounding over five
@@ -44,7 +45,7 @@ def _close(got, want, tol, what):
     assert err <= tol * np.abs(np.asarray(want)).max(), (what, err)
 
 
-@pytest.mark.parametrize("nx,nu", [(2, 1), (3, 2)])
+@pytest.mark.parametrize("nx,nu", [(2, 1), (3, 2), (4, 1)])
 @pytest.mark.parametrize("dtype,jdt", DTYPES, ids=["f64", "f32"])
 def test_plain_matches_jax_scan(nx, nu, dtype, jdt):
     arrays = lqr_problem(nx, nu, seed=nx)
@@ -56,7 +57,7 @@ def test_plain_matches_jax_scan(nx, nu, dtype, jdt):
         _close(getattr(got, name), getattr(ref, name), TOL[dtype], name)
 
 
-@pytest.mark.parametrize("nx,nu", [(2, 1), (3, 2)])
+@pytest.mark.parametrize("nx,nu", [(2, 1), (3, 2), (4, 1)])
 @pytest.mark.parametrize("dtype,jdt", DTYPES, ids=["f64", "f32"])
 def test_wrapper_matches_pallas_interpret(nx, nu, dtype, jdt):
     """The kernel wrapper on CPU tensors (its plain version, no launch)
@@ -72,7 +73,7 @@ def test_wrapper_matches_pallas_interpret(nx, nu, dtype, jdt):
         _close(g, r, TOL[dtype], name)
 
 
-@pytest.mark.parametrize("nx,nu", [(2, 1), (3, 2)])
+@pytest.mark.parametrize("nx,nu", [(2, 1), (3, 2), (4, 1)])
 def test_kkt_residuals(nx, nu):
     arrays = lqr_problem(nx, nu, seed=20 + nx)
     sol = riccati.batched_lqr_kkt_solve(*(torch.tensor(a) for a in arrays),
