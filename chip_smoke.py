@@ -9,10 +9,17 @@ Phases, each of which raises on failure (there is no CPU fallback):
      build/kernels/;
   2. K1 (block-tridiagonal Cholesky, csrc/btsolve.cu) against its plain
      PyTorch version on random SPD block-tridiagonal systems, T 5, n 3,
-     B 64 (the main path's shape), 256 and 4096, float32 and float64;
+     B 64 (the main path's shape), 256 and 4096, float32 and float64; then
+     each of its layouts (on chip, streaming) against the plain version and
+     timed at B 64, 256, 4096 and 262144 (a filled card, with its share of
+     the bytes bound);
   3. K2 (the fused AL-MPC solve, csrc/al_fused.cu) against its plain version
      at the main path's budget (pendulum, T 5, al_iter 2, n_newton 4, n_ls
-     20, rho_max 1e6, reg 1e-7), B 64 and 256, float32 and float64;
+     20, rho_max 1e6, reg 1e-7), B 64 and 256, float32 and float64; then at
+     every group width G (lanes per element) at B 64, 256, 4096 and 262144:
+     the G the wrapper's rule picks, the time per G, and the outputs at every
+     G bit-identical to G 1 (float64 too at B 64 and 256, and on a problem
+     whose every line-search candidate ties);
   4. K3 (the Riccati LQR-KKT solve, csrc/riccati.cu) against its plain
      version on random SPD problems, T 5, (nx, nu) = (2, 1), B 64 (the ip
      path's shape), 256 and 4096, and (4, 1), B 4096 (the K4 profiler's
@@ -34,8 +41,9 @@ Phases, each of which raises on failure (there is no CPU fallback):
      (K1) and the fused path (K2), and of the ip checkpoint on the ip scan
      path (K3) and the ip fused path (K4). The launch counts are set to 0
      just before each run and read just after; each path must launch its
-     kernel, the ip paths no other and exactly 432 (K3) or 18 (K4) per
-     closed-loop step, and each must reach a success rate of at least 0.95;
+     kernel and no other, exactly 48 (K1), 6 (K2), 432 (K3) or 18 (K4) times
+     per closed-loop step, and each must reach a success rate of at least
+     0.95;
   9. the roofline path, counts set to 0 before it and read after: the
      roofline entry point's functions in quick mode (K2 at B 262144 at the
      reference budget, K5's saturated rate from both chain lengths), then
@@ -61,6 +69,7 @@ import time
 import numpy as np
 import torch
 
+from diff_qp_mpc_tpu_torch.benchmarks import kernel_layouts
 from diff_qp_mpc_tpu_torch.benchmarks.flops import (
     SINF_FP32_INSTR,
     bound,
@@ -75,6 +84,15 @@ from diff_qp_mpc_tpu_torch.benchmarks.flops import (
     k4_ops,
     k5_bytes,
     k5_ops,
+)
+from diff_qp_mpc_tpu_torch.benchmarks.kernel_layouts import (
+    K1_TOL,
+    k2_inputs,
+    random_bt_spd,
+)
+from diff_qp_mpc_tpu_torch.benchmarks.timing import (
+    device_kernel_ms,
+    events_ms,
 )
 
 CKPT = "logs/deqmpc_pendulum_sac_fused_T5_bsz256/ckpt.msgpack"
@@ -96,8 +114,7 @@ AL_BUDGET = dict(al_iter=2, n_newton=4, n_ls=20, rho_factor=10.0,
 # float64 is held to 1e-6. In float32 the Newton systems also amplify the
 # rounding (cond ~1e4 at R 0.01): float32 alone moves the plain version up
 # to 5.2e-3 on xu and 2.1e-4 on res from its float64 result (B 256), so
-# float32 is held to twice that.
-K1_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+# float32 is held to twice that. K1_TOL comes with the K1 layout checks.
 # float64 policy forward, card vs CPU: six K1- or K2-backed solves, each with
 # the line-search near-ties above
 POLICY_TOL = 1e-6
@@ -115,13 +132,17 @@ IP_BOX = ((-3.0,), (3.0,))
 K3_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 K4_TOL = {torch.float32: 1e-3, torch.float64: 1e-8}
 K4_FIELDS = ("x", "u", "lam", "z_hi", "z_lo", "s_hi", "s_lo", "resids")
-# kernel launches per closed-loop step on the ip paths: deq_iter 6 tracking
-# solves × (qp_iter 2 SQP QPs + the final QP) × (max_iter 12 IPM iterations
-# × 2 Riccati solves on the scan path, one K4 launch on the fused path)
-IP_LAUNCHES_PER_STEP = {"ip-scan": ("K3", 6 * 3 * 12 * 2),
-                        "ip-fused": ("K4", 6 * 3)}
+# kernel launches per closed-loop step, deq_iter 6 tracking solves × on the
+# AL scan path al_iter 2 × n_newton 4 K1 solves, on the AL fused path one
+# K2 launch (its al_iter inside), on the ip paths (qp_iter 2 SQP QPs + the
+# final QP) × (max_iter 12 IPM iterations × 2 Riccati solves on the scan
+# path, one K4 launch on the fused path)
+LAUNCHES_PER_STEP = {"scan": ("K1", 6 * 2 * 4), "fused": ("K2", 6),
+                     "ip-scan": ("K3", 6 * 3 * 12 * 2),
+                     "ip-fused": ("K4", 6 * 3)}
 # K3 on a filled card: 262144 elements, (nx, nu) = (2, 1), float32
 K3_FILLED_B = 262144
+
 # K5 at 64 tiles, 8 streams, 256 sins: each output is a sum of 8 chains in
 # (0, 1). sin is contractive on (0, 1], so a one- or two-ulp difference per
 # step between the kernel's sinf and PyTorch's sin does not grow along the
@@ -158,60 +179,7 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps, warmup=2):
-    """Milliseconds per call: CUDA events around ``reps`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_kernel_ms(fn, reps, name):
-    """Device time per launch of the CUDA kernel whose name contains
-    ``name``, from torch.profiler; None if the profiler saw no such kernel
-    time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if name in ev.key:
-            total += ev.device_time_total
-            count += ev.count
-    if count == 0 or total <= 0:
-        return None
-    return total / count / 1e3
-
-
 # ---------------------------------------------------------------- K1 ----
-def random_bt_spd(B, T_, n, dtype, seed):
-    """SPD block-tridiagonal H = L Lᵀ, L block lower bidiagonal with
-    well-conditioned diagonal blocks; returns D, O, b on the card."""
-    rng = np.random.RandomState(seed)
-    Ld = np.tril(0.3 * rng.randn(B, T_, n, n), -1) + np.eye(n) * (
-        1.0 + rng.rand(B, T_, n, 1))
-    Ls = 0.3 * rng.randn(B, T_, n, n)  # Ls[:, t] couples t to t-1
-    D = Ld @ Ld.transpose(0, 1, 3, 2)
-    D[:, 1:] += Ls[:, 1:] @ Ls[:, 1:].transpose(0, 1, 3, 2)
-    O = Ls[:, 1:] @ Ld[:, :-1].transpose(0, 1, 3, 2)
-    b = rng.randn(B, T_, n)
-    to = lambda a: torch.tensor(a, dtype=dtype, device="cuda")
-    return to(D), to(O), to(b)
-
-
 def phase_k1():
     from diff_qp_mpc_tpu_torch.ops import btsolve, btsolve_cuda
 
@@ -238,11 +206,11 @@ def phase_k1():
                     return torch.cholesky_solve(bf, Lh)
 
                 kern = lambda: btsolve_cuda.batched_factor_solve(D, O, b, reg)
-                row["ms_events"] = cuda_ms(kern, 200)
-                row["ms"] = device_kernel_ms(kern, 50, "btsolve_kernel")
-                row["plain_ms"] = cuda_ms(
+                row["ms_events"] = events_ms(kern, 200)
+                row["ms"] = device_kernel_ms(kern, 50, "btsolve")
+                row["plain_ms"] = events_ms(
                     lambda: btsolve.batched_factor_solve(D, O, b, reg), 20)
-                row["library_ms"] = cuda_ms(library, 50)
+                row["library_ms"] = events_ms(library, 50)
                 row["bound_ms"], row["bound_by"] = bound(B * k1_bytes(T, N),
                                                          B * k1_ops(T, N))
                 rows[B] = row
@@ -250,25 +218,19 @@ def phase_k1():
             if not ok:
                 raise RuntimeError(f"K1 disagrees with its plain version: "
                                    f"{row}")
+    # every layout at the main path's shape against the plain version
+    # (raises above K1_TOL), timed, at B 64 .. 4096 and on a filled card
+    rows["layouts"] = kernel_layouts.k1_layouts(kernel_layouts.BATCHES, reg)
+    for r in rows["layouts"]:
+        log("K1 layouts", json.dumps(r))
+    filled = rows["layouts"][-1]
+    share = filled["bound_share"][filled["chosen_layout"]]
+    if share is not None and not 0.0 <= share <= 1.1:
+        raise RuntimeError(f"K1 at a filled card: bound share {share}")
     return rows
 
 
 # ---------------------------------------------------------------- K2 ----
-def k2_inputs(B, dtype, seed):
-    """Tracking problems like the policy's: x0 in the pendulum env's range,
-    a reference that drifts from x0, Cd = (Q, R), c = −Cd·τ_ref."""
-    rng = np.random.RandomState(seed)
-    x0 = rng.uniform([-np.pi, -1.0], [np.pi, 1.0], (B, NX))
-    x_ref = x0[:, None] + np.cumsum(0.1 * rng.randn(B, T, NX), axis=1)
-    x_ref[:, 0] = x0
-    u_ref = np.zeros((B, T, NU))
-    Cd = np.broadcast_to(np.array([10.0, 1.0, 0.01]), (B, T, N))
-    c = -Cd * np.concatenate([x_ref, u_ref], -1)
-    to = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=dtype,
-                                device="cuda")
-    return to(Cd), to(c), to(x0), to(x_ref), to(u_ref)
-
-
 def phase_k2():
     """K2 against its plain version; its bound counts each sin or cos as
     SINF_FP32_INSTR FP32 instructions (and, beside it, as one operation)."""
@@ -299,9 +261,9 @@ def phase_k2():
                   and row["max_abs_err_xu"] <= K2_TOL[dtype][0]
                   and err_res <= K2_TOL[dtype][1])
             if dtype == torch.float32:
-                row["ms_events"] = cuda_ms(kern, 20)
+                row["ms_events"] = events_ms(kern, 20)
                 row["ms"] = device_kernel_ms(kern, 10, "al_fused_kernel")
-                row["plain_ms"] = cuda_ms(
+                row["plain_ms"] = events_ms(
                     lambda: al_fused_cuda.fused_al_solve_reference(
                         *args, **AL_BUDGET), 3, warmup=1)
                 budget = {k: AL_BUDGET[k] for k in
@@ -317,6 +279,14 @@ def phase_k2():
             if not ok:
                 raise RuntimeError(f"K2 disagrees with its plain version: "
                                    f"{row}")
+    # every group width at each batch: the G the rule picks, times, and the
+    # outputs bit-identical to G 1 (raises otherwise; float64 too at B 64
+    # and 256, and on a problem where every candidate ties)
+    rows["groups"] = kernel_layouts.k2_groups(kernel_layouts.BATCHES,
+                                              AL_BUDGET)
+    for r in rows["groups"]:
+        log("K2 groups", json.dumps(r))
+    log("K2 tie", json.dumps(kernel_layouts.k2_tie(EPISODES, AL_BUDGET)))
     return rows
 
 
@@ -410,11 +380,11 @@ def phase_k3():
                                        (ref.dx, ref.du, ref.lam))
                 row["library_max_rel_err"] = lib_err
                 ok = ok and lib_err <= 1e-3  # the library solves the same
-                row["ms_events"] = cuda_ms(kern, 200)
+                row["ms_events"] = events_ms(kern, 200)
                 row["ms"] = device_kernel_ms(kern, 50, "riccati_kernel")
-                row["plain_ms"] = cuda_ms(
+                row["plain_ms"] = events_ms(
                     lambda: riccati.batched_lqr_kkt_solve(*args, reg), 20)
-                row["library_ms"] = cuda_ms(library, 50)
+                row["library_ms"] = events_ms(library, 50)
                 row["bound_ms"], row["bound_by"] = bound(
                     B * k3_bytes(T, NX, NU), B * k3_ops(T, NX, NU))
                 rows[B] = row
@@ -446,7 +416,7 @@ def phase_k3_filled(reg):
     abs_err, err = _max_errs(out_k, (ref.dx, ref.du, ref.lam))
     row = dict(B=B, nx=NX, nu=NU, dtype=str(torch.float32), max_rel_err=err,
                max_abs_err=abs_err, tol=K3_TOL[torch.float32])
-    row["ms_events"] = cuda_ms(kern, 50)
+    row["ms_events"] = events_ms(kern, 50)
     row["ms"] = device_kernel_ms(kern, 20, "riccati_kernel")
     row["bound_ms"], row["bound_by"] = bound(B * k3_bytes(T, NX, NU),
                                              B * k3_ops(T, NX, NU))
@@ -524,9 +494,9 @@ def phase_k4():
                     *(a.double() for a in args[:8]), *IP_BOX, **IP_BUDGET)
                 row["plain_f32_vs_f64"] = k4_errors(
                     [o.double() for o in out_p], out_64)
-                row["ms_events"] = cuda_ms(kern, 20)
+                row["ms_events"] = events_ms(kern, 20)
                 row["ms"] = device_kernel_ms(kern, 10, "trajqp_fused_kernel")
-                row["plain_ms"] = cuda_ms(
+                row["plain_ms"] = events_ms(
                     lambda: trajqp_fused_cuda.fused_trajqp_solve_reference(
                         *args, **IP_BUDGET), 3, warmup=1)
                 row["bound_ms"], row["bound_by"] = bound(
@@ -573,9 +543,9 @@ def phase_k5():
     err = float((out_k - out_p).abs().max())
     row = dict(K5_SHAPE, max_abs_err=err, tol=K5_TOL,
                out_absmax=float(out_k.abs().max()))
-    row["ms_events"] = cuda_ms(kern, 50)
+    row["ms_events"] = events_ms(kern, 50)
     row["ms"] = device_kernel_ms(kern, 20, "sin_chain_kernel")
-    row["plain_ms"] = cuda_ms(
+    row["plain_ms"] = events_ms(
         lambda: sin_chain_cuda.sin_chain_reference(x, n_ops), 3, warmup=1)
     row["bound_ms"], row["bound_by"] = bound(
         k5_bytes(n_tiles, n_streams),
@@ -742,7 +712,6 @@ def phase_main_path():
     from diff_qp_mpc_tpu_torch.learning import evaluate
 
     wrappers = kernel_wrappers()
-    need = {"scan": "K1", "fused": "K2", "ip-scan": "K3", "ip-fused": "K4"}
     runs = {}
     for path, ckpt, flags in PATHS:
         argv = ["--env", "pendulum", "--deq", "--ckpt", ckpt, "--episodes",
@@ -751,20 +720,19 @@ def phase_main_path():
             w.launches = 0
         metrics = evaluate.main(argv)
         counts = {k: w.launches for k, w in wrappers.items()}
-        kid = need[path]
+        kid = LAUNCHES_PER_STEP[path][0]
         runs[path] = dict(metrics, launches=counts, launches_per_step=(
             counts[kid] / metrics["steps_run"]))
         log("main_path", path, json.dumps(runs[path]))
         if counts[kid] <= 0:
             raise RuntimeError(f"{path} path launched {kid} no time")
-        if path in IP_LAUNCHES_PER_STEP:
-            per_step = IP_LAUNCHES_PER_STEP[path][1]
-            others = {k: v for k, v in counts.items() if k != kid and v}
-            if others or counts[kid] != per_step * metrics["steps_run"]:
-                raise RuntimeError(
-                    f"{path} path: launches {counts} over "
-                    f"{metrics['steps_run']} steps, expected {per_step} "
-                    f"{kid} launches per step and no other kernel")
+        per_step = LAUNCHES_PER_STEP[path][1]
+        others = {k: v for k, v in counts.items() if k != kid and v}
+        if others or counts[kid] != per_step * metrics["steps_run"]:
+            raise RuntimeError(
+                f"{path} path: launches {counts} over "
+                f"{metrics['steps_run']} steps, expected {per_step} "
+                f"{kid} launches per step and no other kernel")
         if not np.isfinite(metrics["mean_reward"]):
             raise RuntimeError(f"{path} path: non-finite reward")
         if metrics["success_rate"] < MIN_SUCCESS:
@@ -838,8 +806,20 @@ def main():
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
             "shape": f"B={main_b} T={T} nx={NX} nu={NU} float32"})
+        if kid == "K1":
+            kernels[-1]["layout"] = k1["layouts"][0]["chosen_layout"]
+            kernels[-1]["ms_by_layout"] = {
+                lr["B"]: lr["ms"] for lr in k1["layouts"]}
+            f = k1["layouts"][-1]
+            kernels[-1]["filled_card"] = dict(
+                B=f["B"], ms=f["ms"], bound_ms=f["bound_ms"],
+                bound_share=f["bound_share"])
         if kid == "K2":
             kernels[-1]["bound_ms_sin_as_one_op"] = r["bound_ms_sin_as_one_op"]
+            kernels[-1]["group"] = k2["groups"][0]["chosen_group"]
+            kernels[-1]["ms_by_group"] = {
+                gr["B"]: dict(chosen=gr["chosen_group"], ms=gr["ms"])
+                for gr in k2["groups"]}
         if kid == "K3":
             f = rows["filled"]
             kernels[-1]["launch_floor_ms"] = r["launch_floor_ms"]

@@ -1,0 +1,271 @@
+"""K2's lanes per element and K1's layouts on the card.
+
+    python -m diff_qp_mpc_tpu_torch.benchmarks.kernel_layouts \\
+        [--out build/kernel_layouts.json]
+
+At the batches of ``BATCHES`` (the main path's 64 and 256, 4096, and a
+filled card's 262144), float32, on the main path's problem shapes (T 5,
+pendulum, n 3):
+  - K2 at every G of ``al_fused_cuda.GROUPS``: device time per launch, the
+    G the wrapper's rule picks, and the outputs at every G bit-identical to
+    G = 1 (also in float64 at B 64 and 256, and on a problem whose Newton
+    direction is 0, where every candidate ties);
+  - K2's line search at B 64: n_ls 1 against 20 at each G, so that
+    (t₂₀ − t₁)/19 is one candidate's latency;
+  - K1 in each layout of ``btsolve_cuda.LAYOUTS``: device time, error
+    against its plain version (``K1_TOL``), bound and share of it; also at
+    B 64 and 4096 at the other shapes with an on-chip instantiation.
+A mismatch, or an error above tolerance, raises. Without a card it raises.
+``chip_smoke.py`` runs the same K1 and K2 checks.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from diff_qp_mpc_tpu_torch.benchmarks.flops import (
+    SINF_FP32_INSTR,
+    bound,
+    k1_bytes,
+    k1_ops,
+    k2_bytes,
+    k2_ops_with_sin,
+)
+from diff_qp_mpc_tpu_torch.benchmarks.timing import device_kernel_ms, events_ms
+from diff_qp_mpc_tpu_torch.models import Pendulum
+from diff_qp_mpc_tpu_torch.ops import al_fused_cuda, btsolve, btsolve_cuda
+from diff_qp_mpc_tpu_torch.utils import cuda_build
+
+BATCHES = (64, 256, 4096, 262144)
+T, NX, NU = 5, 2, 1
+N = NX + NU
+# K2's budget on the main path (ALConfig defaults, qp_iter 2)
+AL_BUDGET = dict(al_iter=2, n_newton=4, n_ls=20, rho_factor=10.0,
+                 rho_max=1e6, reg=1e-7)
+BOX = ((-3.0,), (3.0,))
+# K1 relative to max|x| (a direct solve: rounding only)
+K1_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+# B at which K2's float64 outputs are held bit-identical across G
+K2_F64_BATCHES = (64, 256)
+
+
+def _reps(B: int) -> int:
+    """Launches per timing: fewer where one launch is long."""
+    return 50 if B <= 4096 else 10
+
+
+def _device_ms(fns, B, name):
+    """Device ms per launch of the kernel named ``name`` for each of
+    ``fns`` in turn (one profiler session each)."""
+    return [device_kernel_ms(fn, _reps(B), name) for fn in fns]
+
+
+# ------------------------------------------------------------ inputs ----
+def random_bt_spd(B, T_, n, dtype, seed, device="cuda"):
+    """SPD block-tridiagonal H = L Lᵀ, L block lower bidiagonal with
+    well-conditioned diagonal blocks; returns D, O, b."""
+    rng = np.random.RandomState(seed)
+    Ld = np.tril(0.3 * rng.randn(B, T_, n, n), -1) + np.eye(n) * (
+        1.0 + rng.rand(B, T_, n, 1))
+    Ls = 0.3 * rng.randn(B, T_, n, n)  # Ls[:, t] couples t to t-1
+    D = Ld @ Ld.transpose(0, 1, 3, 2)
+    D[:, 1:] += Ls[:, 1:] @ Ls[:, 1:].transpose(0, 1, 3, 2)
+    O = Ls[:, 1:] @ Ld[:, :-1].transpose(0, 1, 3, 2)
+    b = rng.randn(B, T_, n)
+    to = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    return to(D), to(O), to(b)
+
+
+def k2_inputs(B, dtype, seed, device="cuda"):
+    """Tracking problems like the policy's: x0 in the pendulum env's range,
+    a reference that drifts from x0, Cd = (Q, R), c = −Cd·τ_ref; returns
+    Cd, c, x0, x_init (the reference), u_init (0)."""
+    rng = np.random.RandomState(seed)
+    x0 = rng.uniform([-np.pi, -1.0], [np.pi, 1.0], (B, NX))
+    x_ref = x0[:, None] + np.cumsum(0.1 * rng.randn(B, T, NX), axis=1)
+    x_ref[:, 0] = x0
+    u_ref = np.zeros((B, T, NU))
+    Cd = np.broadcast_to(np.array([10.0, 1.0, 0.01]), (B, T, N))
+    c = -Cd * np.concatenate([x_ref, u_ref], -1)
+    to = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                                device=device)
+    return to(Cd), to(c), to(x0), to(x_ref), to(u_ref)
+
+
+def k2_tie_inputs(B, dtype, device="cuda"):
+    """x0 = 0, x_init = u_init = 0, c = 0: the merit's gradient is 0 at the
+    start, so the Newton direction is 0, every candidate of every line
+    search has the incumbent's merit, and no step is taken."""
+    Cd = torch.tensor([10.0, 1.0, 0.01], dtype=dtype,
+                      device=device).expand(B, T, N).contiguous()
+    z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
+    return Cd, z(B, T, N), z(B, NX), z(B, T, NX), z(B, T, NU)
+
+
+def _k2_args(arrays):
+    Cd, c, x0, xi, ui = arrays
+    return (Pendulum(), Cd, c, x0, *BOX, xi, ui)
+
+
+def _same(a, b) -> bool:
+    """Bit-identical tuples of tensors (NaNs in the same places count)."""
+    return all(x.shape == y.shape and torch.equal(
+        x.view(torch.int64 if x.dtype == torch.float64 else torch.int32),
+        y.view(torch.int64 if y.dtype == torch.float64 else torch.int32))
+        for x, y in zip(a, b))
+
+
+# ---------------------------------------------------------------- K2 ----
+def k2_groups(batches=BATCHES, budget=AL_BUDGET) -> list:
+    """K2 at every G, per batch: device ms per launch, the G the rule picks,
+    bit-identity with G = 1 (raises on a mismatch)."""
+    rows = []
+    for B in batches:
+        arrays = k2_inputs(B, torch.float32, seed=B)
+        args = _k2_args(arrays)
+        outs = {G: al_fused_cuda.fused_al_solve(*args, **budget, group=G)
+                for G in al_fused_cuda.GROUPS}
+        torch.cuda.synchronize()
+        identical = {G: _same(outs[G], outs[1]) for G in outs}
+        fns = [lambda G=G: al_fused_cuda.fused_al_solve(*args, **budget,
+                                                        group=G)
+               for G in al_fused_cuda.GROUPS]
+        ms = _device_ms(fns, B, "al_fused_kernel")
+        resident = al_fused_cuda.resident_threads(torch.float32, T,
+                                                  arrays[0].device)
+        nbytes = B * k2_bytes(T, NX, NU)
+        nops = B * k2_ops_with_sin(
+            T, NX, NU, budget["al_iter"], budget["n_newton"],
+            budget["n_ls"], SINF_FP32_INSTR)
+        bound_ms, bound_by = bound(nbytes, nops)
+        row = dict(B=B, dtype="float32", resident_threads=resident,
+                   chosen_group=al_fused_cuda.choose_group(B, resident),
+                   identical_to_g1=identical,
+                   ms={G: m for G, m in zip(al_fused_cuda.GROUPS, ms)},
+                   ms_events_chosen=events_ms(
+                       lambda: al_fused_cuda.fused_al_solve(*args, **budget),
+                       _reps(B)),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        for dtype in (torch.float64,) if B in K2_F64_BATCHES else ():
+            a64 = _k2_args(k2_inputs(B, dtype, seed=B))
+            o64 = {G: al_fused_cuda.fused_al_solve(*a64, **budget, group=G)
+                   for G in al_fused_cuda.GROUPS}
+            row["identical_to_g1_float64"] = {
+                G: _same(o64[G], o64[1]) for G in o64}
+        rows.append(row)
+        if not all(identical.values()) or not all(
+                row.get("identical_to_g1_float64", {1: True}).values()):
+            raise RuntimeError(f"K2 differs between group widths: {row}")
+    return rows
+
+
+def k2_tie(B=64, budget=AL_BUDGET) -> dict:
+    """The all-tie problem at every G, float32 and float64: every output
+    bit-identical to G = 1 and the trajectory left at 0."""
+    row = dict(B=B)
+    for dtype in (torch.float32, torch.float64):
+        args = _k2_args(k2_tie_inputs(B, dtype))
+        outs = {G: al_fused_cuda.fused_al_solve(*args, **budget, group=G)
+                for G in al_fused_cuda.GROUPS}
+        torch.cuda.synchronize()
+        ok = all(_same(outs[G], outs[1]) for G in outs) and \
+            float(outs[1][0].abs().max()) == 0.0
+        row[str(dtype)] = ok
+        if not ok:
+            raise RuntimeError(f"K2 on the all-tie problem, {dtype}: the "
+                               "group widths differ or a step was taken")
+    return row
+
+
+def k2_ls_split(B=64, budget=AL_BUDGET) -> dict:
+    """Device ms per launch at n_ls 1 and n_ls 20 for every G, and one
+    candidate's latency (t₂₀ − t₁)/19 at each."""
+    args = _k2_args(k2_inputs(B, torch.float32, seed=B))
+    fns = [lambda G=G, n_ls=n_ls: al_fused_cuda.fused_al_solve(
+        *args, **dict(budget, n_ls=n_ls), group=G)
+        for G in al_fused_cuda.GROUPS for n_ls in (1, budget["n_ls"])]
+    ms = _device_ms(fns, B, "al_fused_kernel")
+    out = {}
+    for i, G in enumerate(al_fused_cuda.GROUPS):
+        t1, t20 = ms[2 * i], ms[2 * i + 1]
+        per = None if None in (t1, t20) else (t20 - t1) / (budget["n_ls"] - 1)
+        out[G] = dict(ms_n_ls_1=t1, ms_n_ls_20=t20, ms_per_candidate=per,
+                      line_search_share=None if per is None
+                      else per * budget["n_ls"] / t20)
+    return dict(B=B, by_group=out)
+
+
+# ---------------------------------------------------------------- K1 ----
+def k1_layouts(batches=BATCHES, reg=AL_BUDGET["reg"], n=N, T_=T) -> list:
+    """K1 in each layout built at (n, T_) (the main path's (3, 5) by
+    default): device ms per launch (float32), error against the plain
+    version in float32 and float64 (raises above K1_TOL), the bytes bound
+    and its share."""
+    rows = []
+    for B in batches:
+        row = dict(B=B, n=n, T=T_,
+                   chosen_layout=btsolve_cuda.choose_layout(torch.float32,
+                                                            n, T_))
+        for dtype in (torch.float32, torch.float64):
+            layouts = [lay for lay in btsolve_cuda.LAYOUTS if lay == "stream"
+                       or (n, T_) in btsolve_cuda.ONCHIP_SHAPES[dtype]]
+            D, O, b = random_bt_spd(B, T_, n, dtype, seed=B)
+            ref = btsolve.batched_factor_solve(D, O, b, reg)
+            scale = float(ref.abs().max())
+            for layout in layouts:
+                x = btsolve_cuda.batched_factor_solve(D, O, b, reg,
+                                                      layout=layout)
+                err = float((x - ref).abs().max()) / scale
+                row[f"max_rel_err_{layout}_{dtype}"] = err
+                if not (bool(torch.isfinite(x).all())
+                        and err <= K1_TOL[dtype]):
+                    raise RuntimeError(f"K1 ({layout}) disagrees with its "
+                                       f"plain version: {row}")
+            if dtype == torch.float32:
+                fns = [lambda lay=lay: btsolve_cuda.batched_factor_solve(
+                    D, O, b, reg, layout=lay) for lay in layouts]
+                row["ms"] = dict(zip(layouts, _device_ms(fns, B, "btsolve")))
+                row["bound_ms"], row["bound_by"] = bound(
+                    B * k1_bytes(T_, n), B * k1_ops(T_, n))
+                row["bound_share"] = {
+                    lay: None if m is None else row["bound_ms"] / m
+                    for lay, m in row["ms"].items()}
+        rows.append(row)
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", type=Path,
+                    default=Path("build/kernel_layouts.json"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: these measurements are of the "
+                           "card only")
+    logs = cuda_build.build(["btsolve", "al_fused"])
+    result = dict(ptxas={k: [ln.strip() for ln in v.splitlines()
+                             if "registers" in ln or "spill" in ln
+                             or "entry function" in ln]
+                         for k, v in logs.items()},
+                  device=torch.cuda.get_device_name(0))
+    for name, fn in (("k2_groups", k2_groups), ("k2_tie", k2_tie),
+                     ("k2_ls_split", k2_ls_split),
+                     ("k1_layouts", k1_layouts),
+                     ("k1_onchip_shapes", lambda: [
+                         row for n, T_ in
+                         btsolve_cuda.ONCHIP_SHAPES[torch.float32]
+                         if (n, T_) != (N, T)
+                         for row in k1_layouts((64, 4096), n=n, T_=T_)])):
+        result[name] = fn()
+        print(name, json.dumps(result[name]), flush=True)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(result, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -16,6 +16,11 @@ Times are read from the host clock (``time.perf_counter``) after the
 synchronize, with the device idle when a window starts. ``run`` must
 return a CUDA tensor: there is no CPU timing, and without a card every
 function here raises.
+
+A kernel's own time per launch is read on the device: ``events_ms`` from
+CUDA events around back-to-back calls (host gaps between short kernels
+included), ``device_kernel_ms`` from the kernels' durations in a
+torch.profiler trace (no gaps).
 """
 from __future__ import annotations
 
@@ -77,3 +82,43 @@ def per_call_latency(run, n_rep: int = 7) -> float:
         _sync_result(run())
         ts.append(time.perf_counter() - t0)
     return statistics.median(ts)
+
+
+def events_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Milliseconds per call: CUDA events around ``reps`` calls."""
+    _require_card()
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_kernel_ms(fn, reps: int, name: str):
+    """Device time per launch of the CUDA kernel whose name contains
+    ``name``, from torch.profiler; None if the profiler saw no such kernel
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _require_card()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            total += ev.device_time_total
+            count += ev.count
+    if count == 0 or total <= 0:
+        return None
+    return total / count / 1e3

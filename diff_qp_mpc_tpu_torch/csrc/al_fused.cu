@@ -1,4 +1,5 @@
-// K2: the whole augmented-Lagrangian MPC solve, one thread per batch element.
+// K2: the whole augmented-Lagrangian MPC solve, a group of G lanes per batch
+// element (G = 1, 2, 4, ..., 32, a template parameter chosen per launch).
 //
 // Replaces the TPU kernel diff_qp_mpc_tpu/ops/al_fused_pallas.py::
 // fused_al_solve (_al_kernel). Per element, with its state in registers:
@@ -12,22 +13,33 @@
 // x₀ pinned in w, the gradient and the D/O blocks (:61-62, :179-199); the
 // candidate cost as the polynomial q0 + a·q1 + a²·q2, exact because d[0][:nx]
 // = 0 (:205-221); a strict `<` running minimum over k = 0..n_ls-1, first
-// minimum wins, started at float32's max (:223-235); a step accepted only if
-// it beats the current merit, the incumbent kept bit-exact otherwise
-// (:250-263); λ_hi/λ_lo clamped at 0 and ρ ← min(ρ·factor, rho_max)
-// (:298-308); res = ‖[r_dyn; max(r_hi,0); max(r_lo,0)]‖ (:317-327). The
-// TPU's batch padding (:393-404) is not needed: the batch edge is masked.
+// minimum wins, started at float32's max (ls_body, :223-233, and :235); a
+// step accepted only if it beats the current merit, the incumbent kept
+// bit-exact otherwise (:250-263); λ_hi/λ_lo clamped at 0 and ρ ← min(ρ·factor,
+// rho_max) (:298-308); res = ‖[r_dyn; max(r_hi,0); max(r_lo,0)]‖ (:317-327).
+// The TPU's batch padding (:393-404) is not needed: the batch edge is masked.
 //
 // Templates: the model functor (step and its exact Jacobian as device
 // functions; the pendulum here, other models join as functors), the horizon
-// T and the scalar type. Budgets, rho_factor, rho_max, reg and the box
-// bounds are run-time arguments.
+// T, the scalar type and the group width G (as log₂G). Budgets, rho_factor,
+// rho_max, reg and the box bounds are run-time arguments.
 //
 // Bound on the H100: ~2·10⁴ flops and ~0.5 KB per element at the main
 // path's budget (T 5, al_iter 2, n_newton 4, n_ls 20), so the card's bound
-// is the operations; at B = 64..256 elements the launch fills two SMs at
-// most and each thread runs one long serial chain, so it is latency-bound.
-// Spreading an element over a warp (candidates in parallel) is later work.
+// is the operations. At B = 64..4096 a launch fills few of the 132 SMs and
+// each element is one long serial chain, so it is latency-bound; the
+// longest independent part of that chain is the line search's n_ls
+// candidates (57% of the time on a filled card). So each element runs on a
+// group of G lanes of one warp: every lane runs the whole Newton chain in its
+// own registers (no shuffles, no shared memory, so no lane waits on
+// another), lane ℓ evaluates the candidates k ≡ ℓ (mod G), and a butterfly
+// over the group picks the line search's result (see line_search_pick). The
+// arithmetic per candidate is the same source at every G, and the outputs at
+// every G are bit-identical to G = 1, which compiles to the
+// one-thread-per-element kernel (no group index, no shuffle). The wrapper
+// picks G from B and the card's resident threads at each G's register count
+// (ops/al_fused_cuda.py); a filled card takes G = 1, where replicating the
+// Newton chain would cost G× the thread slots.
 #include <cfloat>
 #include <cmath>
 #include <cstddef>
@@ -108,8 +120,37 @@ __device__ __forceinline__ F merit_constraints(
   return m;
 }
 
-template <class M, int T, typename F>
-__global__ void __launch_bounds__(64)
+// The line search's pick over a group of G lanes. The serial rule (ls_body,
+// al_fused_pallas.py:223-233, started at :235) scans k = 0..n_ls-1 with
+// best_m = float32's max, best_a = 0 and keeps candidate k when
+// m_k < best_m: the first k of least merit among the m_k below float32's
+// max, NaN never kept (NaN < x is false), and a = 0 when none is. Here each
+// lane has scanned its own k ≡ ℓ (mod G) in ascending order by that rule,
+// holding (best_m, best_k) with best_k = n_ls for "none"; a recorded m is
+// below float32's max and never NaN, so (m, k) is totally ordered, and the
+// butterfly below leaves every lane of the group with the least (m, k) in
+// lexicographic order. That is the serial rule's pick: its least merit, and
+// among equal merits (−0 == +0 included) its first k. mask names the
+// group's lanes only.
+template <int G, typename F>
+__device__ __forceinline__ void line_search_pick(unsigned mask, F& best_m,
+                                                 int& best_k) {
+#pragma unroll
+  for (int s = 1; s < G; s <<= 1) {
+    const F om = __shfl_xor_sync(mask, best_m, s);
+    const int ok = __shfl_xor_sync(mask, best_k, s);
+    if (om < best_m || (om == best_m && ok < best_k)) {
+      best_m = om;
+      best_k = ok;
+    }
+  }
+}
+
+// threads per block; a multiple of 32, so every group lies within a warp
+constexpr int kThreads = 64;
+
+template <class M, int T, typename F, int LOG2G>
+__global__ void __launch_bounds__(kThreads)
 al_fused_kernel(M model, const F* __restrict__ Cd_g, const F* __restrict__ c_g,
                 const F* __restrict__ x0_g, const F* __restrict__ xi_g,
                 const F* __restrict__ ui_g, const F* __restrict__ lamd_g,
@@ -120,8 +161,18 @@ al_fused_kernel(M model, const F* __restrict__ Cd_g, const F* __restrict__ c_g,
                 int al_iter, int n_newton, int n_ls, F rho_factor, F rho_max,
                 F reg, Box<F, M::NU> box) {
   constexpr int NX = M::NX, NU = M::NU, N = NX + NU;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  // G = 2^LOG2G lanes per element, G | 32 and blocks of 64 threads, so a
+  // group lies within one warp. Every lane of a group has the same e, so
+  // the groups past the batch edge exit whole and no shuffle waits on them.
+  constexpr int G = 1 << LOG2G;
+  static_assert(LOG2G >= 0 && LOG2G <= 5, "a group lies within one warp");
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int e = tid >> LOG2G;
+  const int lane = tid & (G - 1);
   if (e >= B) return;
+  constexpr unsigned kGroupBits =
+      G == 32 ? 0xffffffffu : (1u << (G & 31)) - 1u;
+  const unsigned group_mask = kGroupBits << ((threadIdx.x & 31) & ~(G - 1));
   const size_t eTN = static_cast<size_t>(e) * T * N;
 
   F x0[NX], w[T][N], Cd[T][N], cv[T][N];
@@ -333,8 +384,11 @@ al_fused_kernel(M model, const F* __restrict__ Cd_g, const F* __restrict__ c_g,
           q2 = q2 + F(0.5) * Cd[t][i] * d[t][i] * d[t][i];
         }
       }
+      // this lane's candidates k ≡ lane (mod G), then the group's pick; at
+      // G = 1 the lane keeps best_a itself, as the serial rule does
       F best_m = F(FLT_MAX), best_a = F(0);
-      for (int k = 0; k < n_ls; ++k) {
+      int best_k = n_ls;
+      for (int k = lane; k < n_ls; k += G) {
         const F a = F(ldexpf(1.0f, -k));  // float32 step, as the reference
         F wk[T][N];
 #pragma unroll
@@ -349,8 +403,15 @@ al_fused_kernel(M model, const F* __restrict__ Cd_g, const F* __restrict__ c_g,
                                                 rho, box);
         if (mk < best_m) {
           best_m = mk;
-          best_a = a;
+          if constexpr (G == 1)
+            best_a = a;
+          else
+            best_k = k;
         }
+      }
+      if constexpr (G > 1) {
+        line_search_pick<G, F>(group_mask, best_m, best_k);
+        best_a = best_k < n_ls ? F(ldexpf(1.0f, -best_k)) : F(0);
       }
       const bool better = best_m < merit_cur;
       const F a_sel = better ? best_a : F(0);
@@ -387,7 +448,8 @@ al_fused_kernel(M model, const F* __restrict__ Cd_g, const F* __restrict__ c_g,
     rho = rho_next < rho_max ? rho_next : rho_max;
   }
 
-  // ---- outputs ----
+  // ---- outputs, from lane 0 of the group (no shuffle follows) ----
+  if (lane != 0) return;
   F res2 = F(0);
 #pragma unroll
   for (int t = 0; t < T - 1; ++t) {
@@ -432,7 +494,7 @@ struct Args {
   void *w, *lamd_o, *lamh_o, *laml_o, *res;
 };
 
-template <int T, typename F>
+template <int T, typename F, int LOG2G>
 int launch_pendulum(const Args& a, int B, int al_iter, int n_newton, int n_ls,
                     double rho_factor, double rho_max, double reg,
                     const double* params, const double* u_lo,
@@ -445,9 +507,10 @@ int launch_pendulum(const Args& a, int B, int al_iter, int n_newton, int n_ls,
     box.lo[i] = static_cast<F>(u_lo[i]);
     box.hi[i] = static_cast<F>(u_hi[i]);
   }
-  const int threads = 64;
-  const int blocks = (B + threads - 1) / threads;
-  al_fused_kernel<M, T, F><<<blocks, threads, 0, s>>>(
+  const long long threads_total = static_cast<long long>(B) << LOG2G;
+  const int blocks =
+      static_cast<int>((threads_total + kThreads - 1) / kThreads);
+  al_fused_kernel<M, T, F, LOG2G><<<blocks, kThreads, 0, s>>>(
       model, static_cast<const F*>(a.Cd), static_cast<const F*>(a.c),
       static_cast<const F*>(a.x0), static_cast<const F*>(a.xi),
       static_cast<const F*>(a.ui), static_cast<const F*>(a.lamd),
@@ -460,21 +523,65 @@ int launch_pendulum(const Args& a, int B, int al_iter, int n_newton, int n_ls,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Threads of this instantiation the current device holds resident at once:
+// blocks per SM at its register count × kThreads × SMs.
+template <int T, typename F, int LOG2G>
+int resident_threads(int* out) {
+  int blocks = 0, dev = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, al_fused_kernel<PendulumDyn<F>, T, F, LOG2G>, kThreads, 0);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *out = blocks * kThreads * sms;
+  return static_cast<int>(err);
+}
+
+// The instantiation for a run-time log2G (0..5): launch_pendulum or
+// resident_threads at G = 2^log2G, cudaErrorInvalidValue outside 0..5.
+template <int T, typename F, typename... A>
+int launch_group(int log2G, A... args) {
+  switch (log2G) {
+    case 0: return launch_pendulum<T, F, 0>(args...);
+    case 1: return launch_pendulum<T, F, 1>(args...);
+    case 2: return launch_pendulum<T, F, 2>(args...);
+    case 3: return launch_pendulum<T, F, 3>(args...);
+    case 4: return launch_pendulum<T, F, 4>(args...);
+    case 5: return launch_pendulum<T, F, 5>(args...);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int T, typename F>
+int resident_group(int log2G, int* out) {
+  switch (log2G) {
+    case 0: return resident_threads<T, F, 0>(out);
+    case 1: return resident_threads<T, F, 1>(out);
+    case 2: return resident_threads<T, F, 2>(out);
+    case 3: return resident_threads<T, F, 3>(out);
+    case 4: return resident_threads<T, F, 4>(out);
+    case 5: return resident_threads<T, F, 5>(out);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace dqmpc
 
 // Pendulum AL solve. Inputs (contiguous, batch-major): Cd, c [B,T,3],
 // x0 [B,2], x_init [B,T,2], u_init [B,T,1], lam_dyn [B,T-1,2], lam_hi,
 // lam_lo [B,T,1], rho0 [B]; outputs w [B,T,3], lam_dyn, lam_hi, lam_lo,
-// res [B]. params = (dt, m·g·l, m·l²); u_lo/u_hi hold nu = 1 host values.
-// Returns a cudaError_t code; cudaErrorInvalidValue for an unbuilt T.
+// res [B]. 2^log2G lanes per element (log2G 0..5); params = (dt, m·g·l,
+// m·l²); u_lo/u_hi hold nu = 1 host values. Returns a cudaError_t code;
+// cudaErrorInvalidValue for an unbuilt T or a log2G outside 0..5.
 #define AL_FUSED_ENTRY(NAME, F, ...)                                          \
   extern "C" int NAME(                                                        \
       const void* Cd, const void* c, const void* x0, const void* xi,          \
       const void* ui, const void* lamd, const void* lamh, const void* laml,   \
       const void* rho, void* w, void* lamd_o, void* lamh_o, void* laml_o,     \
-      void* res, int B, int T, int al_iter, int n_newton, int n_ls,           \
-      double rho_factor, double rho_max, double reg, const double* params,    \
-      const double* u_lo, const double* u_hi, void* stream) {                 \
+      void* res, int B, int log2G, int T, int al_iter, int n_newton,          \
+      int n_ls, double rho_factor, double rho_max, double reg,                \
+      const double* params, const double* u_lo, const double* u_hi,           \
+      void* stream) {                                                         \
     dqmpc::Args a{Cd, c, x0, xi, ui, lamd, lamh, laml, rho,                   \
                   w, lamd_o, lamh_o, laml_o, res};                            \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                       \
@@ -484,10 +591,27 @@ int launch_pendulum(const Args& a, int B, int al_iter, int n_newton, int n_ls,
 
 #define AL_FUSED_CASE(TT, F)                                                  \
   case TT:                                                                    \
-    return dqmpc::launch_pendulum<TT, F>(a, B, al_iter, n_newton, n_ls,       \
-                                         rho_factor, rho_max, reg, params,    \
-                                         u_lo, u_hi, s);
+    return dqmpc::launch_group<TT, F>(log2G, a, B, al_iter, n_newton, n_ls,   \
+                                      rho_factor, rho_max, reg, params, u_lo, \
+                                      u_hi, s);
 
 AL_FUSED_ENTRY(al_fused_pendulum_f32, float,
                AL_FUSED_CASE(5, float) AL_FUSED_CASE(10, float))
 AL_FUSED_ENTRY(al_fused_pendulum_f64, double, AL_FUSED_CASE(5, double))
+
+// Resident threads of the (T, dtype, 2^log2G) instantiation on the current
+// device (see dqmpc::resident_threads), into *out. Returns a cudaError_t
+// code.
+#define AL_RESIDENT_ENTRY(NAME, ...)                                          \
+  extern "C" int NAME(int T, int log2G, int* out) {                           \
+    switch (T) { __VA_ARGS__ }                                                \
+    return static_cast<int>(cudaErrorInvalidValue);                          \
+  }
+#define AL_RESIDENT_CASE(TT, F) \
+  case TT:                      \
+    return dqmpc::resident_group<TT, F>(log2G, out);
+
+AL_RESIDENT_ENTRY(al_fused_pendulum_resident_threads_f32,
+                  AL_RESIDENT_CASE(5, float) AL_RESIDENT_CASE(10, float))
+AL_RESIDENT_ENTRY(al_fused_pendulum_resident_threads_f64,
+                  AL_RESIDENT_CASE(5, double))

@@ -5,20 +5,33 @@
 //   L₀L₀ᵀ = D₀ + reg·I;  Sₜ = Oₜ₋₁Lₜ₋₁⁻ᵀ;  LₜLₜᵀ = Dₜ − SₜSₜᵀ + reg·I,
 // then block forward (L y = b) and backward (Lᵀ x = y) substitution.
 //
-// Design: one thread per batch element; n is a template parameter (3, 5, 7,
-// 16: the models' nx+nu), T a run-time value. The forward substitution runs
-// inside the factor sweep, so only the factor's Lₜ and Sₜ go to a scratch
-// tensor (needed again by the backward sweep). Scratch is batch-minor,
-// [2][T][n][n][B], so neighbouring threads touch neighbouring addresses; y
-// is parked in the output x and overwritten by the backward sweep.
-//
 // Bound on the H100: at the main path's shapes (B = 64 .. 4096, T = 5,
 // n = 3) the work is ~500 flops and ~450 bytes per element, so the card's
 // bound is the bytes; but B is far below the 132 SMs × 2048 threads the
-// card holds, so a launch is latency-bound (one serial O(T n³) chain per
-// thread). Making it fast (a warp per element, batch-minor inputs) is later
-// work; this version is the simple, right one.
+// card holds, so a launch is latency-bound: one serial O(T n³) chain per
+// thread, whose links are the IEEE divisions and square roots of each
+// stage and, in a streaming layout, the global loads of each stage.
+//
+// Two layouts, one thread per batch element in both; the wrapper
+// (ops/btsolve_cuda.py) picks one by (dtype, n, T):
+// - on chip (btsolve_onchip_kernel, n and T template parameters): a block's
+//   elements are contiguous in D, O and b, so its threads first copy the
+//   block's spans into shared memory together (coalesced; each element's
+//   row padded to an odd number of words, so the per-thread reads hit
+//   distinct banks in float32 and float64). Each thread then runs its
+//   element's sweep from shared memory with every stage unrolled, holds
+//   Lₜ, Sₜ and yₜ in registers for the backward sweep (no scratch tensor),
+//   writes x over b in shared memory, and the block copies x out coalesced.
+//   The arithmetic and its order are the streaming kernel's, so the two
+//   layouts' outputs are bit-identical. (One reciprocal per pivot in place
+//   of the divisions ran 34% faster at B 64 but moved float32 solutions of
+//   the AL path's ρ ≥ 1e4 systems past K1's tolerance; see PERF.md.)
+// - streaming (btsolve_kernel, n a template parameter, T a run-time value):
+//   every other shape. The forward substitution runs inside the factor
+//   sweep, and the factor's Lₜ and Sₜ go to a batch-minor scratch tensor
+//   [2][T][n][n][B] for the backward sweep; y is parked in the output x.
 #include <cstddef>
+#include <type_traits>
 
 #include "bt_common.cuh"
 
@@ -134,6 +147,169 @@ btsolve_kernel(const F* __restrict__ D, const F* __restrict__ O,
   }
 }
 
+// threads per block of the on-chip kernel: a block stages 64 elements
+constexpr int kOnChipThreads = 64;
+
+// Words of one element in shared memory: D [T][N][N], O [T-1][N][N], b
+// [T][N] (then x), rounded up to an odd count.
+template <int N, int T>
+struct OnChip {
+  static constexpr int kD = T * N * N;
+  static constexpr int kO = (T - 1) * N * N;
+  static constexpr int kB = T * N;
+  static constexpr int kStride = (kD + kO + kB) | 1;
+};
+
+// Copy the block's nb elements of K contiguous scalars each between global
+// memory g and their rows (STRIDE apart, from column OFF) in shared memory,
+// neighbouring threads on neighbouring global addresses: into shared
+// memory when g points to const, out of it otherwise.
+template <int K, int STRIDE, int OFF, typename P, typename F>
+__device__ __forceinline__ void stage(P g, F* sm, int nb) {
+  auto move = [&](int i) {
+    F& s = sm[(i / K) * STRIDE + OFF + i % K];
+    if constexpr (std::is_const_v<std::remove_pointer_t<P>>) {
+      s = g[i];
+    } else {
+      g[i] = s;
+    }
+  };
+  if (nb == kOnChipThreads) {
+#pragma unroll
+    for (int r = 0; r < K; ++r) move(r * kOnChipThreads + threadIdx.x);
+  } else {
+    for (int i = threadIdx.x; i < nb * K; i += kOnChipThreads) move(i);
+  }
+}
+
+template <int N, int T, typename F>
+__global__ void __launch_bounds__(kOnChipThreads)
+btsolve_onchip_kernel(const F* __restrict__ D, const F* __restrict__ O,
+                      const F* __restrict__ b, F* __restrict__ x, int B,
+                      F reg) {
+  using C = OnChip<N, T>;
+  constexpr int NN = N * N;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  F* sm = reinterpret_cast<F*>(smem_raw);
+  const size_t e0 = static_cast<size_t>(blockIdx.x) * kOnChipThreads;
+  const int nb = min(kOnChipThreads, B - static_cast<int>(e0));
+  stage<C::kD, C::kStride, 0>(D + e0 * C::kD, sm, nb);
+  stage<C::kO, C::kStride, C::kD>(O + e0 * C::kO, sm, nb);
+  stage<C::kB, C::kStride, C::kD + C::kO>(b + e0 * C::kB, sm, nb);
+  __syncthreads();
+
+  if (threadIdx.x < nb) {
+    const F* De = sm + threadIdx.x * C::kStride;
+    const F* Oe = De + C::kD;
+    F* be = sm + threadIdx.x * C::kStride + C::kD + C::kO;  // b, then x
+    F L[T][N][N], S[T][N][N], y[T][N], M[N][N], v[N];
+
+    // ---- stage 0: factor, forward solve ----
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j) M[i][j] = De[i * N + j];
+      M[i][i] = M[i][i] + reg;
+    }
+    chol<N, F>(M, L[0]);
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = be[i];
+    solve_lower_vec<N, F>(L[0], v, y[0]);
+
+    // ---- stages 1..T-1: Sₜ, Schur complement, factor, forward solve ----
+#pragma unroll
+    for (int t = 1; t < T; ++t) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) M[i][j] = Oe[(t - 1) * NN + i * N + j];
+      }
+      solve_lower_mat<N, F>(L[t - 1], M, S[t]);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+#pragma unroll
+        for (int j = 0; j <= i; ++j) M[i][j] = De[t * NN + i * N + j];
+      }
+      schur_update<N, F>(M, S[t], reg);
+      chol<N, F>(M, L[t]);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        F s = be[t * N + i];
+#pragma unroll
+        for (int k = 0; k < N; ++k) s = s - S[t][i][k] * y[t - 1][k];
+        v[i] = s;
+      }
+      solve_lower_vec<N, F>(L[t], v, y[t]);
+    }
+
+    // ---- backward: Lᵀ x = y, x over b in shared memory ----
+    F xn[N];
+    auto bwd = [&](int t, const F (&rhs)[N]) {
+      solve_upper_vec<N, F>(L[t], rhs, xn);
+#pragma unroll
+      for (int i = 0; i < N; ++i) be[t * N + i] = xn[i];
+    };
+    bwd(T - 1, y[T - 1]);
+#pragma unroll
+    for (int t = T - 2; t >= 0; --t) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        F s = y[t][i];
+#pragma unroll
+        for (int k = 0; k < N; ++k) s = s - S[t + 1][k][i] * xn[k];
+        v[i] = s;
+      }
+      bwd(t, v);
+    }
+  }
+  __syncthreads();
+  stage<C::kB, C::kStride, C::kD + C::kO>(x + e0 * C::kB, sm, nb);
+}
+
+template <int N, int T, typename F>
+int launch_onchip(const F* D, const F* O, const F* b, F* x, int B, F reg,
+                  cudaStream_t s) {
+  constexpr size_t smem =
+      sizeof(F) * OnChip<N, T>::kStride * kOnChipThreads;
+  auto kernel = btsolve_onchip_kernel<N, T, F>;
+  if (smem > 48 * 1024) {  // above the default, as dynamic shared memory
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, or the next launch would report it
+      return static_cast<int>(err);
+    }
+  }
+  const int blocks = (B + kOnChipThreads - 1) / kOnChipThreads;
+  kernel<<<blocks, kOnChipThreads, smem, s>>>(D, O, b, x, B, reg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename F>
+int launch_onchip_shape(const void* D, const void* O, const void* b, void* x,
+                        int B, int T, int n, double reg, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const F* Dp = static_cast<const F*>(D);
+  const F* Op = static_cast<const F*>(O);
+  const F* bp = static_cast<const F*>(b);
+  F* xp = static_cast<F*>(x);
+  const F r = static_cast<F>(reg);
+#define BT_ONCHIP_CASE(NN_, TT_) \
+  if (n == NN_ && T == TT_)      \
+    return launch_onchip<NN_, TT_, F>(Dp, Op, bp, xp, B, r, s);
+  // the shapes whose element fits in registers without spills (ptxas -v:
+  // float32 (3, 5) 96 registers, (3, 10) 242, (5, 5) 246; float64 (3, 5)
+  // 214; (5, 10), and float64 beyond (3, 5), spill)
+  BT_ONCHIP_CASE(3, 5)
+  if constexpr (std::is_same_v<F, float>) {
+    BT_ONCHIP_CASE(3, 10)
+    BT_ONCHIP_CASE(5, 5)
+  }
+#undef BT_ONCHIP_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename F>
 int launch(const void* D, const void* O, const void* b, void* x,
            void* scratch, int B, int T, int n, double reg, void* stream) {
@@ -167,8 +343,9 @@ int launch(const void* D, const void* O, const void* b, void* x,
 
 }  // namespace dqmpc
 
-// D [B,T,n,n], O [B,T-1,n,n], b [B,T,n] -> x [B,T,n], all contiguous;
-// scratch holds 2·T·n·n·B values. Returns a cudaError_t code.
+// D [B,T,n,n], O [B,T-1,n,n], b [B,T,n] -> x [B,T,n], all contiguous.
+// Streaming layout: scratch holds 2·T·n·n·B values. Returns a cudaError_t
+// code.
 extern "C" int btsolve_f32(const void* D, const void* O, const void* b,
                            void* x, void* scratch, int B, int T, int n,
                            double reg, void* stream) {
@@ -179,4 +356,18 @@ extern "C" int btsolve_f64(const void* D, const void* O, const void* b,
                            void* x, void* scratch, int B, int T, int n,
                            double reg, void* stream) {
   return dqmpc::launch<double>(D, O, b, x, scratch, B, T, n, reg, stream);
+}
+
+// On-chip layout, no scratch. cudaErrorInvalidValue for an (n, T) without
+// an instantiation.
+extern "C" int btsolve_onchip_f32(const void* D, const void* O,
+                                  const void* b, void* x, int B, int T, int n,
+                                  double reg, void* stream) {
+  return dqmpc::launch_onchip_shape<float>(D, O, b, x, B, T, n, reg, stream);
+}
+
+extern "C" int btsolve_onchip_f64(const void* D, const void* O,
+                                  const void* b, void* x, int B, int T, int n,
+                                  double reg, void* stream) {
+  return dqmpc::launch_onchip_shape<double>(D, O, b, x, B, T, n, reg, stream);
 }

@@ -5,11 +5,15 @@
 (``fused_al_solve_reference``, same signature and semantics) for CPU tensors
 and launches the kernel for CUDA tensors; it never falls back from one to
 the other. Each kernel launch adds one to ``launches``.
+
+The kernel runs each batch element on a group of G lanes (``GROUPS``) that
+share its line search; the outputs are bit-identical at every G.
+``choose_group`` is the rule that picks G from the batch.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,14 +26,21 @@ Tensor = torch.Tensor
 
 #: horizons with a kernel instantiation, per dtype
 HORIZONS = {torch.float32: (5, 10), torch.float64: (5,)}
+#: lanes per batch element the kernel takes (a power of two dividing a warp)
+GROUPS = (1, 2, 4, 8, 16, 32)
 #: kernel launches since the count was last set to 0
 launches = 0
 
 _SYMBOLS = {torch.float32: "al_fused_pendulum_f32",
             torch.float64: "al_fused_pendulum_f64"}
+_RESIDENT_SYMBOLS = {
+    torch.float32: "al_fused_pendulum_resident_threads_f32",
+    torch.float64: "al_fused_pendulum_resident_threads_f64"}
 # the line search's running minimum starts at float32's max in every dtype,
 # as the reference kernel's does
 _F32_MAX = float(torch.finfo(torch.float32).max)
+# resident threads per (device index, dtype, T, G), read from the card once
+_resident: dict = {}
 
 Outputs = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]
 
@@ -53,7 +64,8 @@ def fused_al_solve(model, Cd: Tensor, c: Tensor, x0: Tensor,
                    lam_dyn: Optional[Tensor] = None,
                    lam_hi: Optional[Tensor] = None,
                    lam_lo: Optional[Tensor] = None,
-                   rho0: Optional[Tensor] = None) -> Outputs:
+                   rho0: Optional[Tensor] = None,
+                   group: Optional[int] = None) -> Outputs:
     """Whole-solver AL-MPC with explicit x/u (and optional λ/ρ) warm starts.
 
     Cd, c: [B, T, n]; x0: [B, nx]; x_init: [B, T, nx]; u_init: [B, T, nu];
@@ -61,7 +73,11 @@ def fused_al_solve(model, Cd: Tensor, c: Tensor, x0: Tensor,
     rho0 [B] default to zeros/ones, the fresh-state semantics. Returns
     (xu [B, T, n], lam_dyn, lam_hi, lam_lo, res [B]). The defaults of
     rho_max and reg are the kernel's own; solvers pass ALConfig's values.
+    ``group`` sets the kernel's lanes per element (one of ``GROUPS``; the
+    results do not depend on it); None takes ``choose_group``'s.
     """
+    if group is not None and group not in GROUPS:
+        raise ValueError(f"group {group} is not one of {GROUPS}")
     B, T, n = Cd.shape
     nx = x0.shape[-1]
     lam_dyn, lam_hi, lam_lo, rho0 = _fill_warm_start(
@@ -72,7 +88,18 @@ def fused_al_solve(model, Cd: Tensor, c: Tensor, x0: Tensor,
             lam_dyn, lam_hi, lam_lo, rho0)
     if Cd.device.type == "cpu":
         return fused_al_solve_reference(*args)
-    return _launch(*args)
+    return _launch(*args, group=group)
+
+
+def choose_group(B: int, resident: Mapping[int, int]) -> int:
+    """Lanes per element for a batch of B: the widest G of ``GROUPS`` whose
+    B·G threads the card holds resident at once (``resident[G]``, read at
+    the G instantiation's register count), else 1. Below that count every
+    lane has a slot of its own, so the group shortens each element's line
+    search at no cost in waves; above it, replicating the Newton chain on G
+    lanes would take G times the thread slots, so a filled card runs G = 1."""
+    fits = [G for G in GROUPS if B * G <= resident[G]]
+    return max(fits, default=1)
 
 
 def fused_al_solve_reference(model, Cd: Tensor, c: Tensor, x0: Tensor,
@@ -181,9 +208,35 @@ def _check(model, Cd, c, x0, u_lo, u_hi, x_init, u_init, lam_dyn, lam_hi,
     return B, T, n, nx, nu
 
 
+def resident_threads(dtype: torch.dtype, T: int,
+                     device: torch.device) -> Dict[int, int]:
+    """Threads of the kernel for (dtype, T) that ``device`` holds resident
+    at once, per G of ``GROUPS`` (CUDA's occupancy calculator at each G
+    instantiation's register count)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    key = (index, dtype, T)
+    if key not in _resident:
+        lib = cuda_build.load("al_fused")
+        fn = getattr(lib, _RESIDENT_SYMBOLS[dtype])
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        threads = {}
+        for G in GROUPS:
+            out = ctypes.c_int(0)
+            with torch.cuda.device(index):
+                err = fn(T, G.bit_length() - 1, ctypes.byref(out))
+            cuda_build.check(lib, err, "al_fused occupancy query")
+            threads[G] = out.value
+        _resident[key] = threads
+    return _resident[key]
+
+
 def _launch(model, Cd, c, x0, u_lo, u_hi, x_init, u_init, al_iter, n_newton,
             n_ls, rho_factor, rho_max, reg, lam_dyn, lam_hi, lam_lo,
-            rho0) -> Outputs:
+            rho0, group=None) -> Outputs:
     global launches
     B, T, n, nx, nu = _check(model, Cd, c, x0, u_lo, u_hi, x_init, u_init,
                              lam_dyn, lam_hi, lam_lo, rho0)
@@ -194,11 +247,16 @@ def _launch(model, Cd, c, x0, u_lo, u_hi, x_init, u_init, al_iter, n_newton,
     res = torch.empty_like(rho0)
     if B == 0:
         return w, lamd_o, lamh_o, laml_o, res
+    if group is None:
+        group = choose_group(B, resident_threads(Cd.dtype, T, Cd.device))
+    if B * group >= 2 ** 31:
+        raise ValueError(f"B·G = {B}·{group} threads exceed the kernel's "
+                         "int indexing")
     lib = cuda_build.load("al_fused")
     fn = getattr(lib, _SYMBOLS[Cd.dtype])
     dbl3 = ctypes.c_double * 3
     dblu = ctypes.c_double * nu
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 \
         + [ctypes.c_double] * 3 + [ctypes.POINTER(ctypes.c_double)] * 3 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -210,9 +268,10 @@ def _launch(model, Cd, c, x0, u_lo, u_hi, x_init, u_init, al_iter, n_newton,
                  x_init.data_ptr(), u_init.data_ptr(), lam_dyn.data_ptr(),
                  lam_hi.data_ptr(), lam_lo.data_ptr(), rho0.data_ptr(),
                  w.data_ptr(), lamd_o.data_ptr(), lamh_o.data_ptr(),
-                 laml_o.data_ptr(), res.data_ptr(), B, T, al_iter, n_newton,
-                 n_ls, rho_factor, rho_max, reg, params, dblu(*u_lo),
-                 dblu(*u_hi), stream)
+                 laml_o.data_ptr(), res.data_ptr(), B,
+                 group.bit_length() - 1, T, al_iter, n_newton, n_ls,
+                 rho_factor, rho_max, reg, params, dblu(*u_lo), dblu(*u_hi),
+                 stream)
     cuda_build.check(lib, err, "al_fused kernel launch")
     launches += 1
     return w, lamd_o, lamh_o, laml_o, res

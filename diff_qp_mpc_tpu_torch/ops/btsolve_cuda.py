@@ -5,10 +5,17 @@
 (``ops.btsolve.batched_factor_solve``) for CPU tensors and launches the
 kernel for CUDA tensors; it never falls back from one to the other. Each
 kernel launch adds one to ``launches``.
+
+The kernel has two layouts (``LAYOUTS``): "onchip" keeps each element's
+blocks, factor and substitution in shared memory and registers, for the
+(dtype, n, T) of ``ONCHIP_SHAPES``; "stream" takes every block size of
+``BLOCK_SIZES`` at any T, with the factor in a scratch tensor.
+``choose_layout`` is the rule.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -19,18 +26,35 @@ Tensor = torch.Tensor
 
 #: block sizes n = nx + nu with a kernel instantiation
 BLOCK_SIZES = (3, 5, 7, 16)
+#: (n, T) with an on-chip instantiation, per dtype
+ONCHIP_SHAPES = {torch.float32: ((3, 5), (3, 10), (5, 5)),
+                 torch.float64: ((3, 5),)}
+LAYOUTS = ("onchip", "stream")
 #: kernel launches since the count was last set to 0
 launches = 0
 
 _SYMBOLS = {torch.float32: "btsolve_f32", torch.float64: "btsolve_f64"}
+_ONCHIP_SYMBOLS = {torch.float32: "btsolve_onchip_f32",
+                   torch.float64: "btsolve_onchip_f64"}
 
 
-def batched_factor_solve(D: Tensor, O: Tensor, b: Tensor,
-                         reg: float = 0.0) -> Tensor:
-    """Solve H x = b. D: [B, T, n, n], O: [B, T-1, n, n], b: [B, T, n]."""
+def batched_factor_solve(D: Tensor, O: Tensor, b: Tensor, reg: float = 0.0,
+                         layout: Optional[str] = None) -> Tensor:
+    """Solve H x = b. D: [B, T, n, n], O: [B, T-1, n, n], b: [B, T, n].
+    ``layout`` forces one of ``LAYOUTS`` on the card (the same function);
+    None takes ``choose_layout``'s."""
+    if layout is not None and layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r} is not one of {LAYOUTS}")
     if D.device.type == "cpu":
         return btsolve.batched_factor_solve(D, O, b, reg)
-    return _launch(D, O, b, float(reg))
+    return _launch(D, O, b, float(reg), layout)
+
+
+def choose_layout(dtype: torch.dtype, n: int, T: int) -> str:
+    """"onchip" where (n, T) has an on-chip instantiation for ``dtype``,
+    whose element fits in registers and shared memory without spills; else
+    "stream"."""
+    return "onchip" if (n, T) in ONCHIP_SHAPES.get(dtype, ()) else "stream"
 
 
 def _check(D: Tensor, O: Tensor, b: Tensor):
@@ -55,22 +79,38 @@ def _check(D: Tensor, O: Tensor, b: Tensor):
     return B, T, n
 
 
-def _launch(D: Tensor, O: Tensor, b: Tensor, reg: float) -> Tensor:
+def _launch(D: Tensor, O: Tensor, b: Tensor, reg: float,
+            layout: Optional[str]) -> Tensor:
     global launches
     B, T, n = _check(D, O, b)
+    if layout is None:
+        layout = choose_layout(D.dtype, n, T)
+    if layout == "onchip" and (n, T) not in ONCHIP_SHAPES[D.dtype]:
+        raise ValueError(f"no on-chip kernel for n={n}, T={T}, {D.dtype} "
+                         f"(built: {ONCHIP_SHAPES[D.dtype]})")
     x = torch.empty_like(b)
     if B == 0:
         return x
-    scratch = torch.empty(2 * T * n * n * B, dtype=D.dtype, device=D.device)
     lib = cuda_build.load("btsolve")
-    fn = getattr(lib, _SYMBOLS[D.dtype])
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
-        + [ctypes.c_double, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(D.device).cuda_stream
-    with torch.cuda.device(D.device):
-        err = fn(D.data_ptr(), O.data_ptr(), b.data_ptr(), x.data_ptr(),
-                 scratch.data_ptr(), B, T, n, reg, stream)
+    if layout == "stream":
+        scratch = torch.empty(2 * T * n * n * B, dtype=D.dtype,
+                              device=D.device)
+        fn = getattr(lib, _SYMBOLS[D.dtype])
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+            + [ctypes.c_double, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(D.device):
+            err = fn(D.data_ptr(), O.data_ptr(), b.data_ptr(), x.data_ptr(),
+                     scratch.data_ptr(), B, T, n, reg, stream)
+    else:
+        fn = getattr(lib, _ONCHIP_SYMBOLS[D.dtype])
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+            + [ctypes.c_double, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(D.device):
+            err = fn(D.data_ptr(), O.data_ptr(), b.data_ptr(), x.data_ptr(),
+                     B, T, n, reg, stream)
     cuda_build.check(lib, err, "btsolve kernel launch")
     launches += 1
     return x

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from diff_qp_mpc_tpu_torch.benchmarks.kernel_layouts import K1_TOL
 from diff_qp_mpc_tpu_torch.core.types import ALState, Bounds, DiagQuadCost
 from diff_qp_mpc_tpu_torch.models import Pendulum
 from diff_qp_mpc_tpu_torch.ops import (
@@ -61,6 +62,43 @@ def test_btsolve_kernel_refuses_unbuilt_block_size(cuda):
         btsolve_cuda.batched_factor_solve(D, O, b)
 
 
+# every (dtype, n, T, layout) K1 takes: the on-chip layouts at their built
+# shapes, the streaming layout at each of them and at every block size
+K1_CASES = sorted({(dt, n, T, lay)
+                   for dt, shapes in btsolve_cuda.ONCHIP_SHAPES.items()
+                   for n, T in shapes
+                   for lay in btsolve_cuda.LAYOUTS}
+                  | {(dt, n, 5, "stream") for dt in K1_TOL
+                     for n in btsolve_cuda.BLOCK_SIZES}, key=str)
+
+
+@pytest.mark.parametrize("dtype,n,T,layout", K1_CASES, ids=str)
+def test_btsolve_layouts_match_plain(cuda, dtype, n, T, layout):
+    D, O, b = _system(100, T, n, dtype, cuda, seed=n + T)
+    before = btsolve_cuda.launches
+    x = btsolve_cuda.batched_factor_solve(D, O, b, 1e-7, layout=layout)
+    assert btsolve_cuda.launches == before + 1
+    ref = btsolve.batched_factor_solve(D, O, b, 1e-7)
+    assert bool(torch.isfinite(x).all())
+    assert float((x - ref).abs().max() / ref.abs().max()) <= K1_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", list(K1_TOL))
+def test_btsolve_layouts_bit_identical(cuda, dtype):
+    """The on-chip layout keeps the streaming kernel's arithmetic and its
+    order, so the two agree to the bit."""
+    D, O, b = _system(300, 5, 3, dtype, cuda, seed=1)
+    x_on = btsolve_cuda.batched_factor_solve(D, O, b, 1e-7, layout="onchip")
+    x_st = btsolve_cuda.batched_factor_solve(D, O, b, 1e-7, layout="stream")
+    assert torch.equal(x_on, x_st)
+
+
+def test_btsolve_onchip_refuses_unbuilt_shape(cuda):
+    D, O, b = _system(4, 5, 7, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        btsolve_cuda.batched_factor_solve(D, O, b, layout="onchip")
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-2),
                                        (torch.float64, 1e-6)])
 def test_al_fused_kernel_matches_plain(cuda, dtype, tol):
@@ -80,6 +118,96 @@ def test_al_fused_kernel_matches_plain(cuda, dtype, tol):
     ref = al_fused_cuda.fused_al_solve_reference(*args, **kw)
     for i in (0, 4):  # xu and res, as chip_smoke.py checks them
         assert float((out[i] - ref[i]).abs().max()) <= tol
+
+
+K2_TOL = {torch.float32: 1e-2, torch.float64: 1e-6}
+K2_KW = dict(al_iter=2, n_newton=4, n_ls=20, rho_max=1e6, reg=1e-7)
+
+
+def _k2_args(B, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    T = 5
+    x0 = rng.uniform([-np.pi, -1.0], [np.pi, 1.0], (B, 2))
+    x_ref = x0[:, None] + np.cumsum(0.1 * rng.randn(B, T, 2), axis=1)
+    Cd = np.broadcast_to([10.0, 1.0, 0.01], (B, T, 3)).copy()
+    c = -Cd * np.concatenate([x_ref, np.zeros((B, T, 1))], -1)
+    to = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    return (Pendulum(), to(Cd), to(c), to(x0), (-3.0,), (3.0,), to(x_ref),
+            torch.zeros(B, T, 1, dtype=dtype, device=device))
+
+
+def _bits_equal(a, b):
+    return all(torch.equal(x.view(torch.int64 if x.dtype == torch.float64
+                                  else torch.int32),
+                           y.view(torch.int64 if y.dtype == torch.float64
+                                  else torch.int32))
+               for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("B", [64, 256])
+@pytest.mark.parametrize("group", al_fused_cuda.GROUPS[1:])
+@pytest.mark.parametrize("dtype", list(K2_TOL))
+def test_al_fused_groups_bit_identical(cuda, B, group, dtype):
+    args = _k2_args(B, dtype, cuda, seed=B)
+    ref = al_fused_cuda.fused_al_solve(*args, **K2_KW, group=1)
+    out = al_fused_cuda.fused_al_solve(*args, **K2_KW, group=group)
+    assert _bits_equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", list(K2_TOL))
+def test_al_fused_groups_tie_case(cuda, dtype):
+    """Newton direction 0 (x0 = 0, c = 0, zero warm start): every candidate
+    ties with the incumbent, no step is taken at any G."""
+    B, T = 64, 5
+    Cd = torch.tensor([10.0, 1.0, 0.01], dtype=dtype,
+                      device=cuda).expand(B, T, 3).contiguous()
+    z = lambda *s: torch.zeros(s, dtype=dtype, device=cuda)
+    args = (Pendulum(), Cd, z(B, T, 3), z(B, 2), (-3.0,), (3.0,),
+            z(B, T, 2), z(B, T, 1))
+    outs = [al_fused_cuda.fused_al_solve(*args, **K2_KW, group=G)
+            for G in al_fused_cuda.GROUPS]
+    for out in outs[1:]:
+        assert _bits_equal(out, outs[0])
+    assert float(outs[0][0].abs().max()) == 0.0
+
+
+# K2 at G 32 puts two elements in a block of 64 threads and at G 8 eight:
+# B 1, 65, 129 leave the last block partly empty at every G, and B 3 at G
+# 8 or 16 leaves lanes of the last warp without a group
+@pytest.mark.parametrize("B", (1, 3, 65, 129))
+@pytest.mark.parametrize("group", [None, 8, 16, 32])
+@pytest.mark.parametrize("dtype", list(K2_TOL))
+def test_al_fused_kernel_edge_batches(cuda, B, group, dtype):
+    args = _k2_args(B, dtype, cuda, seed=B)
+    out = al_fused_cuda.fused_al_solve(*args, **K2_KW, group=group)
+    ref = al_fused_cuda.fused_al_solve_reference(*args, **K2_KW)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    for i in (0, 4):
+        assert float((out[i] - ref[i]).abs().max()) <= K2_TOL[dtype]
+    assert _bits_equal(out, al_fused_cuda.fused_al_solve(*args, **K2_KW,
+                                                         group=1))
+
+
+def test_al_fused_refuses_unbuilt_group(cuda):
+    args = _k2_args(4, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        al_fused_cuda.fused_al_solve(*args, group=3)
+
+
+@pytest.mark.parametrize("dtype,T", [(torch.float32, 5),
+                                     (torch.float32, 10),
+                                     (torch.float64, 5)])
+def test_al_fused_group_rule_on_card(cuda, dtype, T):
+    """The occupancy query gives whole blocks of 64 on every SM at every G,
+    and the rule's G fits the batch into them (or is 1)."""
+    resident = al_fused_cuda.resident_threads(dtype, T, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert sorted(resident) == sorted(al_fused_cuda.GROUPS)
+    for threads in resident.values():
+        assert threads > 0 and threads % (64 * sms) == 0
+    for B in (1, 64, 256, 4096, 262144):
+        G = al_fused_cuda.choose_group(B, resident)
+        assert G == 1 or B * G <= resident[G]
 
 
 def test_solve_fused_stateful_launches_once_per_al_iteration(cuda):
@@ -138,6 +266,58 @@ def _unpoisoned(B, poisoned, device):
     keep = torch.ones(B, dtype=torch.bool, device=device)
     keep[list(poisoned)] = False
     return keep
+
+
+@pytest.mark.parametrize("B", EDGE_BATCHES)
+@pytest.mark.parametrize("layout", btsolve_cuda.LAYOUTS)
+@pytest.mark.parametrize("dtype", list(K1_TOL))
+def test_btsolve_kernel_edge_batches(cuda, B, layout, dtype):
+    D, O, b = _system(B, 5, 3, dtype, cuda, seed=B)
+    x = btsolve_cuda.batched_factor_solve(D, O, b, 1e-7, layout=layout)
+    ref = btsolve.batched_factor_solve(D, O, b, 1e-7)
+    assert bool(torch.isfinite(x).all())
+    assert float((x - ref).abs().max() / ref.abs().max()) <= K1_TOL[dtype]
+
+
+@pytest.mark.parametrize("B,poisoned", ISOLATION_CASES)
+@pytest.mark.parametrize("poison", [float("nan"), 1e30])
+@pytest.mark.parametrize("layout", btsolve_cuda.LAYOUTS)
+def test_btsolve_kernel_isolates_elements(cuda, B, poisoned, poison, layout):
+    """A non-finite or huge input of some elements leaves every other
+    element's outputs bit-identical."""
+    args = _system(B, 5, 3, torch.float32, cuda, seed=3)
+    clean = btsolve_cuda.batched_factor_solve(*args, 1e-7, layout=layout)
+    bad = [a.clone() for a in args]
+    for a in bad:
+        a[list(poisoned)] = poison
+    dirty = btsolve_cuda.batched_factor_solve(*bad, 1e-7, layout=layout)
+    keep = _unpoisoned(B, poisoned, cuda)
+    assert torch.equal(clean[keep], dirty[keep])
+
+
+@pytest.mark.parametrize("B,poisoned", ISOLATION_CASES)
+@pytest.mark.parametrize("poison", [float("nan"), 1e30])
+@pytest.mark.parametrize("group", [None, 8, 32])
+def test_al_fused_kernel_isolates_elements(cuda, B, poisoned, poison, group):
+    """A non-finite or huge input of some elements leaves every other
+    element's outputs bit-identical, whatever the group width."""
+    model, *arrays, = _k2_args(B, torch.float32, cuda, seed=4)
+    tensors = [a for a in arrays if isinstance(a, torch.Tensor)]
+    box = ((-3.0,), (3.0,))
+
+    def run(ts):
+        Cd, c, x0, xi, ui = ts
+        return al_fused_cuda.fused_al_solve(model, Cd, c, x0, *box, xi, ui,
+                                            **K2_KW, group=group)
+
+    clean = run(tensors)
+    bad = [a.clone() for a in tensors]
+    for a in bad:
+        a[list(poisoned)] = poison
+    dirty = run(bad)
+    keep = _unpoisoned(B, poisoned, cuda)
+    for c, d in zip(clean, dirty):
+        assert torch.equal(c[keep], d[keep])
 
 
 @pytest.mark.parametrize("B", EDGE_BATCHES)
