@@ -54,7 +54,28 @@ Phases, each of which raises on failure (there is no CPU fallback):
      tiles, 8 streams, 4096 sins) and K2 at its problem (B 262144, rho_max
      1e4, reg 1e-5, float32 and float64) are held against their plain
      versions, and K4 and the scan IPM must agree on u on the profiler's
-     cases (PROF_U_TOL, float32 and float64).
+     cases (PROF_U_TOL, float32 and float64);
+ 10. K1 in float32 on the AL path's own Newton systems (ρ 1 … 1e6, reg 1e-7,
+     B 4096; the gradient and a cotangent as right-hand sides) against the
+     float64 solution: within K1_AL_RATIO of the plain float32 version's
+     error at every ρ;
+ 11. the training gradient: one DEQ-MPC loss and gradient in float64 from
+     each committed checkpoint (B 8, its path's flags) on the card against
+     the CPU, relative error of the flattened gradient ≤ GRAD_TOL on all
+     four paths; and float32 against float64 on the card (AL fused,
+     recorded);
+ 12. the training path through the train entry point: the committed AL
+     checkpoint's meta.json flags (fused, bsz 256, grad_clip 10, pretrain)
+     cut to TRAIN_ITERS steps, TRAIN_PRETRAIN of them pretraining, writing
+     its checkpoints under build/; the counts are set to 0 before each step
+     and read after it: no launch in a pretraining step, exactly
+     LAUNCHES_PER_TRAIN_STEP in a DEQ-MPC step; every loss and gradient norm
+     finite, the pretraining loss falling, and the checkpoint it wrote
+     evaluated through the evaluate entry point. Then OTHER_TRAIN_STEPS
+     DEQ-MPC steps on each other path with the same checks. Per path: ms
+     per training step, the device's busy share over a profiled window of
+     the run's last steps, and the implicit-gradient guard's drops in each
+     step.
 Bounds: the larger of the bytes over the HBM rate and the operations over
 the float32 peak (diff_qp_mpc_tpu_torch/benchmarks/flops.py); each sin or
 cos counts as the 15 FP32 instructions of its fast path (SINF_FP32_INSTR).
@@ -174,6 +195,35 @@ PROF_U_TOL = {torch.float32: 5e-3, torch.float64: 1e-8}
 # timing windows of the roofline phase (the full runs take 10 × 5)
 ROOF_REP, ROOF_OUTER = 3, 3
 
+# the training path: the committed AL checkpoint's run (8000 iterations,
+# 1000 of them pretraining) cut to TRAIN_ITERS, TRAIN_PRETRAIN of them
+# pretraining, a log line and a checkpoint every TRAIN_CKPT_EVERY
+TRAIN_META = CKPT + ".meta.json"
+TRAIN_ITERS, TRAIN_PRETRAIN, TRAIN_CKPT_EVERY = 60, 30, 10
+OTHER_TRAIN_STEPS = 3
+# steps traced by torch.profiler at the end of each path's run; the median
+# ms per step leaves them out, and the first DEQ-MPC step
+TRACED_TRAIN_STEPS = {"fused": 3, "scan": 1, "ip-scan": 1, "ip-fused": 1}
+TRAIN_LOGDIR = os.path.join("build", "chip_smoke_train")
+# the solver flags of each path (the meta's own run is "fused")
+TRAIN_FLAGS = {"fused": ["--fused"], "scan": [],
+               "ip-scan": ["--solver_type", "ip"],
+               "ip-fused": ["--solver_type", "ip", "--fused"]}
+# kernel launches per DEQ-MPC training step: the forward's, as in
+# LAUNCHES_PER_STEP (the scan path carries its warm starts: solver_carry
+# auto), plus one implicit-backward solve per tracking solve (deq_iter 6):
+# K1 on the AL paths, K3 (the final QP's layer) on the ip paths. A
+# pretraining step launches none
+LAUNCHES_PER_TRAIN_STEP = {"fused": {"K2": 6, "K1": 6},
+                           "scan": {"K1": 6 * 2 * 4 + 6},
+                           "ip-scan": {"K3": 6 * 3 * 12 * 2 + 6},
+                           "ip-fused": {"K4": 6 * 3, "K3": 6}}
+# float64 training gradient, card vs CPU, B GRAD_B: the relative error of
+# the flattened gradient, as POLICY_TOL holds the forward (line-search
+# near-ties at ~1e-7 in float64)
+GRAD_TOL, GRAD_B = 1e-6, 8
+DATA = "data/expert_traj_sac-Pendulum-v0_new.pkl"
+
 
 def log(*a):
     print(*a, flush=True)
@@ -225,7 +275,7 @@ def phase_k1():
         log("K1 layouts", json.dumps(r))
     filled = rows["layouts"][-1]
     share = filled["bound_share"][filled["chosen_layout"]]
-    if share is not None and not 0.0 <= share <= 1.1:
+    if not 0.0 <= share <= 1.1:
         raise RuntimeError(f"K1 at a filled card: bound share {share}")
     return rows
 
@@ -420,8 +470,7 @@ def phase_k3_filled(reg):
     row["ms"] = device_kernel_ms(kern, 20, "riccati_kernel")
     row["bound_ms"], row["bound_by"] = bound(B * k3_bytes(T, NX, NU),
                                              B * k3_ops(T, NX, NU))
-    ms = row["ms"] if row["ms"] is not None else row["ms_events"]
-    row["bound_share"] = row["bound_ms"] / ms
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     log("K3 filled", json.dumps(row))
     if not (all(bool(torch.isfinite(o).all()) for o in out_k)
             and err <= K3_TOL[torch.float32]
@@ -661,12 +710,19 @@ PATHS = (("scan", CKPT, []), ("fused", CKPT, ["--fused"]),
          ("ip-scan", IP_CKPT, []), ("ip-fused", IP_CKPT, ["--fused"]))
 
 
+def make_policy_from(args, env, ckpt):
+    from diff_qp_mpc_tpu_torch.learning.train import make_policy
+    from diff_qp_mpc_tpu_torch.utils.checkpoint import load_policy_params
+
+    policy = make_policy(args, env)
+    policy.load_state_dict(load_policy_params(ckpt))
+    return policy
+
+
 def phase_policy():
     """One policy forward, float64, on the card vs on the CPU, per path."""
     from diff_qp_mpc_tpu_torch.envs import make_env
     from diff_qp_mpc_tpu_torch.learning import evaluate
-    from diff_qp_mpc_tpu_torch.learning.train import make_policy
-    from diff_qp_mpc_tpu_torch.utils.checkpoint import load_policy_params
 
     rng = np.random.RandomState(0)
     x = torch.tensor(rng.uniform([-np.pi, -1.0], [np.pi, 1.0], (8, NX)),
@@ -677,9 +733,8 @@ def phase_policy():
         env = make_env(args.env)
         outs = []
         for device in ("cpu", "cuda"):
-            policy = make_policy(args, env)
-            policy.load_state_dict(load_policy_params(ckpt))
-            policy.to(device=device, dtype=torch.float64)
+            policy = make_policy_from(args, env, ckpt).to(
+                device=device, dtype=torch.float64)
             with torch.no_grad():
                 its, _ = policy(x.to(device))
             outs.append(torch.cat([its[-1].states, its[-1].actions],
@@ -741,6 +796,220 @@ def phase_main_path():
     return runs
 
 
+# ------------------------------------------------------------ training ----
+def meta_argv(path=TRAIN_META):
+    """The train entry point's flags that a JAX trainer's meta.json sets,
+    but for the run's length, its logging and checkpointing, and the
+    solver kernel (each path adds its own)."""
+    from diff_qp_mpc_tpu_torch.learning.train import build_parser
+
+    skip = {"fused", "iters", "pretrain_iters", "ckpt_every", "name",
+            "logdir", "save", "load", "ckpt", "data", "x64", "device"}
+    with open(path) as f:
+        meta = json.load(f)
+    argv = []
+    for a in build_parser()._actions:
+        if a.dest in skip or a.dest not in meta or not a.option_strings:
+            continue
+        v = meta[a.dest]
+        if a.nargs == 0:  # store_true
+            argv += [a.option_strings[0]] if v else []
+        elif v is not None:
+            argv += [a.option_strings[0], str(v)]
+    return argv
+
+
+def phase_k1_al():
+    """K1 in float32 on the AL path's Newton systems, against float64."""
+    rows = kernel_layouts.k1_al_systems()
+    for r in rows:
+        log("K1 AL systems", json.dumps(r))
+    return rows
+
+
+def phase_train_grad():
+    """One DEQ-MPC loss and gradient, float64, from each committed
+    checkpoint on the card against the CPU; AL fused also in float32 on
+    the card against float64 on the card (recorded)."""
+    from diff_qp_mpc_tpu_torch.envs import make_env
+    from diff_qp_mpc_tpu_torch.learning import data, evaluate, train
+
+    dataset = data.load_expert_pickle(DATA)
+    batch = data.sample_window_batch(dataset, GRAD_B, T,
+                                     np.random.RandomState(0),
+                                     use_native=False)
+    rows = {}
+    for path, ckpt, flags in PATHS:
+        args = evaluate.parse_args(["--env", "pendulum", "--deq", "--ckpt",
+                                    ckpt] + flags)
+        env = make_env(args.env)
+        runs = [("cpu", torch.float64), ("cuda", torch.float64)]
+        if path == "fused":
+            runs.append(("cuda", torch.float32))
+        out = {}
+        for device, dtype in runs:
+            policy = make_policy_from(args, env, ckpt).to(device=device,
+                                                          dtype=dtype)
+            loss, _, _ = train.compute_loss(
+                policy, args, train.to_batch(batch, device, dtype), True,
+                torch.Generator())
+            g = torch.autograd.grad(loss, list(policy.parameters()))
+            out[device, dtype] = (float(loss.detach()), torch.cat(
+                [x.reshape(-1) for x in g]).double().cpu())
+        ref = out["cpu", torch.float64][1]
+        rel = lambda g: float((g - ref).norm() / ref.norm())
+        row = dict(path=path, B=GRAD_B, loss=out["cpu", torch.float64][0],
+                   grad_norm=float(ref.norm()),
+                   rel_err_card_vs_cpu_f64=rel(
+                       out["cuda", torch.float64][1]), tol=GRAD_TOL)
+        if path == "fused":
+            g32 = out["cuda", torch.float32][1]
+            g64 = out["cuda", torch.float64][1]
+            row["rel_err_f32_vs_f64_card"] = float(
+                (g32 - g64).norm() / g64.norm())
+            if not torch.isfinite(g32).all():
+                raise RuntimeError(f"float32 training gradient not finite: "
+                                   f"{row}")
+        log("train grad", json.dumps(row))
+        rows[path] = row
+        if not (torch.isfinite(out["cuda", torch.float64][1]).all()
+                and row["rel_err_card_vs_cpu_f64"] <= GRAD_TOL):
+            raise RuntimeError(f"training gradient on the card disagrees "
+                               f"with the CPU ({path}): {row}")
+    return rows
+
+
+def train_run(path, argv, traced_steps):
+    """The train entry point with ``argv``; the launch counts and the
+    implicit-gradient guard's drops are set to 0 before every step and read
+    after it, and a torch.profiler trace spans the last ``traced_steps``
+    steps. Returns the step records and the trace's summary: host ms per
+    step over the traced window and the device's busy share of it
+    (kernels, copies and memsets)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diff_qp_mpc_tpu_torch.learning import train
+    from diff_qp_mpc_tpu_torch.solvers import al_mpc
+    from diff_qp_mpc_tpu_torch.utils.profile_main_path import (
+        _trace_device_time,
+    )
+
+    iters = train.build_parser().parse_args(argv).iters
+    wrappers = kernel_wrappers()
+    records = []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+        al_mpc.guard_drops = 0
+
+    def on_step(rec):
+        rec["launches"] = {k: w.launches for k, w in wrappers.items()}
+        rec["guard_drops"] = int(al_mpc.guard_drops)
+        records.append(rec)
+        if len(records) == iters - traced_steps:
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif len(records) == iters:
+            window["wall_us"] = (time.perf_counter() - window["t0"]) * 1e6
+            prof.stop()
+        reset()
+
+    reset()
+    try:
+        train.main(argv, on_step=on_step)
+    finally:
+        al_mpc.guard_drops = None
+        if "t0" in window and "wall_us" not in window:
+            prof.stop()
+    want = {k: 0 for k in wrappers}
+    want.update(LAUNCHES_PER_TRAIN_STEP[path])
+    for rec in records:
+        expected = want if rec["mode"] == "deqmpc" else {
+            k: 0 for k in wrappers}
+        if rec["launches"] != expected:
+            raise RuntimeError(f"{path} training step {rec['iter']} "
+                               f"({rec['mode']}): launches "
+                               f"{rec['launches']}, expected {expected}")
+        if not all(np.isfinite(rec[k]) for k in ("loss", "loss_end",
+                                                 "grad_norm")):
+            raise RuntimeError(f"{path} training step {rec['iter']}: "
+                               f"non-finite {rec}")
+    out = os.path.join("build", "profile")
+    os.makedirs(out, exist_ok=True)
+    trace = os.path.join(out, f"trace_train_{path}.json")
+    prof.export_chrome_trace(trace)
+    busy, kernels = _trace_device_time(trace)
+    busy_us, wall_us = sum(busy.values()), window["wall_us"]
+    return records, dict(
+        traced_steps=traced_steps,
+        host_ms_per_traced_step=wall_us / traced_steps / 1e3,
+        device_busy_ms_per_step=busy_us / traced_steps / 1e3,
+        device_busy_share=busy_us / wall_us,
+        device_launches_per_step=sum(c for _, c in kernels.values())
+        / traced_steps)
+
+
+def phase_train():
+    """The training path through the train entry point on all four
+    solver paths (see the module docstring, phase 12)."""
+    from diff_qp_mpc_tpu_torch.learning import evaluate
+
+    base = meta_argv() + ["--logdir", TRAIN_LOGDIR, "--save"]
+    summary = {}
+    for path, flags in TRAIN_FLAGS.items():
+        t0 = time.perf_counter()
+        if path == "fused":
+            argv = base + flags + [
+                "--iters", str(TRAIN_ITERS), "--pretrain_iters",
+                str(TRAIN_PRETRAIN), "--ckpt_every", str(TRAIN_CKPT_EVERY),
+                "--name", path]
+        else:
+            argv = [a for a in base if a != "--pretrain"] + flags + [
+                "--iters", str(OTHER_TRAIN_STEPS), "--ckpt_every",
+                str(OTHER_TRAIN_STEPS), "--name", path]
+        traced = TRACED_TRAIN_STEPS[path]
+        records, trace = train_run(path, argv, traced)
+        deq = [r for r in records if r["mode"] == "deqmpc"]
+        row = dict(path=path, steps=len(records), deqmpc_steps=len(deq),
+                   launches_per_deqmpc_step=deq[-1]["launches"],
+                   ms_per_step_median=float(np.median(
+                       [r["ms"] for r in deq[1:-traced]])),
+                   ms_first_deqmpc_step=deq[0]["ms"],
+                   guard_drops_per_step=[r["guard_drops"] for r in records],
+                   ms_deqmpc_steps=[r["ms"] for r in deq],
+                   loss_end_last=deq[-1]["loss_end"],
+                   launches_total={k: sum(r["launches"][k] for r in records)
+                                   for k in records[0]["launches"]},
+                   grad_norm_max=max(r["grad_norm"] for r in records),
+                   seconds=time.perf_counter() - t0)
+        if path == "fused":
+            pre = [r["loss"] for r in records if r["mode"] == "deq"]
+            row.update(pretrain_steps=len(pre),
+                       pretrain_loss_first5=float(np.mean(pre[:5])),
+                       pretrain_loss_last5=float(np.mean(pre[-5:])),
+                       ms_pretrain_median=float(np.median(
+                           [r["ms"] for r in records
+                            if r["mode"] == "deq"][1:])))
+            if not row["pretrain_loss_last5"] < row["pretrain_loss_first5"]:
+                raise RuntimeError(f"the pretraining loss did not fall: "
+                                   f"{row}")
+            ckpt = os.path.join(TRAIN_LOGDIR, path, "ckpt.msgpack")
+            ev = evaluate.main(["--env", "pendulum", "--deq", "--ckpt", ckpt,
+                                "--fused", "--episodes", "8", "--max_steps",
+                                "30"])
+            row["evaluate"] = ev
+            if not (ev["steps_run"] > 0 and np.isfinite(ev["mean_reward"])):
+                raise RuntimeError(f"the written checkpoint did not "
+                                   f"evaluate: {ev}")
+        row.update(trace)
+        log("train", json.dumps(row))
+        summary[path] = row
+    return summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -777,6 +1046,15 @@ def main():
     t_roof = time.perf_counter()
     roof = phase_roofline()
     log(f"roofline phase: {time.perf_counter() - t_roof:.1f} s")
+    phase_k1_al()
+    t_train = time.perf_counter()
+    phase_train_grad()
+    training = phase_train()
+    log(f"training phases: {time.perf_counter() - t_train:.1f} s")
+    # the training phase's launches of each kernel, all four paths
+    train_launches = {k: sum(row["launches_total"][k]
+                             for row in training.values())
+                      for k in kernel_wrappers()}
 
     main_b = EPISODES  # the batch the main paths hand every kernel
     kernels = []
@@ -799,9 +1077,10 @@ def main():
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": runs[path]["launches"][kid],
+            "launches_training": train_launches[kid],
             "max_abs_err": r.get("max_abs_err_xu", r.get("max_abs_err")),
             "tolerance": r["tol"][0] if kid == "K2" else r["tol"],
-            "ms": r["ms"] if r["ms"] is not None else r["ms_events"],
+            "ms": r["ms"],
             "ms_events": r["ms_events"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
@@ -831,8 +1110,9 @@ def main():
         "source": "diff_qp_mpc_tpu_torch/csrc/sin_chain.cu",
         "replaces": "benchmarks/roofline_fused.py:116",
         "launches": roof["launches"]["K5"],
+        "launches_training": train_launches["K5"],
         "max_abs_err": k5["max_abs_err"], "tolerance": k5["tol"],
-        "ms": k5["ms"] if k5["ms"] is not None else k5["ms_events"],
+        "ms": k5["ms"],
         "ms_events": k5["ms_events"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "library_ms": None,

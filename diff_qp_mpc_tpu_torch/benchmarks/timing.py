@@ -30,6 +30,9 @@ import time
 
 import torch
 
+# Profiled windows ``device_kernel_ms`` takes before it gives up on a kernel.
+PROFILE_ATTEMPTS = 3
+
 
 def _sync_result(r) -> None:
     if not (isinstance(r, torch.Tensor) and r.device.type == "cuda"):
@@ -100,25 +103,29 @@ def events_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_kernel_ms(fn, reps: int, name: str):
+def device_kernel_ms(fn, reps: int, name: str) -> float:
     """Device time per launch of the CUDA kernel whose name contains
-    ``name``, from torch.profiler; None if the profiler saw no such kernel
-    time."""
+    ``name``, from torch.profiler. A profiled window in which the profiler
+    saw no such kernel time is taken again, up to ``PROFILE_ATTEMPTS``
+    windows in all; then it raises, so a missing time is never recorded."""
     from torch.profiler import ProfilerActivity, profile
 
     _require_card()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if name in ev.key:
-            total += ev.device_time_total
-            count += ev.count
-    if count == 0 or total <= 0:
-        return None
-    return total / count / 1e3
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for ev in prof.key_averages():
+            if name in ev.key:
+                total += ev.device_time_total
+                count += ev.count
+        if count > 0 and total > 0:
+            return total / count / 1e3
+    raise RuntimeError(f"the profiler saw no device time of a kernel named "
+                       f"{name!r} in {PROFILE_ATTEMPTS} windows of {reps} "
+                       f"calls")

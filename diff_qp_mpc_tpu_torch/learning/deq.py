@@ -2,10 +2,12 @@
 diff_qp_mpc_tpu.learning.deq: DEQCell, DEQLayer).
 
 Parameter names follow ``torch.nn``; ``utils.checkpoint.params_from_flax``
-maps a flax parameter tree onto them. LayerNorms use flax's eps of 1e-6.
+maps a flax parameter tree onto them. LayerNorms use flax's eps of 1e-6,
+and parameters start from flax's initial distributions (``flax_init``).
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -14,6 +16,25 @@ from torch import nn
 Tensor = torch.Tensor
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default (torch's is 1e-5)
+# std of the standard normal truncated to [-2, 2]: lecun_normal divides by
+# it so that the truncated draw has variance 1/fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def flax_init(module: nn.Module) -> None:
+    """flax.linen's initial distributions on every Linear and LayerNorm of
+    ``module``: Dense kernels lecun_normal (a normal truncated at two
+    standard deviations, variance 1/fan_in), zero biases; LayerNorm scale 1
+    and bias 0. (``nn.Linear``'s own are Kaiming-uniform weights and uniform
+    biases.)"""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            std = math.sqrt(1.0 / m.in_features) / _TRUNC_STD
+            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
 
 
 class DEQCell(nn.Module):
@@ -55,6 +76,7 @@ class DEQLayer(nn.Module):
         self.inp_ln = nn.LayerNorm(hdim, eps=LN_EPS)
         self.cell = DEQCell(hdim)
         self.out = nn.Linear(hdim, self.out_dim())
+        flax_init(self)
 
     def in_dim(self) -> int:
         return self.nx + self.nx * (self.T - 1)

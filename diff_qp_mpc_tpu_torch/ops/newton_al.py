@@ -3,7 +3,7 @@ diff_qp_mpc_tpu.ops.newton_al): a fixed number of Newton steps, each a
 block-tridiagonal Cholesky solve and a batched 2⁻ᵏ line search."""
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -27,6 +27,10 @@ class NewtonResult(NamedTuple):
     merit: Tensor  # [bsz]
     status: Tensor  # [bsz] 1.0 where the last line search improved the merit
     step_size: Tensor  # [bsz] last accepted step size
+    # the pinned GN Hessian blocks at the solution (for the implicit
+    # backward), only when asked for
+    D: Optional[Tensor] = None  # [bsz, T, n, n]
+    O: Optional[Tensor] = None  # [bsz, T-1, n, n]
 
 
 def _merit_at(cost, dynamics, xu, x0, bounds, lam, rho):
@@ -85,9 +89,12 @@ def pin_first_state(grad: Tensor, D: Tensor, O: Tensor, nx: int):
 
 def newton_al(cost, dynamics, dynamics_jac, xu0: Tensor, x0: Tensor,
               bounds: Bounds, lam: Lambdas, rho: Tensor,
-              n_newton: int = 4, n_ls: int = 20,
-              reg: float = 1e-8) -> NewtonResult:
-    """n_newton damped Newton steps on the AL merit. xu0: [bsz, T, n]."""
+              n_newton: int = 4, n_ls: int = 20, reg: float = 1e-8,
+              final_blocks: bool = False) -> NewtonResult:
+    """n_newton damped Newton steps on the AL merit. xu0: [bsz, T, n].
+    With ``final_blocks`` the result also holds the pinned Hessian blocks
+    D, O at the solution (one more ``merit_grad_hess`` with the same λ, ρ),
+    which the implicit backward solves with."""
     bsz = xu0.shape[0]
     nx = x0.shape[-1]
     solve_fn = kkt_solver()
@@ -103,4 +110,19 @@ def newton_al(cost, dynamics, dynamics_jac, xu0: Tensor, x0: Tensor,
         update = -solve_fn(D, O, grad, reg)
         xu, merit, step, status = line_search(
             cost, dynamics, xu, update, merit, x0, bounds, lam, rho, n_ls)
-    return NewtonResult(xu=xu, merit=merit, status=status, step_size=step)
+    D = O = None
+    if final_blocks:
+        D, O = final_pinned_blocks(cost, dynamics_jac, xu, x0, bounds, lam,
+                                   rho)
+    return NewtonResult(xu=xu, merit=merit, status=status, step_size=step,
+                        D=D, O=O)
+
+
+def final_pinned_blocks(cost, dynamics_jac, xu: Tensor, x0: Tensor,
+                        bounds: Bounds, lam: Lambdas, rho: Tensor):
+    """The pinned GN Hessian blocks (D, O) of the merit at ``xu``."""
+    nx = x0.shape[-1]
+    g, D, O, _ = almerit.merit_grad_hess(
+        cost, dynamics_jac, xu[..., :nx], xu[..., nx:], x0, bounds, lam, rho)
+    _, D, O = pin_first_state(g, D, O, nx)
+    return D.contiguous(), O.contiguous()

@@ -10,8 +10,15 @@ Two paths: ``solve`` runs the AL outer loop in Python around
 ``ops.newton_al`` (whose Newton step is kernel K1 on CUDA tensors), and
 ``solve_fused`` / ``solve_fused_stateful`` hand the solve to kernel K2
 (``ops.al_fused_cuda``). Warm-start state is an explicit ``ALState`` the
-caller threads through. Everything here runs under ``torch.no_grad``: the
-implicit backward through the solution is not ported yet.
+caller threads through.
+
+Differentiation: every solve runs without autograd. When a gradient is
+wanted (``differentiable``, grad mode on, and the cost requiring grad), the
+pinned Gauss-Newton Hessian blocks D, O at the solution are computed once
+more and the solution passes through ``_ImplicitCostGrad``, whose backward
+is one block-tridiagonal solve H g = −ḡ (kernel K1 on CUDA tensors), then
+dCd = g ⊙ τ and dc = g. Gradients flow to the cost only, as in the JAX
+package's custom VJPs; the returned ``ALState`` carries no graph.
 """
 from __future__ import annotations
 
@@ -107,18 +114,22 @@ def _end_state(state, xu, nx, lam, rho, hist, al_iter) -> ALState:
 
 def _al_core(dynamics: DynamicsModel, cfg: ALConfig, cost: DiagQuadCost,
              x0: Tensor, bounds: Bounds, state: ALState,
-             x_init: Optional[Tensor], u_init: Optional[Tensor]):
-    """Forward AL solve. Returns (xu, new_state, stats)."""
+             x_init: Optional[Tensor], u_init: Optional[Tensor],
+             blocks: bool = False):
+    """Forward AL solve. Returns (xu, new_state, stats, D, O): D, O are the
+    last Newton solve's pinned Hessian blocks at the solution when
+    ``blocks``, else None."""
     nx = x0.shape[-1]
     xu, lam, rho, hist = _start(dynamics, cfg, cost, x0, state, x_init,
                                 u_init)
     hist_cost, hist_lam, hist_rho = hist
     dyn_jac = step_with_jac(dynamics)
     stats = None
-    for _ in range(cfg.al_iter):
+    for k in range(cfg.al_iter):
         result = newton_al.newton_al(
             cost, dynamics, dyn_jac, xu, x0, bounds, lam, rho,
-            n_newton=cfg.n_newton, n_ls=cfg.n_ls, reg=cfg.reg)
+            n_newton=cfg.n_newton, n_ls=cfg.n_ls, reg=cfg.reg,
+            final_blocks=blocks and k == cfg.al_iter - 1)
         xu = result.xu
         res = almerit.residuals(dynamics, xu[..., :nx], xu[..., nx:], x0,
                                 bounds)
@@ -134,21 +145,82 @@ def _al_core(dynamics: DynamicsModel, cfg: ALConfig, cost: DiagQuadCost,
                            step_size=result.step_size)
     new_state = _end_state(state, xu, nx, lam, rho,
                            (hist_cost, hist_lam, hist_rho), cfg.al_iter)
-    return xu, new_state, stats
+    return xu, new_state, stats, result.D, result.O
 
 
-@torch.no_grad()
+#: batch elements whose implicit gradient ``_sanitize_implicit_grad``
+#: changed since a reader set the count to 0 (a tensor on the gradient's
+#: device once a backward ran; reading it synchronizes). None, the default,
+#: counts nothing.
+guard_drops = None
+
+
+def _sanitize_implicit_grad(g: Tensor) -> Tensor:
+    """Drop batch elements whose implicit H⁻¹ solve is numerically garbage.
+
+    ρ at rho_max makes cond(H) ≈ ρ/reg; the float32 Cholesky then emits
+    NaN/inf, or finite but meaningless huge values shortly before it emits
+    inf. A legitimate solve is bounded by ‖ct‖/λ_min(H) ≤ ‖ct‖/reg; anything
+    orders beyond that is breakdown, and one singular element must not
+    poison the batch gradient. Non-finite entries become 0, and elements
+    with max|g| > 1e8 become 0 whole.
+    """
+    global guard_drops
+    finite = torch.isfinite(g)
+    g = torch.where(finite, g, 0.0)
+    bad = g.abs().amax(dim=(1, 2), keepdim=True) > 1e8
+    if guard_drops is not None:
+        guard_drops = guard_drops + (bad[:, 0, 0] | ~finite.all(dim=2).all(
+            dim=1)).sum()
+    return torch.where(bad, 0.0, g)
+
+
+class _ImplicitCostGrad(torch.autograd.Function):
+    """Identity on the solution τ = xu forward. Backward: the implicit-
+    function-theorem gradient w.r.t. the diagonal cost at the stationary
+    point, H g = −ḡ with H the final pinned GN Hessian (D, O), one K1 solve
+    on CUDA tensors; dCd = g ⊙ τ, dc = g. The x₀ cotangent is dropped
+    before the solve (x₀ is pinned, dx₀/dθ = 0). The three AL solves share
+    it."""
+
+    @staticmethod
+    def forward(ctx, Cd, c, xu, D, O, reg: float, nx: int):
+        ctx.save_for_backward(xu, D, O)
+        ctx.reg, ctx.nx = reg, nx
+        return xu.clone()
+
+    @staticmethod
+    def backward(ctx, ct):
+        xu, D, O = ctx.saved_tensors
+        ct = ct.clone(memory_format=torch.contiguous_format)
+        ct[:, 0, :ctx.nx] = 0.0
+        g = -newton_al.kkt_solver()(D, O, ct, ctx.reg)
+        g = _sanitize_implicit_grad(g)
+        return g * xu, g, None, None, None, None, None
+
+
+def _wants_grad(differentiable: bool, cost: DiagQuadCost) -> bool:
+    return (differentiable and torch.is_grad_enabled()
+            and (cost.Cd.requires_grad or cost.c.requires_grad))
+
+
 def solve(dynamics: DynamicsModel, cost: DiagQuadCost, x0: Tensor,
           bounds: Bounds, state: ALState, cfg: ALConfig = ALConfig(),
-          x_init: Optional[Tensor] = None, u_init: Optional[Tensor] = None):
+          x_init: Optional[Tensor] = None, u_init: Optional[Tensor] = None,
+          differentiable: bool = True):
     """AL-MPC solve. Returns (x, u, new_state, stats).
 
     ``state`` carries warm starts across receding-horizon calls; build a
-    fresh one with ``ALState.init``.
+    fresh one with ``ALState.init``. Gradients flow to ``cost`` only.
     """
     nx = x0.shape[-1]
-    xu, new_state, stats = _al_core(dynamics, cfg, cost, x0, bounds, state,
-                                    x_init, u_init)
+    grad = _wants_grad(differentiable, cost)
+    with torch.no_grad():
+        xu, new_state, stats, D, O = _al_core(
+            dynamics, cfg, cost, x0, bounds, state, x_init, u_init,
+            blocks=grad)
+    if grad:
+        xu = _ImplicitCostGrad.apply(cost.Cd, cost.c, xu, D, O, cfg.reg, nx)
     return xu[..., :nx], xu[..., nx:], new_state, stats
 
 
@@ -186,44 +258,87 @@ def _kernel_kwargs(cfg: ALConfig):
                 rho_factor=cfg.rho_factor, rho_max=cfg.rho_max, reg=cfg.reg)
 
 
-@torch.no_grad()
+def _fused_DO(dynamics, cost, x0, bounds_t, xu, lamd, lamh, laml, rho):
+    """Final pinned GN Hessian blocks for the implicit backward of a K2
+    solve: λ as the kernel returned it (after the final update; one update
+    beyond the last Newton solve only moves the GN Hessian through the
+    active-set masks), ρ [bsz, 1] the one of the last Newton solve."""
+    lam = Lambdas(lam_dyn=lamd, lam_init=x0.new_zeros(x0.shape),
+                  lam_hi=lamh, lam_lo=laml)
+    return newton_al.final_pinned_blocks(
+        cost, step_with_jac(dynamics), xu, x0,
+        Bounds(u_lo=bounds_t[0], u_hi=bounds_t[1]), lam, rho)
+
+
 def solve_fused(dynamics: DynamicsModel, cost: DiagQuadCost, x0: Tensor,
                 bounds: Bounds, cfg: ALConfig = ALConfig(),
                 x_init: Optional[Tensor] = None,
-                u_init: Optional[Tensor] = None):
+                u_init: Optional[Tensor] = None,
+                differentiable: bool = True):
     """Whole-solver AL-MPC on kernel K2, fresh λ/ρ each call. Returns
-    (x, u, dyn_res)."""
+    (x, u, dyn_res). Gradients flow to ``cost`` only; the backward's ρ is
+    min(rho_factor^(al_iter−1), rho_max), the one of the last Newton
+    solve."""
     nx = x0.shape[-1]
     bsz, T = cost.Cd.shape[:2]
-    if u_init is None:
-        u_init = x0.new_zeros(bsz, T, dynamics.nu)
-    if x_init is None:
-        x_init = dynamics.rollout(x0, u_init)
-    u_lo, u_hi = _bounds_tuple(bounds)
-    xu, _, _, _, res = al_fused_cuda.fused_al_solve(
-        dynamics, cost.Cd.contiguous(), cost.c.contiguous(), x0.contiguous(),
-        u_lo, u_hi, x_init.contiguous(), u_init.contiguous(),
-        al_iter=cfg.al_iter, **_kernel_kwargs(cfg))
+    grad = _wants_grad(differentiable, cost)
+    with torch.no_grad():
+        if u_init is None:
+            u_init = x0.new_zeros(bsz, T, dynamics.nu)
+        if x_init is None:
+            x_init = dynamics.rollout(x0, u_init)
+        bounds_t = _bounds_tuple(bounds)
+        xu, lamd, lamh, laml, res = al_fused_cuda.fused_al_solve(
+            dynamics, cost.Cd.contiguous(), cost.c.contiguous(),
+            x0.contiguous(), *bounds_t, x_init.contiguous(),
+            u_init.contiguous(), al_iter=cfg.al_iter, **_kernel_kwargs(cfg))
+        if grad:
+            rho = min(cfg.rho_factor ** (cfg.al_iter - 1), cfg.rho_max)
+            D, O = _fused_DO(dynamics, cost, x0, bounds_t, xu, lamd, lamh,
+                             laml, x0.new_full((bsz, 1), rho))
+    if grad:
+        xu = _ImplicitCostGrad.apply(cost.Cd, cost.c, xu, D, O, cfg.reg, nx)
     return xu[..., :nx], xu[..., nx:], res
 
 
-@torch.no_grad()
 def solve_fused_stateful(dynamics: DynamicsModel, cost: DiagQuadCost,
                          x0: Tensor, bounds: Bounds, state: ALState,
                          cfg: ALConfig = ALConfig(),
                          x_init: Optional[Tensor] = None,
-                         u_init: Optional[Tensor] = None):
+                         u_init: Optional[Tensor] = None,
+                         differentiable: bool = True):
     """Kernel K2 with the scan path's full warm-start carry: the kernel runs
     one AL iteration per launch, and the history pushes and λ/ρ selection
-    happen here exactly as in ``solve``. Returns (x, u, new_state, stats)."""
+    happen here exactly as in ``solve``. Returns (x, u, new_state, stats).
+    Gradients flow to ``cost`` only; the backward's ρ is the one the last
+    launch started from."""
+    grad = _wants_grad(differentiable, cost)
+    with torch.no_grad():
+        xu, new_state, stats, rho_last = _fused_stateful_core(
+            dynamics, cfg, cost, x0, bounds, state, x_init, u_init)
+        if grad:
+            lam = new_state.lam
+            D, O = _fused_DO(dynamics, cost, x0, _bounds_tuple(bounds), xu,
+                             lam.lam_dyn, lam.lam_hi, lam.lam_lo, rho_last)
+    nx = x0.shape[-1]
+    if grad:
+        xu = _ImplicitCostGrad.apply(cost.Cd, cost.c, xu, D, O, cfg.reg, nx)
+    return xu[..., :nx], xu[..., nx:], new_state, stats
+
+
+def _fused_stateful_core(dynamics, cfg, cost, x0, bounds, state, x_init,
+                         u_init):
+    """Returns (xu, new_state, stats, rho_last): ρ [bsz, 1] that the last
+    launch started from, before its ×rho_factor."""
     nx = x0.shape[-1]
     xu, lam, rho, hist = _start(dynamics, cfg, cost, x0, state, x_init,
                                 u_init)
     hist_cost, hist_lam, hist_rho = hist
     u_lo, u_hi = _bounds_tuple(bounds)
     Cd, c, x0c = cost.Cd.contiguous(), cost.c.contiguous(), x0.contiguous()
-    res = None
+    res = rho_last = None
     for _ in range(cfg.al_iter):
+        rho_last = rho
         xu, lamd, lamh, laml, res = al_fused_cuda.fused_al_solve(
             dynamics, Cd, c, x0c, u_lo, u_hi, xu[..., :nx].contiguous(),
             xu[..., nx:].contiguous(), al_iter=1,
@@ -243,4 +358,4 @@ def solve_fused_stateful(dynamics: DynamicsModel, cost: DiagQuadCost,
                        merit=torch.zeros_like(res),
                        newton_steps=cfg.al_iter * cfg.n_newton,
                        step_size=torch.zeros_like(res))
-    return xu[..., :nx], xu[..., nx:], new_state, stats
+    return xu, new_state, stats, rho_last

@@ -7,9 +7,11 @@ and accept the step by a rollout line search: u ← u + αΔu, x ← rollout(x0,
 u) under the true nonlinear dynamics, every α = decay^j candidate rolled out
 in one batched call and the largest improving one taken. A final QP at the
 best iterate gives the direction of one last line search, whose rollout is
-the returned value. Everything here runs under ``torch.no_grad``: the
-gradient through the final QP (the JAX package's straight-through w_hat)
-comes with the training path.
+the returned value. The SQP iterations and line searches run without
+autograd; the gradient is the final QP's implicit sensitivity
+(``trajqp.traj_qp_layer``) w.r.t. the cost and x0, passed straight through
+onto the returned value: w_value + (w_hat − w_hat.detach()), which is NaN
+wherever the final QP's w_hat is not finite, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -111,7 +113,6 @@ def _rollout_candidates(dynamics, x0: Tensor, u_cand: Tensor) -> Tensor:
     return x.reshape(L, bsz, T, -1)
 
 
-@torch.no_grad()
 def solve(dynamics: Union[DynamicsModel, LinDx], cost: Cost, x0: Tensor,
           bounds: Bounds, u_init: Tensor, x_init: Optional[Tensor] = None,
           cfg: SQPConfig = SQPConfig(), differentiable: bool = True,
@@ -123,8 +124,10 @@ def solve(dynamics: Union[DynamicsModel, LinDx], cost: Cost, x0: Tensor,
     optional, the first linearization point only (the line search's
     incumbent is always the feasible rollout of u_init). ``x_goal`` adds
     the terminal penalty goal_weight·‖x_T − g‖². ``differentiable`` selects
-    the JAX package's final-QP branch: True solves the final QP cold, as its
-    differentiable layer does; False warm-starts it from the best iterate.
+    the JAX package's final-QP branch: True solves the final QP cold through
+    the differentiable layer (gradients to the cost and x0); False
+    warm-starts it from the best iterate, without a gradient. The
+    linearizations are detached.
     """
     if slew_rate_penalty is not None:
         raise NotImplementedError(
@@ -141,7 +144,44 @@ def solve(dynamics: Union[DynamicsModel, LinDx], cost: Cost, x0: Tensor,
                                                       device=C.device)
         c[:, -1, :nx] -= goal_weight * g
         dcost = QuadCost(C=C, c=c)
+    with torch.no_grad():
+        best_x, best_u, lin, alpha_last, resid_last = _iterate(
+            dynamics, dcost, x0, bounds, u_init, x_init, cfg)
+        A, B, f = _linearize(dynamics, *lin)
+    if differentiable:
+        if cfg.qp.kernel == "fused":
+            bounds_static = Bounds(u_lo=tuple(float(v) for v in bounds.u_lo),
+                                   u_hi=tuple(float(v) for v in bounds.u_hi))
+            w_hat = trajqp.traj_qp_layer_static(
+                dcost.C, dcost.c, A, B, f, x0, bounds_static, cfg.qp)
+        else:
+            w_hat = trajqp.traj_qp_layer(dcost.C, dcost.c, A, B, f, x0,
+                                         bounds, cfg.qp)
+    else:
+        with torch.no_grad():
+            sol = trajqp.solve(dcost.C, dcost.c, A, B, f, x0, bounds, cfg.qp,
+                               x_init=best_x, u_init=best_u)
+        w_hat = torch.cat([sol.x, sol.u], dim=-1)
+    with torch.no_grad():
+        cost_best = almerit.compute_cost(
+            dcost, torch.cat([best_x, best_u], dim=-1))
+        # the value is the line search's accepted candidate (u = best_u +
+        # α·du and its feasible rollout), not the QP solution
+        x_ls, u_ls, _, cost_final = line_search(
+            dynamics, dcost, best_x, best_u, w_hat[..., :nx] - best_x,
+            w_hat[..., nx:] - best_u, x0, cost_best, cfg.ls_decay,
+            cfg.max_ls)
+    w_out = torch.cat([x_ls, u_ls], dim=-1) + (w_hat - w_hat.detach())
+    return SQPResult(x=w_out[..., :nx], u=w_out[..., nx:], cost=cost_final,
+                     alpha=alpha_last, qp_resid=resid_last)
 
+
+def _iterate(dynamics, dcost: QuadCost, x0: Tensor, bounds: Bounds,
+             u_init: Tensor, x_init: Optional[Tensor], cfg: SQPConfig):
+    """The SQP iterations from the detached warm starts. Returns (best_x,
+    best_u, the final QP's linearization point (x, u), the last accepted
+    α, the last QP residual)."""
+    bsz = u_init.shape[0]
     u = u_init.detach()
     x_init = x_init.detach() if x_init is not None else None
     # the line search's baseline is the FEASIBLE rollout of u_init, never a
@@ -166,29 +206,7 @@ def solve(dynamics: Union[DynamicsModel, LinDx], cost: Cost, x0: Tensor,
         best_u = torch.where(better, u, best_u)
         best_cost = torch.minimum(cost_cur, best_cost)
 
-    # final QP at the best iterate (with no SQP iteration, at the first
-    # linearization point)
-    A, B, f = _linearize(dynamics, *((best_x, best_u) if cfg.qp_iter
-                                     else (x, u)))
-    if differentiable:
-        if cfg.qp.kernel == "fused":
-            bounds_static = Bounds(u_lo=tuple(float(v) for v in bounds.u_lo),
-                                   u_hi=tuple(float(v) for v in bounds.u_hi))
-            w_hat = trajqp.traj_qp_layer_static(
-                dcost.C, dcost.c, A, B, f, x0, bounds_static, cfg.qp)
-        else:
-            w_hat = trajqp.traj_qp_layer(dcost.C, dcost.c, A, B, f, x0,
-                                         bounds, cfg.qp)
-    else:
-        sol = trajqp.solve(dcost.C, dcost.c, A, B, f, x0, bounds, cfg.qp,
-                           x_init=best_x, u_init=best_u)
-        w_hat = torch.cat([sol.x, sol.u], dim=-1)
-    cost_best = almerit.compute_cost(dcost,
-                                     torch.cat([best_x, best_u], dim=-1))
-    # the value is the line search's accepted candidate (u = best_u + α·du
-    # and its feasible rollout), not the QP solution
-    x_ls, u_ls, _, cost_final = line_search(
-        dynamics, dcost, best_x, best_u, w_hat[..., :nx] - best_x,
-        w_hat[..., nx:] - best_u, x0, cost_best, cfg.ls_decay, cfg.max_ls)
-    return SQPResult(x=x_ls, u=u_ls, cost=cost_final, alpha=alpha_last,
-                     qp_resid=resid_last)
+    # the final QP is linearized at the best iterate (with no SQP
+    # iteration, at the first linearization point)
+    lin = (best_x, best_u) if cfg.qp_iter else (x, u)
+    return best_x, best_u, lin, alpha_last, resid_last

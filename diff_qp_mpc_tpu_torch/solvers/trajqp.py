@@ -15,8 +15,10 @@ count with best-iterate tracking keeps the cost of a solve known.
 Two paths: the scan IPM (``kernel="scan"``) runs the iteration in
 Python around ``ops.riccati_cuda`` (kernel K3 on CUDA tensors, two launches
 per iteration); ``kernel="fused"`` hands the whole solve to kernel K4
-(``ops.trajqp_fused_cuda``). Everything here runs under ``torch.no_grad``:
-the implicit backward (``_bwd`` in the JAX package) is not ported yet.
+(``ops.trajqp_fused_cuda``). ``solve`` runs under ``torch.no_grad``;
+``traj_qp_layer`` differentiates its solution w.r.t. (C, c, x0) by the
+OptNet implicit backward: one more Riccati solve (kernel K3 on CUDA
+tensors, on both paths) with the box duals folded into Cuu.
 
 Elimination algebra (per bound side, per (t, j)):
     Z ds + S dz = −r_s           (linearized complementarity)
@@ -235,14 +237,54 @@ def solve(C: Tensor, c: Tensor, A: Tensor, B: Tensor, f: Tensor, x0: Tensor,
     return TrajQPSolution(*out, resids=torch.minimum(total, b_tot))
 
 
+class _QPImplicitGrad(torch.autograd.Function):
+    """Identity on the QP solution w = (x, u) forward. Backward: the OptNet
+    system K [dw; dν] = −[∂L/∂w; 0] with the box block eliminated, i.e. one
+    LQR-KKT solve with gradient rhs ∂L/∂w, zero dynamics and initial-state
+    rhs, and Cuu + diag(z_hi/s_hi + z_lo/s_lo) (duals and slacks clamped
+    at 1e-8); then dC = ½(dw wᵀ + w dwᵀ), dc = dw, dx0 = −λ₀. A, B, f get
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, C, c, x0, w, A, B, f, d_box, reg: float):
+        ctx.save_for_backward(C, w, A, B, f, d_box)
+        ctx.reg = reg
+        return w.clone()
+
+    @staticmethod
+    def backward(ctx, dl_dw):
+        C, w, A, B, f, d_box = ctx.saved_tensors
+        nx = A.shape[-1]
+        Cxx, Cxu, Cuu_eff, gx, gu = (a.contiguous() for a in (
+            C[..., :nx, :nx], C[..., :nx, nx:],
+            C[..., nx:, nx:] + torch.diag_embed(d_box), dl_dw[..., :nx],
+            dl_dw[..., nx:]))
+        rdx, rdu, rlam = riccati_cuda.batched_lqr_kkt_solve(
+            Cxx, Cxu, Cuu_eff, gx, gu, A, B, torch.zeros_like(f),
+            w.new_zeros(w.shape[0], nx), ctx.reg)
+        dw = torch.cat([rdx, rdu], dim=-1)
+        dC = 0.5 * (dw[..., :, None] * w[..., None, :]
+                    + w[..., :, None] * dw[..., None, :])
+        return dC, dw, -rlam[:, 0], None, None, None, None, None, None
+
+
 def traj_qp_layer(C: Tensor, c: Tensor, A: Tensor, B: Tensor, f: Tensor,
                   x0: Tensor, bounds: Bounds,
                   cfg: TrajQPConfig = TrajQPConfig()) -> Tensor:
     """w = [x, u] [bsz, T, n] of the QP, solved cold (u from the box
-    midpoint, x from its affine rollout). Forward only: the implicit
-    backward (∂ w.r.t. C, c, x0) comes with the training path."""
+    midpoint, x from its affine rollout), differentiable w.r.t. C, c and
+    x0 (see ``_QPImplicitGrad``); A, B and f are treated as constants."""
     sol = solve(C, c, A, B, f, x0, bounds, cfg)
-    return torch.cat([sol.x, sol.u], dim=-1)
+    w = torch.cat([sol.x, sol.u], dim=-1)
+    if not (torch.is_grad_enabled() and any(
+            a.requires_grad for a in (C, c, x0))):
+        return w
+    with torch.no_grad():
+        lo = lambda a: torch.clamp(a, min=1e-8)
+        d_box = lo(sol.z_hi) / lo(sol.s_hi) + lo(sol.z_lo) / lo(sol.s_lo)
+    return _QPImplicitGrad.apply(C, c, x0, w, A.detach().contiguous(),
+                                 B.detach().contiguous(),
+                                 f.detach().contiguous(), d_box, cfg.reg)
 
 
 def traj_qp_layer_static(C: Tensor, c: Tensor, A: Tensor, B: Tensor,
@@ -250,7 +292,7 @@ def traj_qp_layer_static(C: Tensor, c: Tensor, A: Tensor, B: Tensor,
                          cfg: TrajQPConfig) -> Tensor:
     """traj_qp_layer for the fused kernel, whose box bounds are python
     float tuples (run-time scalars of K4, static constants of the JAX
-    kernel); tensor bounds raise."""
+    kernel) and never an autograd input; tensor bounds raise."""
     if isinstance(bounds.u_lo, Tensor) or isinstance(bounds.u_hi, Tensor):
         raise TypeError("traj_qp_layer_static takes the box bounds as "
                         "python float tuples")

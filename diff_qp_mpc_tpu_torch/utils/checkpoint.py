@@ -1,17 +1,22 @@
-"""Read the JAX package's flax msgpack checkpoints without flax or msgpack.
+"""Read and write the JAX package's flax msgpack checkpoints without flax
+or msgpack.
 
 ``load_msgpack`` decodes the subset of msgpack that flax's serializer
 writes: maps, arrays, str, bin, ints, floats, nil and bool, plus flax's
 extension types 1 (ndarray: msgpack of (shape, dtype name, C-order bytes))
 and 3 (numpy scalar, the same encoding). It returns nested dicts and lists
 with numpy leaves, as ``flax.serialization.msgpack_restore`` does.
-``params_from_flax`` maps a DEQ-MPC policy's flax parameter tree onto the
-port's ``state_dict``.
+``dumps`` encodes such a tree as ``flax.serialization.msgpack_serialize``
+does, byte for byte. ``params_from_flax`` maps a DEQ-MPC policy's flax
+parameter tree onto the port's ``state_dict`` and ``params_to_flax`` back;
+``save_checkpoint`` writes the trainer's checkpoint and its meta.json.
 """
 from __future__ import annotations
 
+import json
+import os
 import struct
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -116,6 +121,107 @@ def loads(data: bytes, raw: bool = False) -> Any:
     return out
 
 
+def _pack_len(out: bytearray, n: int, small: Optional[Tuple[int, int]],
+              codes: Tuple[int, int, int]) -> None:
+    """A length header: the fix form ``small`` = (base, limit) below its
+    limit, else the 8-, 16- or 32-bit form of ``codes`` (None where the
+    type has no 8-bit form)."""
+    if small is not None and n < small[1]:
+        out.append(small[0] | n)
+    elif codes[0] is not None and n < 1 << 8:
+        out += struct.pack(">BB", codes[0], n)
+    elif n < 1 << 16:
+        out += struct.pack(">BH", codes[1], n)
+    else:
+        out += struct.pack(">BI", codes[2], n)
+
+
+def _encode_int(out: bytearray, v: int) -> None:
+    if 0 <= v < 128:
+        out.append(v)
+    elif -32 <= v < 0:
+        out.append(v & 0xFF)
+    elif v >= 0:
+        for code, fmt, top in ((0xCC, ">B", 8), (0xCD, ">H", 16),
+                               (0xCE, ">I", 32), (0xCF, ">Q", 64)):
+            if v < 1 << top:
+                out += struct.pack(">B", code) + struct.pack(fmt, v)
+                return
+        raise OverflowError(f"{v} does not fit in 64 bits")
+    else:
+        for code, fmt, top in ((0xD0, ">b", 7), (0xD1, ">h", 15),
+                               (0xD2, ">i", 31), (0xD3, ">q", 63)):
+            if v >= -(1 << top):
+                out += struct.pack(">B", code) + struct.pack(fmt, v)
+                return
+        raise OverflowError(f"{v} does not fit in 64 bits")
+
+
+def _encode_ext(out: bytearray, code: int, data: bytes) -> None:
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixext:
+        out.append(fixext[len(data)])
+    else:
+        _pack_len(out, len(data), None, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code) + data
+
+
+def _ndarray_bytes(a: np.ndarray) -> bytes:
+    return dumps((list(a.shape), a.dtype.name, a.tobytes("C")))
+
+
+def _encode(out: bytearray, v: Any) -> None:
+    if v is None:
+        out.append(0xC0)
+    elif v is True or v is False:
+        out.append(0xC3 if v else 0xC2)
+    elif isinstance(v, np.ndarray):
+        _encode_ext(out, _EXT_NDARRAY, _ndarray_bytes(v))
+    elif isinstance(v, np.generic):
+        _encode_ext(out, _EXT_NPSCALAR, _ndarray_bytes(np.asarray(v)))
+    elif isinstance(v, int):
+        _encode_int(out, v)
+    elif isinstance(v, float):
+        out += struct.pack(">Bd", 0xCB, v)
+    elif isinstance(v, str):
+        data = v.encode("utf-8")
+        _pack_len(out, len(data), (0xA0, 32), (0xD9, 0xDA, 0xDB))
+        out += data
+    elif isinstance(v, (bytes, bytearray)):
+        _pack_len(out, len(v), None, (0xC4, 0xC5, 0xC6))
+        out += v
+    elif isinstance(v, (list, tuple)):
+        _pack_len(out, len(v), (0x90, 16), (None, 0xDC, 0xDD))
+        for item in v:
+            _encode(out, item)
+    elif isinstance(v, dict):
+        _pack_len(out, len(v), (0x80, 16), (None, 0xDE, 0xDF))
+        # flax flattens the tree first, which sorts each map's keys
+        for k, item in sorted(v.items()):
+            _encode(out, k)
+            _encode(out, item)
+    else:
+        raise TypeError(f"cannot encode {type(v).__name__} as msgpack")
+
+
+def dumps(tree: Any) -> bytes:
+    """Encode nested dicts, lists and tuples of str, bytes, int, float,
+    bool, None, numpy arrays and numpy scalars (flax's extension types 1
+    and 3) as one msgpack object, map keys sorted. Arrays of 1 GiB or more (which flax
+    splits into chunks) are refused."""
+    out = bytearray()
+    _encode(out, tree)
+    return bytes(out)
+
+
+def _check_size(tree: Any) -> None:
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _check_size(v)
+    elif isinstance(tree, np.ndarray) and tree.nbytes >= 1 << 30:
+        raise ValueError("arrays of 1 GiB or more are not supported")
+
+
 def load_msgpack(path: str) -> Any:
     """The checkpoint at ``path`` as nested dicts of numpy arrays."""
     with open(path, "rb") as f:
@@ -158,6 +264,52 @@ def params_from_flax(tree: Dict) -> Dict[str, torch.Tensor]:
         state[f"{name}.weight"] = torch.tensor(np.ascontiguousarray(weight))
         state[f"{name}.bias"] = torch.tensor(np.asarray(node["bias"]))
     return state
+
+
+def params_to_flax(state: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of ``params_from_flax``: the port policy's
+    ``state_dict`` -> the flax tree holding ``DEQLayer_0``, numpy leaves of
+    the state's dtype, Dense kernels [in, out]."""
+    tree: Dict = {}
+    for flax_path, name in _DEQ_MODULES:
+        node = tree
+        for key in flax_path.split("/"):
+            node = node.setdefault(key, {})
+        weight = state[f"{name}.weight"].detach().cpu().numpy()
+        if "Dense" in flax_path.rsplit("/", 1)[-1]:
+            node["kernel"] = np.ascontiguousarray(weight.T)
+        else:
+            node["scale"] = weight
+        node["bias"] = state[f"{name}.bias"].detach().cpu().numpy()
+    return tree
+
+
+def save_checkpoint(path: str, state: Dict[str, torch.Tensor],
+                    opt_state: Optional[Dict] = None,
+                    meta: Optional[Dict] = None) -> None:
+    """Write a DEQ-MPC policy checkpoint as the JAX trainer lays it out:
+    {"params": {"params": <flax tree>}, "opt_state": ...}, so that
+    ``load_policy_params`` and flax's ``msgpack_restore`` both read it. The
+    optimizer state is the port's own (``learning.train.Adam``). ``meta``
+    goes to ``<path>.meta.json`` as the JAX trainer writes it."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    payload = {"params": {"params": params_to_flax(state)}}
+    if opt_state is not None:
+        payload["opt_state"] = opt_state
+    _check_size(payload)
+    with open(path, "wb") as f:
+        f.write(dumps(payload))
+    if meta is not None:
+        with open(path + ".meta.json", "w") as f:
+            json.dump(meta, f, indent=2, default=str)
+
+
+def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor],
+                                        Optional[Dict]]:
+    """(policy ``state_dict``, the port's optimizer state or None) of a
+    checkpoint written by ``save_checkpoint``."""
+    tree = load_msgpack(path)
+    return params_from_flax(tree["params"]["params"]), tree.get("opt_state")
 
 
 def load_policy_params(path: str) -> Dict[str, torch.Tensor]:

@@ -462,3 +462,104 @@ def test_sin_chain_kernel_refuses_unbuilt_streams(cuda):
     x = torch.full((2, 9, 8, 128), 0.5, device=cuda)
     with pytest.raises(ValueError):
         sin_chain_cuda.sin_chain(x, 4)
+
+
+# ----------------------------------------------- implicit backwards ----
+def test_k1_on_al_newton_systems(cuda):
+    """K1 float32 on the AL path's own Newton systems (ρ 1 … 1e6, reg 1e-7,
+    B 4096), gradient and cotangent right-hand sides: its error from the
+    float64 solution within K1_AL_RATIO of the plain float32 version's
+    (``k1_al_systems`` raises otherwise)."""
+    from diff_qp_mpc_tpu_torch.benchmarks import kernel_layouts
+
+    rows = kernel_layouts.k1_al_systems()
+    assert len(rows) == 2 * len(kernel_layouts.K1_AL_RHOS)
+    for r in rows:
+        assert r["max_rel_err_kernel"] <= (kernel_layouts.K1_AL_RATIO
+                                           * r["max_rel_err_plain"])
+
+
+def _tracking_cost(B, T, device, seed=0):
+    rng = np.random.RandomState(seed)
+    x0 = rng.uniform([-np.pi, -1.0], [np.pi, 1.0], (B, 2))
+    ref = x0[:, None] + np.cumsum(0.1 * rng.randn(B, T, 2), axis=1)
+    ref = np.concatenate([ref, 0.5 * rng.randn(B, T, 1)], -1)
+    to = lambda a: torch.tensor(a, dtype=torch.float64, device=device)
+    return to(x0), to(ref), to(rng.randn(B, T, 3))
+
+
+@pytest.mark.parametrize("path", ["solve", "fused", "fused_stateful"])
+def test_al_backward_is_one_k1_launch(cuda, path):
+    """A differentiable AL solve on the card: the backward launches K1 once
+    and its float64 gradient matches the CPU's (plain versions) to 1e-6
+    relative, the forward's own near-tie spread."""
+    B, T = 16, 5
+    grads = []
+    for device in ("cpu", "cuda"):
+        x0, ref, W = (a.to(device) for a in _tracking_cost(B, T, cuda))
+        ref.requires_grad_()
+        Cd = torch.tensor([10.0, 1.0, 0.01], dtype=torch.float64,
+                          device=device).expand(B, T, 3)
+        cost = DiagQuadCost(Cd=Cd, c=-Cd * ref)
+        st = ALState.init(B, T, 2, 1, dtype=torch.float64, device=device)
+        bounds = Bounds(u_lo=(-3.0,), u_hi=(3.0,))
+        cfg = al_mpc.ALConfig()
+        if path == "solve":
+            bounds = Bounds(u_lo=torch.tensor([-3.0], dtype=torch.float64,
+                                              device=device),
+                            u_hi=torch.tensor([3.0], dtype=torch.float64,
+                                              device=device))
+            x, u, _, _ = al_mpc.solve(Pendulum(), cost, x0, bounds, st, cfg)
+        elif path == "fused":
+            x, u, _ = al_mpc.solve_fused(Pendulum(), cost, x0, bounds, cfg)
+        else:
+            x, u, _, _ = al_mpc.solve_fused_stateful(Pendulum(), cost, x0,
+                                                     bounds, st, cfg)
+        loss = (W * torch.cat([x, u], -1)).sum()
+        before = btsolve_cuda.launches
+        loss.backward()
+        assert btsolve_cuda.launches == before + (device != "cpu")
+        grads.append(ref.grad.cpu())
+    err = float((grads[1] - grads[0]).abs().max() / grads[0].abs().max())
+    assert err <= 1e-6
+
+
+@pytest.mark.parametrize("kernel", ["scan", "fused"])
+def test_trajqp_layer_backward_is_one_k3_launch(cuda, kernel):
+    """traj_qp_layer's backward on the card launches K3 once on both
+    paths, and its float64 gradient w.r.t. (C, c, x0) matches the CPU's to
+    1e-9 relative (the IPM and its backward are continuous)."""
+    from diff_qp_mpc_tpu_torch.solvers import trajqp
+
+    B, T = 16, 5
+    grads = []
+    for device in ("cpu", "cuda"):
+        x0, ref, W = (a.to(device) for a in _tracking_cost(B, T, cuda,
+                                                           seed=1))
+        C = torch.diag_embed(torch.tensor(
+            [10.0, 1.0, 0.01], dtype=torch.float64,
+            device=device).expand(B, T, 3)).requires_grad_()
+        c = (-10.0 * ref).requires_grad_()
+        x0 = x0.requires_grad_()
+        x_lin = ref[..., :2].detach()
+        u_lin = ref[..., 2:].detach()
+        x_next, A, Bm = Pendulum().linearize(x_lin, u_lin)
+        f = x_next - (A @ x_lin[:, :-1, :, None])[..., 0] \
+            - (Bm @ u_lin[:, :-1, :, None])[..., 0]
+        if kernel == "fused":
+            layer, bounds = trajqp.traj_qp_layer_static, Bounds(
+                u_lo=(-3.0,), u_hi=(3.0,))
+        else:
+            layer = trajqp.traj_qp_layer
+            bounds = Bounds(
+                u_lo=torch.tensor([-3.0], dtype=torch.float64, device=device),
+                u_hi=torch.tensor([3.0], dtype=torch.float64, device=device))
+        w = layer(C, c, A.contiguous(), Bm.contiguous(), f.contiguous(), x0,
+                  bounds, trajqp.TrajQPConfig(kernel=kernel))
+        before = riccati_cuda.launches
+        (W * w).sum().backward()
+        assert riccati_cuda.launches == before + (device != "cpu")
+        grads.append([a.grad.cpu() for a in (C, c, x0)])
+    for g_cpu, g_card in zip(*grads):
+        assert float((g_card - g_cpu).abs().max()
+                     / g_cpu.abs().max()) <= 1e-9

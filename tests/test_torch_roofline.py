@@ -198,6 +198,53 @@ def test_timing_raises_without_card():
         timing.per_call_latency(run, n_rep=1)
 
 
+class _Event:
+    def __init__(self, key, device_time_total, count):
+        self.key, self.device_time_total, self.count = (
+            key, device_time_total, count)
+
+
+def _fake_profiler(monkeypatch, windows):
+    """torch.profiler.profile whose successive windows see the kernel
+    events of ``windows`` in turn; the card's checks pass."""
+    import torch.profiler
+
+    seen = iter(windows)
+
+    class Profile:
+        def __init__(self, **kw):
+            self.events = next(seen)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return self.events
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+
+
+def test_device_kernel_ms_retries_then_raises(monkeypatch):
+    """A profiled window with no time of the kernel is taken again; after
+    ``PROFILE_ATTEMPTS`` such windows the sweep raises instead of
+    recording a missing time."""
+    calls = []
+    _fake_profiler(monkeypatch, [[_Event("other", 5.0, 1)], [], []])
+    with pytest.raises(RuntimeError, match="no device time"):
+        timing.device_kernel_ms(lambda: calls.append(1), 3, "btsolve")
+    # one warm-up, then every window
+    assert len(calls) == 1 + timing.PROFILE_ATTEMPTS * 3
+
+    _fake_profiler(monkeypatch, [[], [_Event("btsolve_onchip<3,5>", 12.0,
+                                             3)]])
+    assert timing.device_kernel_ms(lambda: None, 3, "btsolve") == 0.004
+
+
 @pytest.mark.parametrize("entry", [roofline_fused, prof],
                          ids=["roofline_fused", "prof_trajqp_fused"])
 def test_entry_points_raise_without_card(entry):
