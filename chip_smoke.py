@@ -76,6 +76,42 @@ Phases, each of which raises on failure (there is no CPU fallback):
      per training step, the device's busy share over a profiled window of
      the run's last steps, and the implicit-gradient guard's drops in each
      step.
+ 13. K1 at the shapes the new models' paths give it, (n, T) = (5, 5),
+     (5, 10), (7, 5) and (7, 10), B 8 (the float64 gradient check's), 64
+     (a closed loop's) and 256 (training's), float32 and float64, each
+     layout against its plain version within K1_TOL and timed; and K1 in
+     float32 on cp1's own AL Newton systems (T 10, B 256, ρ 1 … 1e6)
+     against float64, within K1_AL_RATIO of the plain float32 version's
+     error, as phase 10 holds the pendulum's;
+ 14. K2 on the integrator and the cartpoles (benchmarks/k2_models.py):
+     every (model, T, dtype) it is built for against its plain version on
+     seeded tracking problems of the model's env, B 64 and 256 (float32:
+     each element within 1e-2 but for at most SHARE_LIMIT of them;
+     float64: every element within 3e-6, those beyond 1e-6 printed beside
+     the plain version's own change on them under one ulp of the inputs),
+     every group width bit-identical to G 1, timed in float32 at B 64 with
+     its bound;
+ 15. one policy forward in float64 on the card against the CPU on the new
+     models' paths: cp1 on the scan path (its checkpoint, T 10) and the
+     fused path (T 5, seeded weights: K2 has no float64 T 10 instantiation),
+     the integrator's checkpoint on the scan path, cp2 v7 on the fused path;
+     row by row within POLICY_ULP_FACTOR times the CPU's own largest change
+     under one ulp of the state, measured in the run (the factor from
+     policy_spread over seeds), but the rows that change is larger than
+     POLICY_JUMP on (printed, at most half);
+ 16. the new models' closed loops through the evaluate entry point, float32,
+     up to 200 steps, counts set to 0 before each run and read after: the
+     cp1 checkpoint on the fused path (K2, 24 launches a step) and the
+     integrator's on the scan path (K1, 48), each at a success rate of at
+     least 0.95, 64 episodes; cp2 v7 and v8 on the fused path (K2, 18 and
+     24), 64 episodes, printed beside the JAX package's 0.094 and 0.125 and
+     not gated; cp1 on the scan path (K1, 96) for 10 steps;
+ 17. the float64 training gradient card vs CPU (B 8) on cp1 fused (T 5,
+     seeded weights) and the integrator's scan path, and training through
+     the train entry point with the cp1 checkpoint's meta.json flags (fused,
+     T 10, B 256, qp_iter 4, both expert pickles) cut to
+     CP1_TRAIN_PRETRAIN + CP1_TRAIN_DEQMPC steps, exactly 24 K2 and 6 K1
+     launches a DEQ-MPC step.
 Bounds: the larger of the bytes over the HBM rate and the operations over
 the float32 peak (diff_qp_mpc_tpu_torch/benchmarks/flops.py); each sin or
 cos counts as the 15 FP32 instructions of its fast path (SINF_FP32_INSTR).
@@ -223,6 +259,64 @@ LAUNCHES_PER_TRAIN_STEP = {"fused": {"K2": 6, "K1": 6},
 # near-ties at ~1e-7 in float64)
 GRAD_TOL, GRAD_B = 1e-6, 8
 DATA = "data/expert_traj_sac-Pendulum-v0_new.pkl"
+
+# the models beyond the pendulum: their committed checkpoints
+CP1_CKPT = "logs/deqmpc_cp1_fused_v10_T10/ckpt_best.msgpack"
+INT_CKPT = "logs/deqmpc_integrator_mpc_T5_bsz256/ckpt.msgpack"
+CP2_V7_CKPT = "logs/deqmpc_cp2_fused_v7_corrected/ckpt_best.msgpack"
+CP2_V8_CKPT = "logs/deqmpc_cp2_fused_v8_T10/ckpt_best.msgpack"
+# their closed loops: (name, checkpoint, flags, max steps, kernel, launches
+# per step, the JAX package's success rate over 64 episodes (its eval
+# JSONs), gated at MIN_SUCCESS). Launches per step: deq_iter 6 tracking
+# solves × on the fused path (warm starts carried: solver_carry on) one K2
+# launch per AL iteration (qp_iter), on the scan path qp_iter × n_newton 4
+# K1 solves
+MODEL_RUNS = (
+    ("cp1-fused", CP1_CKPT, ["--fused"], MAX_STEPS, "K2", 6 * 4, 1.0, True),
+    ("integrator-scan", INT_CKPT, [], MAX_STEPS, "K1", 6 * 2 * 4, 1.0, True),
+    ("cp2-v7-fused", CP2_V7_CKPT, ["--fused"], MAX_STEPS, "K2", 6 * 3,
+     0.09375, False),
+    ("cp2-v8-fused", CP2_V8_CKPT, ["--fused"], MAX_STEPS, "K2", 6 * 4, 0.125,
+     False),
+    ("cp1-scan", CP1_CKPT, [], 10, "K1", 6 * 4 * 4, None, False))
+# the new paths' float64 policy forward, card vs CPU, per initial state
+# (row): each of its 6 × qp_iter tracking solves meets the line search's
+# near-ties, and the DEQ iterates carry them on, so one ulp of the state
+# moves the CPU's own result by far more than rounding (up to 5e-6 on cp1
+# fused), by an amount that differs from one machine's CPU to another's,
+# and on the scan paths the forward is discontinuous in the state (a row
+# moves by up to 207 on cp1). So the run measures its own witness: the
+# largest change of the CPU's result under the four one-ulp nudges of
+# ``_ulp_nudges``. A row they move by more than POLICY_JUMP is not compared
+# (it is printed; at most half the rows); the other rows are held to
+# POLICY_ULP_FACTOR times the witness over them, or POLICY_TOL if larger.
+# The factor: over POLICY_SPREAD_SEEDS seeds of 8 states, four other
+# one-ulp perturbations (``_other_nudges``) move a path's held rows by up
+# to 7.0 times the witness (the integrator, one seed of 16; at most 2.1,
+# 1.8 and 2.5 on cp1 scan, cp1 fused and cp2: ``policy_spread``, on the
+# CPU; PERF.md PR 7); the card's rounding is held to twice the largest
+POLICY_JUMP = 1e-3
+POLICY_ULP_FACTOR = 14.0
+POLICY_SPREAD_SEEDS = 16
+# the K2 instantiation each fused run launches
+MODEL_RUN_KERNEL = {"cp1-fused": "cartpole1l T10 float32",
+                    "cp2-v7-fused": "cartpole2l T5 float32",
+                    "cp2-v8-fused": "cartpole2l T10 float32"}
+# training with the cp1 checkpoint's flags, cut to this many pretraining and
+# DEQ-MPC steps; per DEQ-MPC step 24 K2 launches (as the closed loop) and
+# one K1 backward solve per tracking solve
+CP1_TRAIN_PRETRAIN, CP1_TRAIN_DEQMPC = 20, 20
+CP1_META = CP1_CKPT + ".meta.json"
+LAUNCHES_PER_TRAIN_STEP["cp1-fused"] = {"K2": 6 * 4, "K1": 6}
+# K1 at the new models' (n, T): cp1 (n 5) at T 5 (the float64 gradient
+# check, B 8) and T 10 (its scan closed loop, B 64, and the backward of its
+# fused training, B 256), cp2 (n 7) at T 5 and 10 (card tests only)
+K1_MODEL_SHAPES = ((5, 5), (5, 10), (7, 5), (7, 10))
+K1_MODEL_BATCHES = (GRAD_B, EPISODES, 256)
+# the runs that launch K1 at each shape, (n, T): [(run, kind)]
+K1_SHAPE_RUNS = {(5, 10): [("cp1-scan", "closed loop"),
+                           ("cp1-fused", "training")]}
+TRACED_TRAIN_STEPS["cp1-fused"] = 2
 
 
 def log(*a):
@@ -763,37 +857,45 @@ def kernel_wrappers():
             "K4": trajqp_fused_cuda, "K5": sin_chain_cuda}
 
 
-def phase_main_path():
+def closed_loops(runs, tag):
+    """Each run (name, evaluate argv, kernel, launches per step, gated) of
+    the evaluate entry point with the launch counts set to 0 before it and
+    read after: exactly that many launches of that kernel per step and no
+    other kernel, a finite reward, and, where gated, a success rate of at
+    least MIN_SUCCESS. Returns the metrics with the launches, by name."""
     from diff_qp_mpc_tpu_torch.learning import evaluate
 
     wrappers = kernel_wrappers()
-    runs = {}
-    for path, ckpt, flags in PATHS:
-        argv = ["--env", "pendulum", "--deq", "--ckpt", ckpt, "--episodes",
-                str(EPISODES), "--max_steps", str(MAX_STEPS)] + flags
+    out = {}
+    for name, argv, kid, per_step, gated in runs:
         for w in wrappers.values():
             w.launches = 0
         metrics = evaluate.main(argv)
         counts = {k: w.launches for k, w in wrappers.items()}
-        kid = LAUNCHES_PER_STEP[path][0]
-        runs[path] = dict(metrics, launches=counts, launches_per_step=(
+        out[name] = dict(metrics, launches=counts, launches_per_step=(
             counts[kid] / metrics["steps_run"]))
-        log("main_path", path, json.dumps(runs[path]))
-        if counts[kid] <= 0:
-            raise RuntimeError(f"{path} path launched {kid} no time")
-        per_step = LAUNCHES_PER_STEP[path][1]
+        log(tag, name, json.dumps(out[name]))
         others = {k: v for k, v in counts.items() if k != kid and v}
-        if others or counts[kid] != per_step * metrics["steps_run"]:
+        if counts[kid] <= 0 or others or \
+                counts[kid] != per_step * metrics["steps_run"]:
             raise RuntimeError(
-                f"{path} path: launches {counts} over "
-                f"{metrics['steps_run']} steps, expected {per_step} "
-                f"{kid} launches per step and no other kernel")
+                f"{name}: launches {counts} over {metrics['steps_run']} "
+                f"steps, expected {per_step} {kid} launches per step and no "
+                f"other kernel")
         if not np.isfinite(metrics["mean_reward"]):
-            raise RuntimeError(f"{path} path: non-finite reward")
-        if metrics["success_rate"] < MIN_SUCCESS:
-            raise RuntimeError(f"{path} path: success rate "
+            raise RuntimeError(f"{name}: non-finite reward")
+        if gated and metrics["success_rate"] < MIN_SUCCESS:
+            raise RuntimeError(f"{name}: success rate "
                                f"{metrics['success_rate']} < {MIN_SUCCESS}")
-    return runs
+    return out
+
+
+def phase_main_path():
+    return closed_loops(
+        [(path, ["--env", "pendulum", "--deq", "--ckpt", ckpt, "--episodes",
+                 str(EPISODES), "--max_steps", str(MAX_STEPS)] + flags,
+          *LAUNCHES_PER_STEP[path], True) for path, ckpt, flags in PATHS],
+        "main_path")
 
 
 # ------------------------------------------------------------ training ----
@@ -825,6 +927,51 @@ def phase_k1_al():
     for r in rows:
         log("K1 AL systems", json.dumps(r))
     return rows
+
+
+def phase_k1_models():
+    """K1 at the new models' shapes against its plain version (both
+    dtypes, each layout, timed; raises above K1_TOL) and on cp1's own AL
+    Newton systems (raises above K1_AL_RATIO)."""
+    rows = {}
+    for n, T_ in K1_MODEL_SHAPES:
+        rows[n, T_] = kernel_layouts.k1_layouts(K1_MODEL_BATCHES, n=n,
+                                                T_=T_)
+        for r in rows[n, T_]:
+            log("K1 model shapes", json.dumps(r))
+    rows["cp1 AL systems"] = kernel_layouts.k1_al_systems(
+        B=256, model_name="cartpole1l", T_=10)
+    for r in rows["cp1 AL systems"]:
+        log("K1 cp1 AL systems", json.dumps(r))
+    return rows
+
+
+def k1_by_shape(k1_models, model_runs, training):
+    """The kernels line's K1 rows per new (n, T): float32 ms (the layout
+    the rule picks), bound and the largest relative error per dtype at B
+    64, and the launches of the runs that take the shape."""
+    out = {}
+    for (n, T_), rows in ((k, v) for k, v in k1_models.items()
+                          if isinstance(k, tuple)):
+        r = next(r for r in rows if r["B"] == EPISODES)
+        lay = r["chosen_layout"]
+        entry = dict(B=EPISODES, layout=lay, ms=r["ms"][lay],
+                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                     launches=0, **{k: max(x[k] for x in rows)
+                                    for k in r if k.startswith("max_rel")})
+        for run, kind in K1_SHAPE_RUNS.get((n, T_), []):
+            got = (model_runs[run]["launches"]["K1"] if kind == "closed loop"
+                   else training[run]["launches_total"]["K1"])
+            entry["launches"] += got
+            entry[f"launches_{run}"] = got
+        out[f"n{n} T{T_}"] = entry
+    # the integrator's scan path takes the pendulum's shape, held by the
+    # main row
+    out["n3 T5"] = dict(launches_integrator_scan=model_runs[
+        "integrator-scan"]["launches"]["K1"], checked="the main row")
+    al = k1_models["cp1 AL systems"]
+    out["n5 T10"]["cp1_al_systems_max_ratio"] = max(r["ratio"] for r in al)
+    return out
 
 
 def phase_train_grad():
@@ -1009,6 +1156,292 @@ def phase_train():
         summary[path] = row
     return summary
 
+# ---------------------------------------------- the integrator, cartpoles --
+def phase_k2_models():
+    """K2 on every new (model, T, dtype) against its plain version, every G
+    against G 1, timed (benchmarks/k2_models.py; raises on a failure)."""
+    from diff_qp_mpc_tpu_torch.benchmarks import k2_models
+
+    return k2_models.run(log=lambda *a: log(*a))
+
+
+def _cp1_t5_policy(args, env):
+    """cp1's policy at T 5 with weights from seed 0 (flax's initial
+    distributions), for the float64 checks: K2 has no float64 T 10
+    instantiation, and the checkpoint's weights are T 10's."""
+    from diff_qp_mpc_tpu_torch.learning.train import make_policy
+
+    torch.manual_seed(0)
+    return make_policy(args, env)
+
+
+def _model_policies():
+    """(name, args, env, policy factory) of the float64 checks' paths."""
+    from diff_qp_mpc_tpu_torch.envs import make_env
+    from diff_qp_mpc_tpu_torch.learning import evaluate, train
+
+    with open(CP1_META) as f:
+        cp1_data = json.load(f)["data"]
+    cp1_t5 = train.build_parser().parse_args(
+        meta_argv(CP1_META) + ["--fused", "--T", "5", "--data", cp1_data])
+    cases = [("cp1-scan", evaluate.parse_args(["--ckpt", CP1_CKPT]),
+              CP1_CKPT),
+             ("cp1-fused-T5", cp1_t5, None),
+             ("integrator-scan", evaluate.parse_args(["--ckpt", INT_CKPT]),
+              INT_CKPT),
+             ("cp2-v7-fused", evaluate.parse_args(["--ckpt", CP2_V7_CKPT,
+                                                   "--fused"]),
+              CP2_V7_CKPT)]
+    out = []
+    for name, args, ckpt in cases:
+        env = make_env(args.env, **({"stabilization": True}
+                                    if args.stabilization else {}))
+        state = (make_policy_from(args, env, ckpt) if ckpt else
+                 _cp1_t5_policy(args, env)).state_dict()
+
+        def factory(args=args, env=env, state=state):
+            from diff_qp_mpc_tpu_torch.learning.train import make_policy
+
+            policy = make_policy(args, env)
+            policy.load_state_dict(state)
+            return policy
+
+        out.append((name, args, env, factory))
+    return out
+
+
+def _ulp_nudges(x):
+    """The state one ulp up, one down, and up and down in alternate
+    coordinates (both ways)."""
+    up = torch.nextafter(x, torch.full_like(x, float("inf")))
+    down = torch.nextafter(x, torch.full_like(x, -float("inf")))
+    even = torch.arange(x.shape[-1]) % 2 == 0
+    return [up, down, torch.where(even, up, down),
+            torch.where(even, down, up)]
+
+
+def _other_nudges(x, seed):
+    """Four one-ulp perturbations of the state beside ``_ulp_nudges``: two
+    ulps up and down, and two random sign patterns (seeded)."""
+    inf = torch.full_like(x, float("inf"))
+    up = torch.nextafter(x, inf)
+    down = torch.nextafter(x, -inf)
+    signs = torch.rand((2,) + x.shape, generator=torch.Generator()
+                       .manual_seed(seed)) < 0.5
+    return [torch.nextafter(up, inf), torch.nextafter(down, -inf),
+            torch.where(signs[0], up, down), torch.where(signs[1], up, down)]
+
+
+def _last_iterate(policy, x):
+    with torch.no_grad():
+        its, _ = policy(x)
+    return torch.cat([its[-1].states, its[-1].actions], -1).cpu()
+
+
+def _row_change(policy, ref, nudged):
+    """Each row's largest |Δ| of the policy's last iterate over the nudged
+    states, from ``ref``."""
+    return torch.stack([(_last_iterate(policy, xx) - ref).abs().flatten(
+        1).amax(-1) for xx in nudged]).amax(0)
+
+
+def policy_spread(seeds=POLICY_SPREAD_SEEDS, B=8):
+    """On the CPU, float64, per new path over ``seeds`` seeds of B initial
+    states: the witness (the largest change of a row under
+    ``_ulp_nudges``) and the largest change under ``_other_nudges``, over
+    the rows neither moves by more than POLICY_JUMP; prints per path their
+    largest ratio over the seeds, from which POLICY_ULP_FACTOR is set. Run
+    it as ``python3 -c 'import chip_smoke; chip_smoke.policy_spread()'``."""
+    out = {}
+    for name, args, env, factory in _model_policies():
+        policy = factory().to(dtype=torch.float64)
+        ratios, witness, jumps = [], [], 0
+        for seed in range(seeds):
+            x = env._sample_init(torch.Generator().manual_seed(seed), B)
+            ref = _last_iterate(policy, x)
+            w = _row_change(policy, ref, _ulp_nudges(x))
+            o = _row_change(policy, ref, _other_nudges(x, seed))
+            held = (w <= POLICY_JUMP) & (o <= POLICY_JUMP)
+            jumps += int((~held).sum())
+            wmax, omax = float(w[held].max()), float(o[held].max())
+            witness.append(wmax)
+            ratios.append(omax / wmax if wmax > 0 else float(omax > 0))
+        out[name] = dict(path=name, T=args.T, seeds=seeds, rows=seeds * B,
+                         rows_over_jump=jumps, largest_witness=max(witness),
+                         largest_ratio=max(ratios), ratios=ratios)
+        log("policy spread", json.dumps(out[name]))
+    return out
+
+
+def phase_model_policy():
+    """One float64 policy forward on the card against the CPU on the new
+    models' paths, row by row: within POLICY_ULP_FACTOR times the CPU's own
+    largest change under one ulp of the state (or POLICY_TOL if larger) on
+    every row that change moves by at most POLICY_JUMP (at least half)."""
+    for name, args, env, factory in _model_policies():
+        x = env._sample_init(torch.Generator().manual_seed(0), 8)
+        cpu = factory().to(dtype=torch.float64)
+        ref = _last_iterate(cpu, x)
+        spread = _row_change(cpu, ref, _ulp_nudges(x))
+        card = _last_iterate(factory().to(device="cuda",
+                                          dtype=torch.float64), x.cuda())
+        err = (card - ref).abs().flatten(1).amax(-1)
+        held = spread <= POLICY_JUMP
+        witness = float(spread[held].max()) if held.any() else 0.0
+        tol = max(POLICY_TOL, POLICY_ULP_FACTOR * witness)
+        row = dict(path=name, T=args.T, tol=tol, witness=witness,
+                   rows=len(err), rows_held=int(held.sum()),
+                   max_abs_err_held=float(err[held].max()) if held.any()
+                   else None,
+                   not_held=[dict(err=float(e), cpu_one_ulp_change=float(c))
+                             for e, c in zip(err[~held], spread[~held])])
+        log("model policy", json.dumps(row))
+        if not (bool(torch.isfinite(card).all())
+                and 2 * row["rows_held"] >= row["rows"]
+                and row["max_abs_err_held"] <= tol):
+            raise RuntimeError(f"policy on the card disagrees with the CPU "
+                               f"({name}): {row}")
+
+
+def phase_model_main_path():
+    """The new models' closed loops through the evaluate entry point (see
+    the module docstring, phase 16), each beside the JAX package's success
+    rate."""
+    runs = closed_loops(
+        [(name, ["--ckpt", ckpt, "--episodes", str(EPISODES), "--max_steps",
+                 str(max_steps)] + flags, kid, per_step, gated)
+         for name, ckpt, flags, max_steps, kid, per_step, _, gated
+         in MODEL_RUNS], "model main_path")
+    for name, *_, jax_success, _ in MODEL_RUNS:
+        runs[name]["jax_success_rate"] = jax_success
+        log("model main_path vs JAX", name, json.dumps(dict(
+            success_rate=runs[name]["success_rate"],
+            jax_success_rate=jax_success)))
+    return runs
+
+
+def phase_model_train_grad():
+    """One DEQ-MPC loss and gradient, float64, B GRAD_B, on the card against
+    the CPU: cp1 fused (T 5, seeded weights, a batch of its expert data)
+    and the integrator's checkpoint on the scan path."""
+    from diff_qp_mpc_tpu_torch.learning import data, train
+
+    rows = {}
+    for name, args, env, factory in _model_policies():
+        if name not in ("cp1-fused-T5", "integrator-scan"):
+            continue
+        dataset = data.load_expert_pickle(
+            args.data or train.default_data_path(args, env))
+        batch = data.sample_window_batch(dataset, GRAD_B, args.T,
+                                         np.random.RandomState(0),
+                                         use_native=False)
+        out = {}
+        for device in ("cpu", "cuda"):
+            policy = factory().to(device=device, dtype=torch.float64)
+            loss, _, _ = train.compute_loss(
+                policy, args, train.to_batch(batch, device, torch.float64),
+                True, torch.Generator().manual_seed(0))
+            g = torch.autograd.grad(loss, list(policy.parameters()))
+            out[device] = (float(loss.detach()), torch.cat(
+                [x.reshape(-1) for x in g]).cpu())
+        ref = out["cpu"][1]
+        row = dict(path=name, B=GRAD_B, T=args.T, loss=out["cpu"][0],
+                   grad_norm=float(ref.norm()),
+                   rel_err_card_vs_cpu_f64=float(
+                       (out["cuda"][1] - ref).norm() / ref.norm()),
+                   tol=GRAD_TOL)
+        log("model train grad", json.dumps(row))
+        rows[name] = row
+        if not (torch.isfinite(out["cuda"][1]).all()
+                and row["rel_err_card_vs_cpu_f64"] <= GRAD_TOL):
+            raise RuntimeError(f"training gradient on the card disagrees "
+                               f"with the CPU ({name}): {row}")
+    return rows
+
+
+def phase_model_train():
+    """Training through the train entry point with the cp1 checkpoint's
+    flags, cut to CP1_TRAIN_PRETRAIN + CP1_TRAIN_DEQMPC steps; launches
+    checked exactly at every step (train_run)."""
+    with open(CP1_META) as f:
+        meta = json.load(f)
+    path = "cp1-fused"
+    argv = meta_argv(CP1_META) + [
+        "--data", meta["data"], "--fused", "--logdir", TRAIN_LOGDIR,
+        "--save", "--iters", str(CP1_TRAIN_PRETRAIN + CP1_TRAIN_DEQMPC),
+        "--pretrain_iters", str(CP1_TRAIN_PRETRAIN), "--ckpt_every", "10",
+        "--name", path]
+    t0 = time.perf_counter()
+    traced = TRACED_TRAIN_STEPS[path]
+    records, trace = train_run(path, argv, traced)
+    deq = [r for r in records if r["mode"] == "deqmpc"]
+    pre = [r for r in records if r["mode"] == "deq"]
+    row = dict(path=path, steps=len(records), deqmpc_steps=len(deq),
+               launches_per_deqmpc_step=deq[-1]["launches"],
+               ms_per_step_median=float(np.median(
+                   [r["ms"] for r in deq[1:-traced]])),
+               ms_first_deqmpc_step=deq[0]["ms"],
+               ms_pretrain_median=float(np.median(
+                   [r["ms"] for r in pre[1:]])),
+               loss_end_last=deq[-1]["loss_end"],
+               loss_end_deqmpc=[r["loss_end"] for r in deq],
+               guard_drops_per_step=[r["guard_drops"] for r in records],
+               launches_total={k: sum(r["launches"][k] for r in records)
+                               for k in records[0]["launches"]},
+               grad_norm_max=max(r["grad_norm"] for r in records),
+               seconds=time.perf_counter() - t0)
+    row.update(trace)
+    log("model train", json.dumps(row))
+    return row
+
+
+def ptxas_summary(text):
+    """One line per kernel and device function of an nvcc -Xptxas -v log:
+    its name (cut), registers (kernels only), stack frame and spill
+    stores."""
+    rows, name = [], None
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[1].strip()
+        elif name and "stack frame" in line:
+            rows.append(dict(
+                name=name[:110], regs="-",
+                stack=line.split(" bytes stack frame")[0].split()[-1],
+                spill=line.split(" bytes spill stores")[0].split()[-1]))
+        elif name and "Used" in line and "registers" in line and rows:
+            rows[-1]["regs"] = line.split("Used")[1].split(
+                "registers")[0].strip()
+            name = None
+    return [f"{r['name']} {r['regs']} registers, {r['stack']} B stack, "
+            f"{r['spill']} B spill stores" for r in rows]
+
+
+def k2_by_model(k2_models, model_runs, cp1_train):
+    """The kernels line's K2 rows per new (model, T): float32 ms, plain ms
+    and bound at B 64, the largest error against the plain version at B 64
+    per dtype, and the launches of the main-path run (and the training run)
+    that takes the instantiation."""
+    runs_of = {v: k for k, v in MODEL_RUN_KERNEL.items()}
+    out = {}
+    for key, rows in k2_models.items():
+        name, t_, dtype = key.split()
+        entry = out.setdefault(f"{name} {t_}", dict(launches=0))
+        for r in rows:
+            if "ms" in r:
+                entry.update({k: r[k] for k in (
+                    "ms", "ms_events", "plain_ms", "bound_ms", "bound_by",
+                    "group")})
+            elif r["B"] == EPISODES:
+                entry[f"max_abs_err_{dtype}"] = r["max_abs_err_xu"]
+                entry[f"tolerance_{dtype}"] = r["tol"]
+        run = runs_of.get(key)
+        if run is not None:
+            entry["launches"] = model_runs[run]["launches"]["K2"]
+            entry["launches_run"] = run
+        if key == MODEL_RUN_KERNEL["cp1-fused"]:
+            entry["launches_training"] = cp1_train["launches_total"]["K2"]
+    return out
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1018,16 +1451,16 @@ def main():
     from diff_qp_mpc_tpu_torch.utils import cuda_build
     from diff_qp_mpc_tpu_torch.utils.device import card_name_and_power_limit
 
+    from diff_qp_mpc_tpu_torch.ops import al_fused_cuda
+
     t0 = time.perf_counter()
-    logs = cuda_build.build(["btsolve", "al_fused", "riccati",
+    logs = cuda_build.build(["btsolve", *al_fused_cuda.LIBRARIES, "riccati",
                              "trajqp_fused", "sin_chain"])
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    log("build seconds by source", json.dumps(cuda_build.build_seconds))
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "entry function" in line:
-                log(f"ptxas {name}: {line.strip()[:140]}")
-            if "registers" in line or "spill" in line or "stack" in line:
-                log(f"ptxas {name}: {line.strip()}")
+        for line in ptxas_summary(text):
+            log(f"ptxas {name}: {line}")
 
     # the port (its __init__) turns TF32 off: the float32 products of the
     # linearization, the costs and the IPM residuals run in full float32,
@@ -1038,11 +1471,21 @@ def main():
                            "run in full float32")
     k1 = phase_k1()
     k2 = phase_k2()
+    t_models = time.perf_counter()
+    k1_models = phase_k1_models()
+    log(f"K1 models phase: {time.perf_counter() - t_models:.1f} s")
+    t_models = time.perf_counter()
+    k2_models = phase_k2_models()
+    log(f"K2 models phase: {time.perf_counter() - t_models:.1f} s")
     k3 = phase_k3()
     k4 = phase_k4()
     k5 = phase_k5()
     phase_policy()
     runs = phase_main_path()
+    t_models = time.perf_counter()
+    phase_model_policy()
+    model_runs = phase_model_main_path()
+    log(f"model paths phase: {time.perf_counter() - t_models:.1f} s")
     t_roof = time.perf_counter()
     roof = phase_roofline()
     log(f"roofline phase: {time.perf_counter() - t_roof:.1f} s")
@@ -1051,7 +1494,11 @@ def main():
     phase_train_grad()
     training = phase_train()
     log(f"training phases: {time.perf_counter() - t_train:.1f} s")
-    # the training phase's launches of each kernel, all four paths
+    t_train = time.perf_counter()
+    phase_model_train_grad()
+    training["cp1-fused"] = phase_model_train()
+    log(f"model training phases: {time.perf_counter() - t_train:.1f} s")
+    # the training phases' launches of each kernel, all paths
     train_launches = {k: sum(row["launches_total"][k]
                              for row in training.values())
                       for k in kernel_wrappers()}
@@ -1093,12 +1540,16 @@ def main():
             kernels[-1]["filled_card"] = dict(
                 B=f["B"], ms=f["ms"], bound_ms=f["bound_ms"],
                 bound_share=f["bound_share"])
+            kernels[-1]["by_shape"] = k1_by_shape(k1_models, model_runs,
+                                                  training)
         if kid == "K2":
             kernels[-1]["bound_ms_sin_as_one_op"] = r["bound_ms_sin_as_one_op"]
             kernels[-1]["group"] = k2["groups"][0]["chosen_group"]
             kernels[-1]["ms_by_group"] = {
                 gr["B"]: dict(chosen=gr["chosen_group"], ms=gr["ms"])
                 for gr in k2["groups"]}
+            kernels[-1]["by_model"] = k2_by_model(
+                k2_models, model_runs, training["cp1-fused"])
         if kid == "K3":
             f = rows["filled"]
             kernels[-1]["launch_floor_ms"] = r["launch_floor_ms"]

@@ -103,12 +103,86 @@ def k1_ops(T_, n):
     return stage0 + (T_ - 1) * stage + backward
 
 
-def k2_ops(T_, nx, nu, al_iter, n_newton, n_ls):
+class _Counted:
+    """A number that counts the arithmetic done on it (an operation each,
+    negation none; sin and cos apart) and nothing else."""
+
+    ops = 0
+    sins = 0
+
+    def _op(self, *_):
+        _Counted.ops += 1
+        return _Counted()
+
+    __add__ = __radd__ = __sub__ = __rsub__ = _op
+    __mul__ = __rmul__ = __truediv__ = __rtruediv__ = _op
+
+    def __neg__(self):
+        return _Counted()
+
+    def sin(self):
+        _Counted.sins += 1
+        return _Counted()
+
+    cos = sin
+
+
+def _counted(fn):
+    """(operations, sin and cos evaluations) of ``fn()``."""
+    _Counted.ops = _Counted.sins = 0
+    fn()
+    return _Counted.ops, _Counted.sins
+
+
+def functor_counts(model) -> Tuple[int, int, int, int]:
+    """(step, Jacobian, step sins, Jacobian sins) of K2's RK4 functor of a
+    cartpole (``csrc/al_fused_cartpole*.cu``), counted by running its plain
+    version, ``model.step_parts``, which does the functor's operations one
+    for one, on counting numbers: the step on values, the Jacobian as one
+    pass on duals per input column (``models.dual``; a dual times a
+    constant is 2 operations, a dual product 4, a dual sin a sin, a cos
+    and a product). Operations include the sin and cos evaluations, as
+    ``k2_ops`` counts them."""
+    from diff_qp_mpc_tpu_torch.models.dual import Dual
+
+    nx, n = model.nx, model.nx + model.nu
+    p = {k: _Counted() for k in model.PARAMS}
+    vals = [_Counted() for _ in range(n)]
+    step, step_sins = _counted(
+        lambda: model.step_parts(vals[:nx], vals[nx:], p))
+    duals = [Dual(_Counted(), _Counted()) for _ in range(n)]
+    col, col_sins = _counted(
+        lambda: model.step_parts(duals[:nx], duals[nx:], p))
+    return step + step_sins, n * (col + col_sins), step_sins, n * col_sins
+
+
+def _k2_model_counts(model: str) -> Tuple[int, int, int, int]:
+    """(step, Jacobian, step sins, Jacobian sins) of K2's functor of
+    ``model`` (a name of ``K2_MODELS``)."""
+    if model == "pendulum":
+        # csrc/al_fused.cu's PendulumDyn, counted by hand: the step 8 with
+        # its sin, the Jacobian 9 with its cos
+        return 8, 9, 1, 1
+    if model == "integrator":
+        # IntegratorDyn: two multiply-adds; the Jacobian's dt·dt
+        return 4, 1, 0, 0
+    from diff_qp_mpc_tpu_torch.models import Cartpole1L, Cartpole2L
+
+    return functor_counts({"cartpole1l": Cartpole1L,
+                           "cartpole2l": Cartpole2L}[model]())
+
+
+#: the models K2 is built for, by the name ``ops.al_fused_cuda`` gives them
+K2_MODELS = ("pendulum", "integrator", "cartpole1l", "cartpole2l")
+
+
+def k2_ops(T_, nx, nu, al_iter, n_newton, n_ls, model="pendulum"):
     """Floating-point operations of one element's solve, counted from
-    csrc/al_fused.cu with the pendulum functor (step 8 incl. one sin,
-    Jacobian 9 incl. one cos; a multiply-add is 2, a compare or select 0)."""
+    csrc/al_fused_common.cuh with ``model``'s functor (its step and
+    Jacobian from ``_k2_model_counts``; a multiply-add is 2, a compare or
+    select 0, a sin or cos 1)."""
     n = nx + nu
-    step, jac = 8, 9
+    step, jac = _k2_model_counts(model)[:2]
     dyn_terms = (T_ - 1) * (step + nx * 7)  # r, λr, ρ/2 r²
     bound_terms = T_ * nu * 14
     constraints = dyn_terms + bound_terms
@@ -125,22 +199,25 @@ def k2_ops(T_, nx, nu, al_iter, n_newton, n_ls):
     return al_iter * per_al + residual
 
 
-def k2_sin_evals(T_, al_iter, n_newton, n_ls):
-    """sin and cos evaluations of one element's solve in csrc/al_fused.cu
-    (pendulum: one sin per step(), one cos per jac()): per AL iteration the
-    merit (T−1 steps), n_newton × (T−1 steps + T−1 Jacobians + n_ls line-
-    search merits of T−1 steps each) and the λ update (T−1 steps); then the
-    output residual (T−1 steps)."""
-    per_al = (T_ - 1) * (2 + n_newton * (2 + n_ls))
-    return al_iter * per_al + (T_ - 1)
+def k2_sin_evals(T_, al_iter, n_newton, n_ls, model="pendulum"):
+    """sin and cos evaluations of one element's solve in
+    csrc/al_fused_common.cuh (the pendulum: one sin per step(), one cos per
+    jac()): per AL iteration the merit (T−1 steps), n_newton × (T−1 steps +
+    T−1 Jacobians + n_ls line-search merits of T−1 steps each) and the λ
+    update (T−1 steps); then the output residual (T−1 steps)."""
+    _, _, step, jac = _k2_model_counts(model)
+    per_al = (T_ - 1) * (step * (2 + n_newton * (1 + n_ls))
+                         + jac * n_newton)
+    return al_iter * per_al + (T_ - 1) * step
 
 
-def k2_ops_with_sin(T_, nx, nu, al_iter, n_newton, n_ls, sin_fp32_instr):
+def k2_ops_with_sin(T_, nx, nu, al_iter, n_newton, n_ls, sin_fp32_instr,
+                    model="pendulum"):
     """k2_ops with each sin or cos counted as the ``sin_fp32_instr`` FP32
     instructions of its fast path (2 operations each at the float32 peak,
     the FLOP rate being two per instruction) instead of 1."""
-    sins = k2_sin_evals(T_, al_iter, n_newton, n_ls)
-    return (k2_ops(T_, nx, nu, al_iter, n_newton, n_ls) - sins
+    sins = k2_sin_evals(T_, al_iter, n_newton, n_ls, model)
+    return (k2_ops(T_, nx, nu, al_iter, n_newton, n_ls, model) - sins
             + 2 * sin_fp32_instr * sins)
 
 

@@ -1,0 +1,257 @@
+"""K2 on the models beyond the pendulum (the integrator and the cartpoles),
+on the card.
+
+    python -m diff_qp_mpc_tpu_torch.benchmarks.k2_models \\
+        [--out build/k2_models.json]
+
+For every (model, T, dtype) of ``CASES``, at B 64 and 256, on seeded
+tracking problems of the model's own env (``problem``):
+  - the kernel against its plain version (``al_fused_cuda.
+    fused_al_solve_reference``) at the main path's budget: each element's
+    largest error on xu against ``TOL`` and the share of elements outside
+    it against ``SHARE_LIMIT`` (none in float64; see there); in float64
+    the elements beyond 1e-6 listed with the plain version's own change
+    on them under one ulp of the inputs;
+  - the outputs at every group width G bit-identical to G 1;
+  - in float32 at B 64: device ms per launch, the plain version's ms, and
+    the bound from ``flops.k2_ops_with_sin`` for the model.
+A failed check raises. Without a card it raises. ``chip_smoke.py`` runs
+the same checks. ``--plain`` prints, on the CPU, the plain version's own
+float32-vs-float64 and one-ulp spreads over seeds, from which ``TOL`` and
+``SHARE_LIMIT`` are set.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from diff_qp_mpc_tpu_torch.benchmarks.flops import (
+    SINF_FP32_INSTR,
+    bound,
+    k2_bytes,
+    k2_ops_with_sin,
+)
+from diff_qp_mpc_tpu_torch.benchmarks.timing import device_kernel_ms, events_ms
+from diff_qp_mpc_tpu_torch.envs import make_env
+from diff_qp_mpc_tpu_torch.ops import al_fused_cuda
+from diff_qp_mpc_tpu_torch.utils import cuda_build
+
+#: K2's budget on the main paths (ALConfig defaults at qp_iter 2)
+BUDGET = dict(al_iter=2, n_newton=4, n_ls=20, rho_factor=10.0, rho_max=1e6,
+              reg=1e-7)
+#: per model: the env (name, kwargs) whose model, initial states and box the
+#: problems take, and the tracking cost's control weight R (None: the env's
+#: Rlqr), as the committed checkpoints of these envs use them
+ENVS = {"integrator": ("integrator", {}, None),
+        "cartpole1l": ("cartpole1link", {"stabilization": True}, None),
+        "cartpole2l": ("cartpole2link", {"stabilization": True}, 0.01)}
+#: every (model, T, dtype) K2 is built for beyond the pendulum
+CASES = tuple((b.name, T, dtype)
+              for b in al_fused_cuda.BUILT.values() if b.name in ENVS
+              for dtype, horizons in b.horizons.items() for T in horizons)
+BATCHES = (64, 256)
+#: each element's largest error on xu. The solve is discontinuous in its
+#: inputs (the line search's first minimum among near-tied candidates, the
+#: box switching), so two correct implementations that round differently
+#: part by more than rounding. Float32: against its own float64 result the
+#: plain version moves no element of any case by 1e-2 (the largest 8.9e-3,
+#: cp1 T 10), so each element is held to 1e-2 but for at most SHARE_LIMIT
+#: of them. Float64: one ulp of an input (PERTURBATIONS) moves an element of
+#: the plain version by up to 1.48e-6 (the integrator; cp1 8.7e-7, cp2
+#: 2.3e-7), and 1e-6 on up to 1.6% of a batch's elements, over 9 seeds at B
+#: 64 and 256 (``plain_spread``, PERF.md PR 7); so every element is held to
+#: twice that largest reading, 3e-6
+TOL = {torch.float32: 1e-2, torch.float64: 3e-6}
+#: the share of elements outside TOL, and the median element error: a
+#: tenth of TOL in float32, 1e-8 in float64
+SHARE_LIMIT = {torch.float32: 0.01, torch.float64: 0.0}
+MEDIAN_LIMIT = {torch.float32: 1e-3, torch.float64: 1e-8}
+#: the float64 tolerance ISSUE-level checks name; elements beyond it are
+#: listed with the plain version's own one-ulp change on them
+REPORT_TOL_F64 = 1e-6
+#: one-ulp perturbations of a problem's inputs, (argument, direction)
+PERTURBATIONS = (("x0", 1), ("x0", -1), ("c", 1), ("c", -1), ("Cd", 1),
+                 ("Cd", -1), ("x_init", 1), ("x_init", -1))
+_ARG = {"Cd": 1, "c": 2, "x0": 3, "x_init": 6}
+
+
+def problem(name, B, T, dtype, seed, device="cuda"):
+    """Tracking problems like the policy's for model ``name``: x0 drawn as
+    its env draws initial states (the cartpoles around upright, the
+    integrator over its whole range) from a generator seeded by ``seed``, a
+    reference drifting from x0, Cd = (Q, R), c = −Cd·τ_ref, the env's box;
+    x_init the reference, u_init 0. Returns the fused_al_solve arguments
+    (model, Cd, c, x0, u_lo, u_hi, x_init, u_init)."""
+    env_name, kwargs, r = ENVS[name]
+    env = make_env(env_name, **kwargs)
+    model, nx, nu = env.model, env.nx, env.nu
+    x0 = env._sample_init(torch.Generator().manual_seed(seed), B).numpy()
+    rng = np.random.RandomState(seed)
+    x_ref = x0[:, None] + np.cumsum(0.05 * rng.randn(B, T, nx), axis=1)
+    x_ref[:, 0] = x0
+    R = np.asarray(env.Rlqr, float) if r is None else np.full(nu, r)
+    Cd = np.broadcast_to(np.concatenate([env.Qlqr, R]), (B, T, nx + nu))
+    c = -Cd * np.concatenate([x_ref, np.zeros((B, T, nu))], -1)
+    to = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                                device=device)
+    box = (tuple(float(v) for v in env.action_space.low),
+           tuple(float(v) for v in env.action_space.high))
+    return (model, to(Cd), to(c), to(x0), *box, to(x_ref),
+            torch.zeros(B, T, nu, dtype=dtype, device=device))
+
+
+def element_errors(out, ref):
+    """Each element's largest |Δxu|."""
+    B = out[0].shape[0]
+    return (out[0] - ref[0]).abs().reshape(B, -1).max(dim=1).values
+
+
+def sensitivity(args, budget=BUDGET):
+    """The plain version on ``args`` (``problem``'s tuple) and each
+    element's largest |Δxu| of it under the one-ulp PERTURBATIONS."""
+    ref = al_fused_cuda.fused_al_solve_reference(*args, **budget)
+    sens = torch.zeros_like(ref[4])
+    for name, sign in PERTURBATIONS:
+        nudged = list(args)
+        a = nudged[_ARG[name]]
+        nudged[_ARG[name]] = torch.nextafter(
+            a, torch.full_like(a, sign * float("inf")))
+        sens = torch.maximum(sens, element_errors(
+            al_fused_cuda.fused_al_solve_reference(*nudged, **budget), ref))
+    return ref, sens
+
+
+def _same(a, b) -> bool:
+    """Bit-identical tuples of tensors (NaNs in the same places count)."""
+    return all(x.shape == y.shape and torch.equal(
+        x.view(torch.int64 if x.dtype == torch.float64 else torch.int32),
+        y.view(torch.int64 if y.dtype == torch.float64 else torch.int32))
+        for x, y in zip(a, b))
+
+
+def check(name, T, dtype, B, budget=BUDGET) -> dict:
+    """The kernel against its plain version and every G against G 1 on
+    ``problem(name, B, T, dtype, seed=B)``; raises on a failed check."""
+    args = problem(name, B, T, dtype, seed=B)
+    outs = {G: al_fused_cuda.fused_al_solve(*args, **budget, group=G)
+            for G in al_fused_cuda.GROUPS}
+    ref = al_fused_cuda.fused_al_solve_reference(*args, **budget)
+    torch.cuda.synchronize()
+    el = element_errors(outs[1], ref)
+    tol = TOL[dtype]
+    row = dict(model=name, T=T, dtype=str(dtype), B=B,
+               max_abs_err_xu=float(el.max()),
+               median_abs_err_xu=float(el.median()),
+               share_over_tol=float((el > tol).double().mean()),
+               max_abs_err_res=float((outs[1][4] - ref[4]).abs().max()),
+               res_mean=float(outs[1][4].mean()), tol=tol,
+               share_limit=SHARE_LIMIT[dtype],
+               identical_to_g1={G: _same(o, outs[1])
+                                for G, o in outs.items()})
+    finite = all(bool(torch.isfinite(o).all()) for o in outs[1])
+    if not (finite and row["share_over_tol"] <= SHARE_LIMIT[dtype]
+            and row["median_abs_err_xu"] <= MEDIAN_LIMIT[dtype]
+            and all(row["identical_to_g1"].values())):
+        raise RuntimeError(f"K2 on {name}: {row}")
+    if dtype == torch.float64:
+        # the elements beyond 1e-6, each beside the plain version's own
+        # largest change on it under one ulp of the inputs
+        beyond = (el > REPORT_TOL_F64).nonzero().flatten()
+        if len(beyond):
+            sens = sensitivity(args, budget)[1]
+            row["beyond_1e-6"] = [dict(element=int(i), err=float(el[i]),
+                                       plain_one_ulp=float(sens[i]))
+                                  for i in beyond]
+    return row
+
+
+def timing(name, T, B=64, budget=BUDGET) -> dict:
+    """Float32 device ms per launch (the G the rule picks), the plain
+    version's ms and the bound, on ``problem(name, B, T, float32)``."""
+    args = problem(name, B, T, torch.float32, seed=B)
+    model = args[0]
+    kern = lambda: al_fused_cuda.fused_al_solve(*args, **budget)
+    resident = al_fused_cuda.resident_threads(torch.float32, T,
+                                              args[1].device, model)
+    n_budget = {k: budget[k] for k in ("al_iter", "n_newton", "n_ls")}
+    bound_ms, bound_by = bound(
+        B * k2_bytes(T, model.nx, model.nu),
+        B * k2_ops_with_sin(T, model.nx, model.nu, **n_budget,
+                            sin_fp32_instr=SINF_FP32_INSTR, model=name))
+    return dict(model=name, T=T, B=B,
+                group=al_fused_cuda.choose_group(B, resident),
+                resident_threads=resident,
+                ms=device_kernel_ms(kern, 10, "al_fused_kernel"),
+                ms_events=events_ms(kern, 10),
+                plain_ms=events_ms(lambda: al_fused_cuda.
+                                   fused_al_solve_reference(*args, **budget),
+                                   2, warmup=1),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def plain_spread(name, T, B, seed, device="cpu", budget=BUDGET) -> dict:
+    """The plain version's own spread on ``problem(name, B, T, ·, seed)``:
+    float32 against float64 (each element's largest |Δxu|: the share
+    outside TOL[float32], max, median), and in float64 the largest change
+    under one ulp of an input (``sensitivity``; max, and the share of
+    elements it moves by more than REPORT_TOL_F64)."""
+    a64 = problem(name, B, T, torch.float64, seed, device)
+    a32 = problem(name, B, T, torch.float32, seed, device)
+    p64, ulp = sensitivity(a64, budget)
+    el32 = element_errors([o.double() for o in al_fused_cuda.
+                           fused_al_solve_reference(*a32, **budget)], p64)
+    return dict(model=name, T=T, B=B, seed=seed,
+                f32_share_over_tol=float(
+                    (el32 > TOL[torch.float32]).double().mean()),
+                f32_max=float(el32.max()), f32_median=float(el32.median()),
+                f64_one_ulp_max=float(ulp.max()),
+                f64_one_ulp_share_over_1e6=float(
+                    (ulp > REPORT_TOL_F64).double().mean()))
+
+
+def run(log=print) -> dict:
+    """Every check and timing of the module docstring; rows by (model, T,
+    dtype)."""
+    rows = {}
+    for name, T, dtype in CASES:
+        key = f"{name} T{T} {str(dtype)[6:]}"
+        rows[key] = [check(name, T, dtype, B) for B in BATCHES]
+        if dtype == torch.float32:
+            rows[key].append(timing(name, T))
+        for r in rows[key]:
+            log("K2 model", json.dumps(r))
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", type=Path, default=Path("build/k2_models.json"))
+    ap.add_argument("--plain", action="store_true",
+                    help="only the plain version's spread (plain_spread), "
+                         "on the CPU")
+    ap.add_argument("--seeds", type=int, default=8,
+                    help="--plain: seeds 0 .. SEEDS-1 beside the card "
+                         "checks' seed B")
+    args = ap.parse_args(argv)
+    if args.plain:
+        for name, T in sorted({(n, t) for n, t, _ in CASES}):
+            for B in BATCHES:
+                for seed in (B, *range(args.seeds)):
+                    print(json.dumps(plain_spread(name, T, B, seed)),
+                          flush=True)
+        return 0
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: these checks are of the card")
+    cuda_build.build(al_fused_cuda.LIBRARIES)
+    result = run()
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(result, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -247,13 +247,16 @@ def k1_layouts(batches=BATCHES, reg=AL_BUDGET["reg"], n=N, T_=T) -> list:
     return rows
 
 
-def al_systems(B, rho, dtype=torch.float64, seed=0, device="cuda"):
+def al_systems(B, rho, dtype=torch.float64, seed=0, device="cuda",
+               model_name=None, T_=T):
     """The pinned Gauss-Newton systems (D, O) and merit gradient g the AL
     path solves at penalty ``rho`` (reg 1e-7 comes with the solve), built by
     ``almerit.merit_grad_hess`` and ``newton_al.pin_first_state`` at the
-    solution and multipliers of the main path's tracking problems
-    (``k2_inputs``, solved by K2 at AL_BUDGET); and a random cotangent
-    with its x₀ rows 0, the backward's right-hand side."""
+    solution and multipliers of tracking problems at AL_BUDGET; and a
+    random cotangent with its x₀ rows 0, the backward's right-hand side.
+    The problems are the main path's (``k2_inputs``, the pendulum at T 5,
+    solved by K2) or, given ``model_name``, ``k2_models.problem``'s for
+    that model at horizon ``T_`` (solved by K2's plain version)."""
     from diff_qp_mpc_tpu_torch.core.types import (
         Bounds,
         DiagQuadCost,
@@ -261,39 +264,51 @@ def al_systems(B, rho, dtype=torch.float64, seed=0, device="cuda"):
     )
     from diff_qp_mpc_tpu_torch.ops import almerit, newton_al
 
-    Cd, c, x0, xi, ui = k2_inputs(B, dtype, seed, device)
-    model = Pendulum()
-    xu, lamd, lamh, laml, _ = al_fused_cuda.fused_al_solve(
-        model, Cd, c, x0, *BOX, xi, ui, **AL_BUDGET)
+    if model_name is None:
+        Cd, c, x0, xi, ui = k2_inputs(B, dtype, seed, device)
+        model, box = Pendulum(), BOX
+        solve = al_fused_cuda.fused_al_solve
+    else:
+        from diff_qp_mpc_tpu_torch.benchmarks import k2_models
+
+        model, Cd, c, x0, *box, xi, ui = k2_models.problem(
+            model_name, B, T_, dtype, seed, device)
+        solve = al_fused_cuda.fused_al_solve_reference
+    nx = model.nx
+    xu, lamd, lamh, laml, _ = solve(model, Cd, c, x0, *box, xi, ui,
+                                    **AL_BUDGET)
     lam = Lambdas(lam_dyn=lamd, lam_init=torch.zeros_like(x0), lam_hi=lamh,
                   lam_lo=laml)
     g, D, O, _ = almerit.merit_grad_hess(
-        DiagQuadCost(Cd=Cd, c=c), model.jac, xu[..., :NX], xu[..., NX:], x0,
-        Bounds(u_lo=BOX[0], u_hi=BOX[1]), lam,
+        DiagQuadCost(Cd=Cd, c=c), model.jac, xu[..., :nx], xu[..., nx:], x0,
+        Bounds(u_lo=box[0], u_hi=box[1]), lam,
         torch.full((B, 1), rho, dtype=dtype, device=device))
-    g, D, O = newton_al.pin_first_state(g, D, O, NX)
+    g, D, O = newton_al.pin_first_state(g, D, O, nx)
     rng = np.random.RandomState(seed + 1)
-    ct = torch.tensor(rng.randn(B, T, N), dtype=dtype, device=device)
-    ct[:, 0, :NX] = 0.0
+    ct = torch.tensor(rng.randn(*xu.shape), dtype=dtype, device=device)
+    ct[:, 0, :nx] = 0.0
     return D.contiguous(), O.contiguous(), g.contiguous(), ct
 
 
-def k1_al_systems(B=4096, rhos=K1_AL_RHOS, reg=AL_BUDGET["reg"]) -> list:
-    """K1 in float32 on the AL path's systems (``al_systems``), for the
-    Newton step's right-hand side (the gradient) and the backward's (a
-    cotangent): its error and the plain float32 version's, each the max
-    over the batch relative to the float64 solution's largest entry.
-    Raises where K1's error exceeds K1_AL_RATIO times the plain version's,
-    or is not finite."""
+def k1_al_systems(B=4096, rhos=K1_AL_RHOS, reg=AL_BUDGET["reg"],
+                  model_name=None, T_=T) -> list:
+    """K1 in float32 on the AL path's systems (``al_systems``, the
+    pendulum's or ``model_name``'s at ``T_``), for the Newton step's
+    right-hand side (the gradient) and the backward's (a cotangent): its
+    error and the plain float32 version's, each the max over the batch
+    relative to the float64 solution's largest entry. Raises where K1's
+    error exceeds K1_AL_RATIO times the plain version's, or is not
+    finite."""
     rows = []
     for rho in rhos:
-        D, O, g, ct = al_systems(B, rho)
+        D, O, g, ct = al_systems(B, rho, model_name=model_name, T_=T_)
         for rhs_name, rhs in (("gradient", g), ("cotangent", ct)):
             x64 = btsolve.batched_factor_solve(D, O, rhs, reg)
             f32 = [a.float() for a in (D, O, rhs)]
             scale = float(x64.abs().max())
             err = lambda x: float((x.double() - x64).abs().max()) / scale
-            row = dict(B=B, rho=rho, reg=reg, rhs=rhs_name,
+            row = dict(model=model_name or "pendulum", n=D.shape[-1],
+                       T=D.shape[1], B=B, rho=rho, reg=reg, rhs=rhs_name,
                        max_rel_err_kernel=err(
                            btsolve_cuda.batched_factor_solve(*f32, reg)),
                        max_rel_err_plain=err(

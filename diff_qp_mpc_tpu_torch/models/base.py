@@ -9,11 +9,40 @@ them along a whole trajectory in one batched call.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
 Tensor = torch.Tensor
+Ode = Callable[[Tensor, Tensor], Tensor]
+
+
+# integrators of an ODE ẋ = f(x, u) over one step dt
+def euler(ode: Ode, x: Tensor, u: Tensor, dt: float) -> Tensor:
+    return x + dt * ode(x, u)
+
+
+def midpoint(ode: Ode, x: Tensor, u: Tensor, dt: float) -> Tensor:
+    k1 = ode(x, u)
+    k2 = ode(x + 0.5 * dt * k1, u)
+    return x + dt * k2
+
+
+def rk4(ode: Ode, x: Tensor, u: Tensor, dt: float) -> Tensor:
+    k1 = ode(x, u)
+    k2 = ode(x + 0.5 * dt * k1, u)
+    k3 = ode(x + 0.5 * dt * k2, u)
+    k4 = ode(x + dt * k3, u)
+    return x + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+
+
+def semi_implicit_euler(accel: Ode, x: Tensor, u: Tensor, dt: float,
+                        nq: int) -> Tensor:
+    """v' = v + a·dt; q' = q + v'·dt, for (q, v) states."""
+    q, v = x[..., :nq], x[..., nq:]
+    v_n = v + accel(x, u) * dt
+    q_n = q + v_n * dt
+    return torch.cat([q_n, v_n], dim=-1)
 
 
 class DynamicsModel:
@@ -34,7 +63,9 @@ class DynamicsModel:
         single = lambda xx, uu: self.step(xx, uu)
         jx, ju = torch.func.vmap(
             torch.func.jacfwd(single, argnums=(0, 1)))(x, u)
-        return self.step(x, u), (jx, ju)
+        # forward mode can promote a product with a Python number to
+        # float64 (torch 2.13); the Jacobians keep the state's dtype
+        return self.step(x, u), (jx.to(x.dtype), ju.to(x.dtype))
 
     def linearize(self, x: Tensor, u: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
         """(x_next, A, B) along the trajectory; see linearize_trajectory."""
@@ -76,3 +107,8 @@ def angle_normalize(x: Tensor) -> Tensor:
     """Wrap to [-π, π). Python's ``%`` is a floored modulo, so this is
     ``torch.remainder`` (not ``fmod``, which truncates toward zero)."""
     return torch.remainder(x + math.pi, 2 * math.pi) - math.pi
+
+
+def angle_normalize_2pi(x: Tensor) -> Tensor:
+    """Wrap to [0, 2π) (the cartpoles' pole angle, upright at π)."""
+    return torch.remainder(x, 2 * math.pi)

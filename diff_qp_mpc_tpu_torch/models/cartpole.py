@@ -1,0 +1,264 @@
+"""1-link and 2-link cartpoles and the cos/sin cartpole (port of
+diff_qp_mpc_tpu.models.cartpole).
+
+Pole angles are measured from the downward vertical, anticlockwise
+positive, so upright is θ = π; a later joint angle is relative to the link
+before it. The control is a horizontal force on the cart.
+
+``Cartpole1L`` and ``Cartpole2L`` step in the closed form that kernel K2's
+functors (``csrc/al_fused_cartpole1l.cu``, ``al_fused_cartpole2l.cu``)
+evaluate, operation for operation: the mass matrix M(q) and b = τ − c(q, q̇)
+written out by hand from the energies, M q̈ = b solved by Gaussian
+elimination without pivoting in the order of the JAX package's
+``manipulator_accel_parts``, RK4 on the coordinates, and the Jacobian as
+one forward-mode pass per input column (``models.dual``). Model constants
+enter folded in double precision (``kernel_params``) and are applied in the
+state's dtype. The tests hold the closed form to the JAX package's step,
+RK4 of the equations of motion that its ``lagrangian`` module derives from
+the energies by automatic differentiation.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from diff_qp_mpc_tpu_torch.models.base import (
+    DynamicsModel,
+    angle_normalize,
+    angle_normalize_2pi,
+)
+from diff_qp_mpc_tpu_torch.models.dual import Dual
+
+Tensor = torch.Tensor
+
+
+def rk4_parts(ode_parts, p, xs, us):
+    """RK4 on tuples of coordinates, ``p["h"]`` = dt/2, ``p["dt6"]`` =
+    dt/6, as ``RK4`` of csrc/al_fused_common.cuh."""
+    add = lambda a, k, s: tuple(ai + s * ki for ai, ki in zip(a, k))
+    k1 = ode_parts(p, xs, us)
+    k2 = ode_parts(p, add(xs, k1, p["h"]), us)
+    k3 = ode_parts(p, add(xs, k2, p["h"]), us)
+    k4 = ode_parts(p, add(xs, k3, p["dt"]), us)
+    return tuple(x + p["dt6"] * (a + 2 * b + 2 * c + d)
+                 for x, a, b, c, d in zip(xs, k1, k2, k3, k4))
+
+
+class _Cartpole(DynamicsModel):
+    """A cartpole whose ``step_parts`` is K2's functor, with the constants
+    ``PARAMS`` names (``kernel_params`` gives them in that order)."""
+
+    PARAMS: Tuple[str, ...] = ()
+
+    def step(self, x: Tensor, u: Tensor) -> Tensor:
+        return torch.stack(self.step_parts(x.unbind(-1), u.unbind(-1)), -1)
+
+    def kernel_params(self) -> Tuple[float, ...]:  # pragma: no cover
+        raise NotImplementedError
+
+    def _ode_parts(self, p, xs, us):  # pragma: no cover
+        raise NotImplementedError
+
+    def scalars(self, like) -> Dict[str, object]:
+        """The constants as 0-dim tensors of ``like``'s dtype and device
+        (a dual's value), so each operation on them rounds as the kernel's
+        does."""
+        like = like.v if isinstance(like, Dual) else like
+        return {k: like.new_tensor(v) for k, v in
+                zip(self.PARAMS, self.kernel_params())}
+
+    def step_parts(self, xs, us, p=None):
+        """The functor's step on tuples of coordinates (tensors, duals, or
+        any number type given its own constants ``p``)."""
+        if p is None:
+            p = self.scalars(xs[0])
+        return rk4_parts(self._ode_parts, p, tuple(xs), tuple(us))
+
+    def jac(self, x: Tensor, u: Tensor):
+        """(x_next, (A, B)) from one forward-mode pass with a unit seed per
+        input column, as the functor's ``jac`` runs them."""
+        n = self.nx + self.nu
+        seeds = torch.eye(n, dtype=x.dtype, device=x.device).reshape(
+            (n, n) + (1,) * (x.ndim - 1))
+        xu = torch.cat([x, u], dim=-1)
+        duals = [Dual(xu[..., i], seeds[:, i].expand((n,) + xu.shape[:-1]))
+                 for i in range(n)]
+        out = self.step_parts(duals[:self.nx], duals[self.nx:])
+        x_next = torch.stack([o.v for o in out], dim=-1)
+        J = torch.stack([o.d for o in out], dim=-1)  # [n, ..., nx]
+        J = J.movedim(0, -1)  # [..., nx, n]
+        return x_next, (J[..., :self.nx].contiguous(),
+                        J[..., self.nx:].contiguous())
+
+
+class Cartpole1L(_Cartpole):
+    """State (x, θ, ẋ, θ̇); defaults dt 0.01, max_force 500, M 0.5, m 0.2,
+    l 0.5, g 9.81 (a point mass m at the pole's end)."""
+
+    PARAMS = ("m00", "ml", "ml2", "mgl", "dt", "h", "dt6")
+
+    def __init__(self, dt: float = 0.01, M: float = 0.5, m: float = 0.2,
+                 l: float = 0.5, g: float = 9.81, max_force: float = 500.0):
+        self.dt, self.M, self.m, self.l, self.g = dt, M, m, l, g
+        self.max_force = max_force
+        self.nx, self.nu, self.nq = 4, 1, 2
+
+    def kernel_params(self):
+        M, m, l, g, dt = self.M, self.m, self.l, self.g, self.dt
+        return (M + m, m * l, m * l * l, m * g * l, dt, 0.5 * dt, dt / 6.0)
+
+    def _ode_parts(self, p, xs, us):
+        """q̈ from M = [[M+m, m l cosθ], [m l cosθ, m l²]] and b = (u + m l
+        θ̇² sinθ, −m g l sinθ)."""
+        _, th, xd, thd = xs
+        s, c = th.sin(), th.cos()
+        m01 = p["ml"] * c
+        b0 = us[0] + p["ml"] * (thd * thd) * s
+        b1 = -(p["mgl"] * s)
+        inv0 = 1.0 / p["m00"]
+        f = m01 * inv0
+        a11 = p["ml2"] - f * m01
+        b1 = b1 - f * b0
+        qdd1 = b1 / a11
+        qdd0 = (b0 - m01 * qdd1) / p["m00"]
+        return (xd, thd, qdd0, qdd1)
+
+    def action_clip(self, u: Tensor) -> Tensor:
+        return torch.clamp(u, -self.max_force, self.max_force)
+
+    def state_clip(self, x: Tensor) -> Tensor:
+        """The pole angle wrapped to [0, 2π)."""
+        return torch.cat([x[..., :1], angle_normalize_2pi(x[..., 1:2]),
+                          x[..., 2:]], dim=-1)
+
+
+class Cartpole2L(_Cartpole):
+    """State (x, θ₁, θ₂, ẋ, θ̇₁, θ̇₂), θ from down, θ₂ relative to link 1.
+    Mass points m₁, m₂ at ``com`` of each link's length and a rotational
+    inertia ``link_inertia`` of each link about its absolute rate. The
+    default is the reference's analytic model (point masses at the link
+    midpoints, cart M 5, m₁ m₂ 1, l₁ l₂ 1); ``pkg()`` its CasADi package
+    (masses at the link tips, inertia 1, cart M 10)."""
+
+    PARAMS = ("m00", "k1", "k2", "k3", "k3x2", "m11c", "m12c", "gk1", "gk2",
+              "dt", "h", "dt6")
+
+    def __init__(self, dt: float = 0.05, M: float = 5.0, m1: float = 1.0,
+                 m2: float = 1.0, l1: float = 1.0, l2: float = 1.0,
+                 g: float = 9.81, max_force: float = 500.0,
+                 com: float = 0.5, link_inertia: float = 0.0):
+        self.dt, self.M, self.m1, self.m2 = dt, M, m1, m2
+        self.l1, self.l2, self.g = l1, l2, g
+        self.max_force = max_force
+        self.com, self.link_inertia = com, link_inertia
+        self.nx, self.nu, self.nq = 6, 1, 3
+
+    @classmethod
+    def pkg(cls, dt: float = 0.05, max_force: float = 500.0) -> "Cartpole2L":
+        """The reference's live 2-link robot (its CasADi C package)."""
+        return cls(dt=dt, M=10.0, com=1.0, link_inertia=1.0,
+                   max_force=max_force)
+
+    def kernel_params(self):
+        M, m1, m2, l1, g = self.M, self.m1, self.m2, self.l1, self.g
+        r1, r2 = self.com * self.l1, self.com * self.l2
+        inertia = self.link_inertia
+        k1, k2, k3 = m1 * r1 + m2 * l1, m2 * r2, m2 * l1 * r2
+        return (M + m1 + m2, k1, k2, k3, 2.0 * k3,
+                m1 * r1 * r1 + m2 * (l1 * l1 + r2 * r2) + 2.0 * inertia,
+                m2 * r2 * r2 + inertia, g * k1, g * k2,
+                self.dt, 0.5 * self.dt, self.dt / 6.0)
+
+    def _ode_parts(self, p, xs, us):
+        """q̈ from, with c₁ = cos θ₁, c₂ = cos θ₂, c₁₂ = cos(θ₁ + θ₂) (s
+        the sines), ω₁₂ = θ̇₁ + θ̇₂, k₁ = m₁r₁ + m₂l₁, k₂ = m₂r₂, k₃ =
+        m₂l₁r₂ (r the mass points' distances along the links, I the link
+        inertia):
+
+            M = [[M+m₁+m₂, k₁c₁ + k₂c₁₂, k₂c₁₂],
+                 [·, m₁r₁² + m₂(l₁² + r₂²) + 2I + 2k₃c₂, m₂r₂² + I + k₃c₂],
+                 [·, ·, m₂r₂² + I]]
+            b = (u + k₁s₁θ̇₁² + k₂s₁₂ω₁₂²,
+                 k₃s₂θ̇₂(2θ̇₁ + θ̇₂) − g(k₁s₁ + k₂s₁₂),
+                 −k₃s₂θ̇₁² − g k₂s₁₂)."""
+        _, th1, th2, xd, w1, w2 = xs
+        s1, c1 = th1.sin(), th1.cos()
+        s2, c2 = th2.sin(), th2.cos()
+        phi = th1 + th2
+        sp, cp = phi.sin(), phi.cos()
+        w12 = w1 + w2
+        m01 = p["k1"] * c1 + p["k2"] * cp
+        m02 = p["k2"] * cp
+        m11 = p["m11c"] + p["k3x2"] * c2
+        m12 = p["m12c"] + p["k3"] * c2
+        m22 = p["m12c"]
+        k3s2 = p["k3"] * s2
+        gk2sp = p["gk2"] * sp
+        b0 = us[0] + p["k1"] * s1 * (w1 * w1) + p["k2"] * sp * (w12 * w12)
+        b1 = k3s2 * w2 * (2 * w1 + w2) - (p["gk1"] * s1 + gk2sp)
+        b2 = -(k3s2 * (w1 * w1)) - gk2sp
+        # M q̈ = b, no pivoting (M is SPD)
+        inv0 = 1.0 / p["m00"]
+        f = m01 * inv0
+        a11 = m11 - f * m01
+        a12 = m12 - f * m02
+        b1 = b1 - f * b0
+        f = m02 * inv0
+        a21 = m12 - f * m01
+        a22 = m22 - f * m02
+        b2 = b2 - f * b0
+        inv1 = 1.0 / a11
+        f = a21 * inv1
+        a22 = a22 - f * a12
+        b2 = b2 - f * b1
+        qdd2 = b2 / a22
+        qdd1 = (b1 - a12 * qdd2) / a11
+        qdd0 = (b0 - m01 * qdd1 - m02 * qdd2) / p["m00"]
+        return (xd, w1, w2, qdd0, qdd1, qdd2)
+
+    def action_clip(self, u: Tensor) -> Tensor:
+        return torch.clamp(u, -self.max_force, self.max_force)
+
+    def state_clip(self, x: Tensor) -> Tensor:
+        """θ₁ wrapped to [0, 2π) and θ₂ to [−π, π): θ₂'s goal, 0, lies in
+        the middle of its branch, so a tracking cost centred on the goal
+        sees no 2π seam there (the reference wraps both to [0, 2π))."""
+        return torch.cat([x[..., :1], angle_normalize_2pi(x[..., 1:2]),
+                          angle_normalize(x[..., 2:3]), x[..., 3:]], dim=-1)
+
+
+class CartpoleCosSin(DynamicsModel):
+    """Five-state (x, ẋ, cosθ, sinθ, θ̇) cartpole: the classic gym physics
+    (a half-pole's 4/3 moment factor), Euler steps, θ from upright, the
+    force clipped inside the step."""
+
+    def __init__(self, dt: float = 0.05, g: float = 9.8,
+                 masscart: float = 1.0, masspole: float = 0.1,
+                 length: float = 0.5, force_mag: float = 100.0):
+        self.dt, self.g = dt, g
+        self.masscart, self.masspole = masscart, masspole
+        self.length, self.force_mag = length, force_mag
+        self.nx, self.nu, self.nq = 5, 1, 3
+
+    def step(self, x: Tensor, u: Tensor) -> Tensor:
+        g, mc, mp, l = self.g, self.masscart, self.masspole, self.length
+        total = mc + mp
+        pml = mp * l
+        f = torch.clamp(u[..., 0], -self.force_mag, self.force_mag)
+        pos, dpos, cos_th, sin_th, dth = x.unbind(-1)
+        th = torch.atan2(sin_th, cos_th)
+        cart_in = (f + pml * dth ** 2 * sin_th) / total
+        th_acc = (g * sin_th - cos_th * cart_in) / (
+            l * (4.0 / 3.0 - mp * cos_th ** 2 / total))
+        x_acc = cart_in - pml * th_acc * cos_th / total
+        pos = pos + self.dt * dpos
+        dpos = dpos + self.dt * x_acc
+        th = th + self.dt * dth
+        dth = dth + self.dt * th_acc
+        return torch.stack([pos, dpos, torch.cos(th), torch.sin(th), dth],
+                           dim=-1)
+
+    def action_clip(self, u: Tensor) -> Tensor:
+        return torch.clamp(u, -self.force_mag, self.force_mag)
+

@@ -9,38 +9,94 @@ the other. Each kernel launch adds one to ``launches``.
 The kernel runs each batch element on a group of G lanes (``GROUPS``) that
 share its line search; the outputs are bit-identical at every G.
 ``choose_group`` is the rule that picks G from the batch.
+
+``BUILT`` names the models the kernel is built for, each with its source,
+its functor's constants and its horizons per dtype: the pendulum, the
+integrator with one position (nx 2), ``Cartpole1L`` and ``Cartpole2L`` (the
+default model and ``.pkg()``). Another model, shape, horizon or dtype
+raises; the plain version takes any model with ``step`` and ``jac``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+import dataclasses
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from diff_qp_mpc_tpu_torch.core.types import Bounds, DiagQuadCost, Lambdas
-from diff_qp_mpc_tpu_torch.models.pendulum import Pendulum
+from diff_qp_mpc_tpu_torch.models import (
+    Cartpole1L,
+    Cartpole2L,
+    Integrator,
+    Pendulum,
+)
 from diff_qp_mpc_tpu_torch.ops import almerit, btsolve, newton_al
 from diff_qp_mpc_tpu_torch.utils import cuda_build
 
 Tensor = torch.Tensor
 
-#: horizons with a kernel instantiation, per dtype
-HORIZONS = {torch.float32: (5, 10), torch.float64: (5,)}
+
+@dataclasses.dataclass(frozen=True)
+class Built:
+    """One model's kernel: ``csrc/<library>.cu`` exports ``al_fused_<name>_
+    f32``/``_f64`` and their ``_resident_threads_`` queries; ``params``
+    folds the model's constants in double precision, in the order of its
+    functor's ``make``; ``horizons`` per dtype have an instantiation."""
+
+    library: str
+    name: str
+    nx: int
+    nu: int
+    params: Callable[[object], Tuple[float, ...]]
+    horizons: Mapping[torch.dtype, Tuple[int, ...]]
+
+    def symbol(self, dtype: torch.dtype, resident: bool = False) -> str:
+        bits = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+        return f"al_fused_{self.name}_{'resident_threads_' * resident}{bits}"
+
+
+_T5_10 = {torch.float32: (5, 10), torch.float64: (5,)}
+#: the models with a kernel, by type
+BUILT = {
+    Pendulum: Built("al_fused", "pendulum", 2, 1,
+                    # as the reference folds its Python constants
+                    lambda m: (m.dt, m.m * m.g * m.l, m.m * m.l ** 2),
+                    _T5_10),
+    Integrator: Built("al_fused_integrator", "integrator", 2, 1,
+                      lambda m: (m.dt,),
+                      {torch.float32: (5,), torch.float64: (5,)}),
+    Cartpole1L: Built("al_fused_cartpole1l", "cartpole1l", 4, 1,
+                      lambda m: m.kernel_params(), _T5_10),
+    Cartpole2L: Built("al_fused_cartpole2l", "cartpole2l", 6, 1,
+                      lambda m: m.kernel_params(), _T5_10),
+}
+#: the kernels' sources, for a build of them all
+LIBRARIES = tuple(b.library for b in BUILT.values())
 #: lanes per batch element the kernel takes (a power of two dividing a warp)
 GROUPS = (1, 2, 4, 8, 16, 32)
 #: kernel launches since the count was last set to 0
 launches = 0
 
-_SYMBOLS = {torch.float32: "al_fused_pendulum_f32",
-            torch.float64: "al_fused_pendulum_f64"}
-_RESIDENT_SYMBOLS = {
-    torch.float32: "al_fused_pendulum_resident_threads_f32",
-    torch.float64: "al_fused_pendulum_resident_threads_f64"}
 # the line search's running minimum starts at float32's max in every dtype,
 # as the reference kernel's does
 _F32_MAX = float(torch.finfo(torch.float32).max)
-# resident threads per (device index, dtype, T, G), read from the card once
+# resident threads per (model, device index, dtype, T, G), read once
 _resident: dict = {}
+
+
+def built_for(model) -> Built:
+    """The kernel of ``model``; NotImplementedError, naming what is built,
+    for a model without one."""
+    built = BUILT.get(type(model))
+    if built is None or (model.nx, model.nu) != (built.nx, built.nu):
+        have = ", ".join(f"{t.__name__} (nx {b.nx}, nu {b.nu})"
+                         for t, b in BUILT.items())
+        raise NotImplementedError(
+            f"no fused kernel for {type(model).__name__} with "
+            f"nx {model.nx}, nu {model.nu} (built: {have})")
+    return built
+
 
 Outputs = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]
 
@@ -180,14 +236,13 @@ def fused_al_solve_reference(model, Cd: Tensor, c: Tensor, x0: Tensor,
 
 def _check(model, Cd, c, x0, u_lo, u_hi, x_init, u_init, lam_dyn, lam_hi,
            lam_lo, rho0):
-    if not isinstance(model, Pendulum):
-        raise NotImplementedError(
-            f"no fused kernel for {type(model).__name__} (built: Pendulum)")
+    built = built_for(model)
     B, T, n = Cd.shape
     nx, nu = model.nx, model.nu
-    if n != nx + nu or T not in HORIZONS.get(Cd.dtype, ()):
-        raise ValueError(f"no kernel for T={T}, n={n}, {Cd.dtype} "
-                         f"(built: n=3, T by dtype {HORIZONS})")
+    if n != nx + nu or T not in built.horizons.get(Cd.dtype, ()):
+        raise ValueError(f"no {built.name} kernel for T={T}, n={n}, "
+                         f"{Cd.dtype} (built: n={nx + nu}, T by dtype "
+                         f"{dict(built.horizons)})")
     if len(u_lo) != nu or len(u_hi) != nu:
         raise ValueError(f"expected {nu} bounds, got {u_lo}, {u_hi}")
     shapes = {"c": (c, (B, T, n)), "x0": (x0, (B, nx)),
@@ -205,21 +260,22 @@ def _check(model, Cd, c, x0, u_lo, u_hi, x_init, u_init, lam_dyn, lam_hi,
             raise ValueError(f"{name} is on {t.device}, expected {Cd.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    return B, T, n, nx, nu
+    return built, B, T, n, nx, nu
 
 
-def resident_threads(dtype: torch.dtype, T: int,
-                     device: torch.device) -> Dict[int, int]:
-    """Threads of the kernel for (dtype, T) that ``device`` holds resident
-    at once, per G of ``GROUPS`` (CUDA's occupancy calculator at each G
-    instantiation's register count)."""
+def resident_threads(dtype: torch.dtype, T: int, device: torch.device,
+                     model=None) -> Dict[int, int]:
+    """Threads of ``model``'s kernel (default the pendulum's) for (dtype, T)
+    that ``device`` holds resident at once, per G of ``GROUPS`` (CUDA's
+    occupancy calculator at each G instantiation's register count)."""
+    built = built_for(Pendulum() if model is None else model)
     index = torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
-    key = (index, dtype, T)
+    key = (built.name, index, dtype, T)
     if key not in _resident:
-        lib = cuda_build.load("al_fused")
-        fn = getattr(lib, _RESIDENT_SYMBOLS[dtype])
+        lib = cuda_build.load(built.library)
+        fn = getattr(lib, built.symbol(dtype, resident=True))
         fn.argtypes = [ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
@@ -234,12 +290,28 @@ def resident_threads(dtype: torch.dtype, T: int,
     return _resident[key]
 
 
+def call_entry(fn, tensors, B, log2G, T, al_iter, n_newton, n_ls,
+               rho_factor, rho_max, reg, params, u_lo, u_hi, stream) -> int:
+    """Call ``fn``, an entry point of AL_FUSED_ENTRY (csrc/
+    al_fused_common.cuh), on ``tensors`` (Cd, c, x0, x_init, u_init,
+    lam_dyn, lam_hi, lam_lo, rho0, then the outputs w, lam_dyn, lam_hi,
+    lam_lo, res); returns its error code."""
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 \
+        + [ctypes.c_double] * 3 + [ctypes.POINTER(ctypes.c_double)] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dbl = lambda v: (ctypes.c_double * len(v))(*(float(a) for a in v))
+    return fn(*(t.data_ptr() for t in tensors), B, log2G, T, al_iter,
+              n_newton, n_ls, float(rho_factor), float(rho_max), float(reg),
+              dbl(params), dbl(u_lo), dbl(u_hi), stream)
+
+
 def _launch(model, Cd, c, x0, u_lo, u_hi, x_init, u_init, al_iter, n_newton,
             n_ls, rho_factor, rho_max, reg, lam_dyn, lam_hi, lam_lo,
             rho0, group=None) -> Outputs:
     global launches
-    B, T, n, nx, nu = _check(model, Cd, c, x0, u_lo, u_hi, x_init, u_init,
-                             lam_dyn, lam_hi, lam_lo, rho0)
+    built, B, T, n, nx, nu = _check(model, Cd, c, x0, u_lo, u_hi, x_init,
+                                    u_init, lam_dyn, lam_hi, lam_lo, rho0)
     w = torch.empty_like(Cd)
     lamd_o = torch.empty_like(lam_dyn)
     lamh_o = torch.empty_like(lam_hi)
@@ -248,30 +320,20 @@ def _launch(model, Cd, c, x0, u_lo, u_hi, x_init, u_init, al_iter, n_newton,
     if B == 0:
         return w, lamd_o, lamh_o, laml_o, res
     if group is None:
-        group = choose_group(B, resident_threads(Cd.dtype, T, Cd.device))
+        group = choose_group(B, resident_threads(Cd.dtype, T, Cd.device,
+                                                 model))
     if B * group >= 2 ** 31:
         raise ValueError(f"B·G = {B}·{group} threads exceed the kernel's "
                          "int indexing")
-    lib = cuda_build.load("al_fused")
-    fn = getattr(lib, _SYMBOLS[Cd.dtype])
-    dbl3 = ctypes.c_double * 3
-    dblu = ctypes.c_double * nu
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 \
-        + [ctypes.c_double] * 3 + [ctypes.POINTER(ctypes.c_double)] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    # folded in double precision as the reference's Python constants are
-    params = dbl3(model.dt, model.m * model.g * model.l, model.m * model.l ** 2)
+    lib = cuda_build.load(built.library)
     stream = torch.cuda.current_stream(Cd.device).cuda_stream
     with torch.cuda.device(Cd.device):
-        err = fn(Cd.data_ptr(), c.data_ptr(), x0.data_ptr(),
-                 x_init.data_ptr(), u_init.data_ptr(), lam_dyn.data_ptr(),
-                 lam_hi.data_ptr(), lam_lo.data_ptr(), rho0.data_ptr(),
-                 w.data_ptr(), lamd_o.data_ptr(), lamh_o.data_ptr(),
-                 laml_o.data_ptr(), res.data_ptr(), B,
-                 group.bit_length() - 1, T, al_iter, n_newton, n_ls,
-                 rho_factor, rho_max, reg, params, dblu(*u_lo), dblu(*u_hi),
-                 stream)
+        err = call_entry(getattr(lib, built.symbol(Cd.dtype)),
+                         (Cd, c, x0, x_init, u_init, lam_dyn, lam_hi, lam_lo,
+                          rho0, w, lamd_o, lamh_o, laml_o, res), B,
+                         group.bit_length() - 1, T, al_iter, n_newton, n_ls,
+                         rho_factor, rho_max, reg, built.params(model), u_lo,
+                         u_hi, stream)
     cuda_build.check(lib, err, "al_fused kernel launch")
     launches += 1
     return w, lamd_o, lamh_o, laml_o, res

@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -20,8 +21,10 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: seconds from the start of the last ``build`` that compiled ``name`` to
+#: the end of its nvcc process
+build_seconds: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -46,28 +49,37 @@ def library_path(name: str) -> Path:
 
 def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile the named sources that have no current library, all nvcc
-    processes at once. Returns each name's compiler log (ptxas register and
-    spill report); raises with the log if a build fails."""
+    processes at once (each one's time in ``build_seconds``). Returns each
+    name's compiler log (ptxas register and spill report); raises with the
+    log if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
         log = out.with_suffix(".log")
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, out, log)
+        with open(log, "w") as f:  # the compiler writes its report there
+            procs[name] = (subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / f"{name}.cu")],
+                stdout=f, stderr=subprocess.STDOUT), tmp, out, log)
     failed = []
-    for name, (proc, tmp, out, log) in procs.items():
-        text, _ = proc.communicate()
-        log.write_text(text)
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{text}")
-        else:
-            os.replace(tmp, out)
+    while procs:
+        for name, (proc, tmp, out, log) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            build_seconds[name] = time.perf_counter() - t0
+            del procs[name]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu:\n"
+                              f"{log.read_text()}")
+                log.unlink()
+            else:
+                os.replace(tmp, out)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("\n".join(failed))
     logs = {}

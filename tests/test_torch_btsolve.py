@@ -106,3 +106,21 @@ def test_kernel_input_checks(case):
         err = ValueError  # CPU tensors never reach the kernel
     with pytest.raises(err):
         btsolve_cuda._check(D, O, b)
+
+
+def test_cp1_al_newton_systems_plain_matches_dense():
+    """The cp1 AL Newton systems (T 10, n 5) that chip_smoke.py holds K1 on
+    (``kernel_layouts.al_systems``, built on the CPU at ρ 1): the plain
+    version against a dense float64 solve of the same matrix plus reg·I
+    (cond ≲ ρ/reg = 1e7), relative to max|x|."""
+    from diff_qp_mpc_tpu_torch.benchmarks import kernel_layouts
+
+    reg = kernel_layouts.AL_BUDGET["reg"]
+    D, O, g, ct = kernel_layouts.al_systems(8, 1.0, device="cpu",
+                                            model_name="cartpole1l", T_=10)
+    assert D.shape == (8, 10, 5, 5) and O.shape == (8, 9, 5, 5)
+    H = btsolve.to_dense(D, O) + reg * torch.eye(50, dtype=D.dtype)
+    for rhs in (g, ct):
+        x = btsolve.batched_factor_solve(D, O, rhs, reg)
+        ref = torch.linalg.solve(H, rhs.reshape(8, 50, 1)).reshape(x.shape)
+        assert float((x - ref).abs().max() / ref.abs().max()) <= 1e-8

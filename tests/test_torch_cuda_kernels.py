@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from diff_qp_mpc_tpu_torch.benchmarks import k2_models
 from diff_qp_mpc_tpu_torch.benchmarks.kernel_layouts import K1_TOL
 from diff_qp_mpc_tpu_torch.core.types import ALState, Bounds, DiagQuadCost
 from diff_qp_mpc_tpu_torch.models import Pendulum
@@ -69,7 +70,10 @@ K1_CASES = sorted({(dt, n, T, lay)
                    for n, T in shapes
                    for lay in btsolve_cuda.LAYOUTS}
                   | {(dt, n, 5, "stream") for dt in K1_TOL
-                     for n in btsolve_cuda.BLOCK_SIZES}, key=str)
+                     for n in btsolve_cuda.BLOCK_SIZES}
+                  # the cartpoles' shapes at T 10 (n 5 cp1, n 7 cp2)
+                  | {(dt, n, 10, "stream") for dt in K1_TOL
+                     for n in (5, 7)}, key=str)
 
 
 @pytest.mark.parametrize("dtype,n,T,layout", K1_CASES, ids=str)
@@ -479,6 +483,20 @@ def test_k1_on_al_newton_systems(cuda):
                                            * r["max_rel_err_plain"])
 
 
+def test_k1_on_cp1_al_newton_systems(cuda):
+    """As above on cp1's own AL Newton systems (T 10, n 5, B 256), the
+    shape of cp1's scan closed loop and of its fused training's
+    backward."""
+    from diff_qp_mpc_tpu_torch.benchmarks import kernel_layouts
+
+    rows = kernel_layouts.k1_al_systems(B=256, model_name="cartpole1l",
+                                        T_=10)
+    assert {(r["n"], r["T"]) for r in rows} == {(5, 10)}
+    for r in rows:
+        assert r["max_rel_err_kernel"] <= (kernel_layouts.K1_AL_RATIO
+                                           * r["max_rel_err_plain"])
+
+
 def _tracking_cost(B, T, device, seed=0):
     rng = np.random.RandomState(seed)
     x0 = rng.uniform([-np.pi, -1.0], [np.pi, 1.0], (B, 2))
@@ -563,3 +581,119 @@ def test_trajqp_layer_backward_is_one_k3_launch(cuda, kernel):
     for g_cpu, g_card in zip(*grads):
         assert float((g_card - g_cpu).abs().max()
                      / g_cpu.abs().max()) <= 1e-9
+
+
+# ------------------------------------ K2 on the integrator, cartpoles ----
+# k2_models.problem: seeded tracking problems of each model's env; check
+# raises unless the kernel agrees with its plain version (TOL per element,
+# SHARE_LIMIT of elements outside it) and every G is bit-identical to G 1
+K2_MODEL_T5 = [(name, torch.float32) for name in k2_models.ENVS]
+
+
+@pytest.mark.parametrize("name,T,dtype", k2_models.CASES, ids=str)
+def test_al_fused_models_match_plain(cuda, name, T, dtype):
+    before = al_fused_cuda.launches
+    row = k2_models.check(name, T, dtype, 64)
+    assert al_fused_cuda.launches == before + len(al_fused_cuda.GROUPS)
+    assert all(row["identical_to_g1"].values())
+
+
+@pytest.mark.parametrize("B", (1, 3, 65))
+@pytest.mark.parametrize("group", [None, 32])
+@pytest.mark.parametrize("name,dtype", K2_MODEL_T5, ids=str)
+def test_al_fused_models_edge_batches(cuda, name, dtype, B, group):
+    args = k2_models.problem(name, B, 5, dtype, seed=B)
+    out = al_fused_cuda.fused_al_solve(*args, **K2_KW, group=group)
+    ref = al_fused_cuda.fused_al_solve_reference(*args, **K2_KW)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    el = k2_models.element_errors(out, ref)
+    assert int((el > k2_models.TOL[dtype]).sum()) == 0
+    assert _bits_equal(out, al_fused_cuda.fused_al_solve(*args, **K2_KW,
+                                                         group=1))
+
+
+@pytest.mark.parametrize("B,poisoned", ISOLATION_CASES)
+@pytest.mark.parametrize("poison", [float("nan"), 1e30])
+@pytest.mark.parametrize("name", list(k2_models.ENVS))
+def test_al_fused_models_isolate_elements(cuda, name, B, poisoned, poison):
+    """A non-finite or huge input of some elements leaves every other
+    element's outputs bit-identical."""
+    model, *rest = k2_models.problem(name, B, 5, torch.float32, seed=4)
+    Cd, c, x0, u_lo, u_hi, xi, ui = rest
+
+    def run(ts):
+        Cd_, c_, x0_, xi_, ui_ = ts
+        return al_fused_cuda.fused_al_solve(model, Cd_, c_, x0_, u_lo, u_hi,
+                                            xi_, ui_, **K2_KW)
+
+    clean = run([Cd, c, x0, xi, ui])
+    bad = [a.clone() for a in (Cd, c, x0, xi, ui)]
+    for a in bad:
+        a[list(poisoned)] = poison
+    dirty = run(bad)
+    keep = _unpoisoned(B, poisoned, cuda)
+    for a, b in zip(clean, dirty):
+        assert torch.equal(a[keep], b[keep])
+
+
+def test_al_fused_refuses_unbuilt_models(cuda):
+    """An unbuilt (model, T, dtype) or model raises; no kernel launches."""
+    from diff_qp_mpc_tpu_torch.models import CartpoleCosSin, Integrator
+
+    before = al_fused_cuda.launches
+    for name, T, dtype in (("cartpole1l", 10, torch.float64),
+                           ("cartpole2l", 7, torch.float32),
+                           ("integrator", 10, torch.float32)):
+        args = k2_models.problem(name, 4, T, dtype, seed=0)
+        with pytest.raises(ValueError):
+            al_fused_cuda.fused_al_solve(*args)
+    args = list(k2_models.problem("integrator", 4, 5, torch.float32, 0))
+    for model in (Integrator(nx=4, nu=2), CartpoleCosSin()):
+        with pytest.raises(NotImplementedError):
+            al_fused_cuda.fused_al_solve(model, *args[1:])
+    assert al_fused_cuda.launches == before
+
+
+@pytest.mark.parametrize("name", list(k2_models.ENVS))
+def test_solve_fused_stateful_models_launch_once_per_al_iteration(cuda,
+                                                                  name):
+    model, Cd, c, x0, u_lo, u_hi, xi, ui = k2_models.problem(
+        name, 8, 5, torch.float32, seed=0)
+    st = ALState.init(8, 5, model.nx, model.nu, dtype=torch.float32,
+                      device=cuda)
+    before = al_fused_cuda.launches
+    x, u, st, stats = al_mpc.solve_fused_stateful(
+        model, DiagQuadCost(Cd=Cd, c=c), x0, Bounds(u_lo=u_lo, u_hi=u_hi),
+        st, al_mpc.ALConfig(al_iter=4))
+    assert al_fused_cuda.launches == before + 4
+    assert torch.isfinite(x).all() and torch.isfinite(stats.dyn_res).all()
+
+
+def test_cartpole1l_f32_breakdown_through_k2(cuda):
+    """The JAX package's float32 breakdown regression (its
+    tests/test_al_fused.py, Cartpole1L at dt 0.01) through K2: al_iter 8
+    with ρ up to 1e6, reg 1e-6. No NaN in the forward or in the gradient
+    (one K1 launch), and dyn_res < 1e-4."""
+    from diff_qp_mpc_tpu_torch.models import Cartpole1L
+
+    B, T = 32, 5
+    rng = np.random.RandomState(0)
+    goal = np.array([0.0, np.pi, 0.0, 0.0, 0.0])
+    x0 = torch.tensor(goal[None, :4] + rng.uniform(-0.05, 0.05, (B, 4)),
+                      dtype=torch.float32, device=cuda)
+    Cd = torch.tensor([1.0, 10.0, 0.1, 0.1, 1e-4], device=cuda).expand(B, T,
+                                                                        5)
+    c = (-Cd * torch.tensor(goal, dtype=torch.float32, device=cuda)
+         ).clone().requires_grad_()
+    cfg = al_mpc.ALConfig(al_iter=8, n_newton=4, n_ls=20, rho_max=1e6,
+                          reg=1e-6)
+    before = (al_fused_cuda.launches, btsolve_cuda.launches)
+    x, u, res = al_mpc.solve_fused(
+        Cartpole1L(), DiagQuadCost(Cd=Cd, c=c), x0,
+        Bounds(u_lo=(-100.0,), u_hi=(100.0,)), cfg,
+        u_init=torch.zeros(B, T, 1, device=cuda))
+    (u ** 2).sum().backward()
+    assert (al_fused_cuda.launches, btsolve_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.isfinite(u).all() and torch.isfinite(c.grad).all()
+    assert float(res.mean()) < 1e-4

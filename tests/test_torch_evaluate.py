@@ -160,3 +160,77 @@ def test_noise_modes(noise_type):
     assert 0.2 < 1.0 - kept.double().mean() < 0.4
     if noise_type in (4, 6):  # whole state vectors drop together
         assert torch.equal(kept[..., 0], kept[..., 1])
+
+
+# ------------------------------------ the integrator's and cartpoles' ----
+CP1 = "logs/deqmpc_cp1_fused_v10_T10/ckpt_best.msgpack"
+INTEGRATOR = "logs/deqmpc_integrator_mpc_T5_bsz256/ckpt.msgpack"
+CP2_V8 = "logs/deqmpc_cp2_fused_v8_T10/ckpt_best.msgpack"
+
+
+def test_new_checkpoints_adopt_their_flags():
+    """Each checkpoint's meta.json gives its env and solver: the env's
+    variant, horizon, AL budget and penalty cap, the tracking weight, and
+    the warm-start carry (the integrator's meta predates solver_carry and
+    was trained on the scan path: carried)."""
+    args = evaluate.parse_args(["--ckpt", CP1])
+    assert (args.env, args.stabilization, args.T, args.qp_iter,
+            args.deq_out_type, args.solver_carry, args.fused) == (
+        "cartpole1link", False, 10, 4, 1, "on", False)
+    args = evaluate.parse_args(["--ckpt", INTEGRATOR])
+    assert (args.env, args.T, args.qp_iter, args.deq_out_type,
+            args.solver_carry) == ("integrator", 5, 2, 2, "on")
+    args = evaluate.parse_args(["--ckpt", CP2_V8, "--fused"])
+    assert (args.env, args.stabilization, args.T, args.qp_iter,
+            args.rho_max, args.al_reg, args.tracking_r) == (
+        "cartpole2link", True, 10, 4, 1e4, 1e-6, 0.01)
+
+
+@pytest.mark.parametrize("name,kwargs,expert", [
+    ("integrator", {}, "mpc"), ("cartpole1link", {}, "sac"),
+    ("cartpole1link", {"stabilization": True}, "mpc"),
+    ("cartpole2link", {"stabilization": True}, "mpc")])
+def test_default_data_paths_exist(name, kwargs, expert):
+    """train's default expert pickle, from the env's spec_id, is committed
+    for each new env (as the JAX trainer names it)."""
+    import os
+
+    from diff_qp_mpc_tpu.learning.train import (
+        default_data_path as jax_default_data_path,
+    )
+    from diff_qp_mpc_tpu_torch.envs import make_env
+    from diff_qp_mpc_tpu_torch.learning import train
+
+    args = train.build_parser().parse_args(["--env", name,
+                                            "--expert_type", expert])
+    env = make_env(name, **kwargs)
+    path = train.default_data_path(args, env)
+    assert path == jax_default_data_path(args, jax_make_env(name, **kwargs))
+    assert os.path.exists(path), path
+
+
+def test_comma_separated_data_is_concatenated():
+    """cp1's training data, two pickles in one --data: each keeps its
+    episode ends."""
+    from diff_qp_mpc_tpu_torch.learning import data
+
+    a, b = ("data/expert_traj_sac-Cartpole1l-v0_new.pkl",
+            "data/expert_traj_mpc-Cartpole1l-v0-hold_new.pkl")
+    both = data.load_expert_pickle(f"{a},{b}")
+    da, db = data.load_expert_pickle(a), data.load_expert_pickle(b)
+    for k in ("state", "action", "mask"):
+        np.testing.assert_array_equal(both[k],
+                                      np.concatenate([da[k], db[k]]))
+    assert both["state"].shape[1] == 4
+
+
+@pytest.mark.parametrize("ckpt,flags", [(CP1, ["--fused"]),
+                                        (INTEGRATOR, []),
+                                        (CP2_V8, ["--fused"])],
+                         ids=["cp1-fused", "integrator-scan", "cp2-fused"])
+def test_new_checkpoints_evaluate_on_cpu(ckpt, flags):
+    """The evaluate entry point on each new checkpoint, kernels through
+    their plain versions: two episodes, three steps."""
+    m = evaluate.main(["--ckpt", ckpt, "--device", "cpu", "--episodes", "2",
+                       "--max_steps", "3", *flags])
+    assert m["steps_run"] == 3 and np.isfinite(m["mean_reward"])

@@ -62,6 +62,34 @@ def test_k2_bound_grows_with_the_sin_term():
         *args, sin_fp32_instr=flops.SINF_FP32_INSTR) > flops.k2_ops(*args)
 
 
+@pytest.mark.parametrize("model", flops.K2_MODELS)
+def test_k2_counts_per_model(model):
+    """K2's counts per model: the pendulum's PR 3 hand count (sins: one per
+    step, one per Jacobian), the integrator's, and the cartpoles' counted
+    from their functors' plain versions (pinned: a change to a functor's
+    arithmetic must show here and in the bound). The sin term keeps its
+    meaning: k2_ops_with_sin at one FP32 instruction a sin adds the sins."""
+    pinned = {"pendulum": (8, 9, 1, 1), "integrator": (4, 1, 0, 0),
+              "cartpole1l": (124, 855, 8, 80),
+              "cartpole2l": (342, 3262, 24, 336)}
+    assert flops._k2_model_counts(model) == pinned[model]
+    args = (10, 4, 1, 4, 4, 20)
+    assert flops.k2_ops_with_sin(*args, sin_fp32_instr=1, model=model) == \
+        flops.k2_ops(*args, model=model) + flops.k2_sin_evals(
+            10, 4, 4, 20, model=model)
+    if model == "pendulum":
+        T_, al_iter, n_newton, n_ls = 5, 2, 4, 20
+        assert flops.k2_sin_evals(T_, al_iter, n_newton, n_ls) == \
+            al_iter * (T_ - 1) * (2 + n_newton * (2 + n_ls)) + (T_ - 1)
+
+
+def test_functor_counts_do_not_depend_on_the_constants():
+    from diff_qp_mpc_tpu_torch.models import Cartpole2L
+
+    assert flops.functor_counts(Cartpole2L()) == \
+        flops.functor_counts(Cartpole2L.pkg())
+
+
 def test_problem_matches_jax():
     got = roofline_fused._problem(16, device="cpu")
     want = jax_roofline._problem(16)
