@@ -77,24 +77,31 @@ Phases, each of which raises on failure (there is no CPU fallback):
      the run's last steps, and the implicit-gradient guard's drops in each
      step.
  13. K1 at the shapes the new models' paths give it, (n, T) = (5, 5),
-     (5, 10), (7, 5) and (7, 10), B 8 (the float64 gradient check's), 64
-     (a closed loop's) and 256 (training's), float32 and float64, each
-     layout against its plain version within K1_TOL and timed; and K1 in
-     float32 on cp1's own AL Newton systems (T 10, B 256, ρ 1 … 1e6)
-     against float64, within K1_AL_RATIO of the plain float32 version's
-     error, as phase 10 holds the pendulum's;
- 14. K2 on the integrator and the cartpoles (benchmarks/k2_models.py):
-     every (model, T, dtype) it is built for against its plain version on
-     seeded tracking problems of the model's env, B 64 and 256 (float32:
-     each element within 1e-2 but for at most SHARE_LIMIT of them;
-     float64: every element within 3e-6, those beyond 1e-6 printed beside
-     the plain version's own change on them under one ulp of the inputs),
-     every group width bit-identical to G 1, timed in float32 at B 64 with
-     its bound;
+     (5, 10), (7, 5), (7, 10) and (16, 5), B 8 (the float64 gradient
+     check's), 64 (a closed loop's) and 256 (training's), float32 and
+     float64, each layout against its plain version within K1_TOL and
+     timed; and K1 in float32 on cp1's own AL Newton systems (T 10, B 256,
+     ρ 1 … 1e6) and the quadrotor's (T 5, B 128, ρ 1 … 1e4) against
+     float64, within K1_AL_RATIO of the plain float32 version's error, as
+     phase 10 holds the pendulum's;
+ 14. K2 on the integrator, the cartpoles and the quadrotor
+     (benchmarks/k2_models.py): every (model, T, dtype) it is built for
+     against its plain version on seeded tracking problems of the model's
+     env, B 64 and 256 (the quadrotor's hover problems at its checkpoint's
+     budget: B 64, 128 and 65, the edge of its two-element blocks);
+     float32: each element within 1e-2 but for at most SHARE_LIMIT of
+     them (the quadrotor: of the plain version's float64 result, but for
+     at most F32_SHARE_VS_F64); float64: every element within 3e-6, those
+     beyond 1e-6 printed beside the plain version's own change on them
+     under one ulp of the inputs; every group width bit-identical to G 1
+     (the quadrotor's kernel has one: a warp per element, its blocks in
+     shared memory), timed in float32 at B 64 (the quadrotor's also at
+     128) with its bound;
  15. one policy forward in float64 on the card against the CPU on the new
      models' paths: cp1 on the scan path (its checkpoint, T 10) and the
      fused path (T 5, seeded weights: K2 has no float64 T 10 instantiation),
-     the integrator's checkpoint on the scan path, cp2 v7 on the fused path;
+     the integrator's checkpoint on the scan path, cp2 v7 on the fused path,
+     the quadrotor's checkpoint on both paths;
      row by row within POLICY_ULP_FACTOR times the CPU's own largest change
      under one ulp of the state, measured in the run (the factor from
      policy_spread over seeds), but the rows that change is larger than
@@ -105,18 +112,26 @@ Phases, each of which raises on failure (there is no CPU fallback):
      integrator's on the scan path (K1, 48), each at a success rate of at
      least 0.95, 64 episodes; cp2 v7 and v8 on the fused path (K2, 18 and
      24), 64 episodes, printed beside the JAX package's 0.094 and 0.125 and
-     not gated; cp1 on the scan path (K1, 96) for 10 steps;
+     not gated; cp1 on the scan path (K1, 96) for 10 steps; the quadrotor
+     checkpoint on the fused path (K2, 12 a step: deq_iter 6 × qp_iter 2,
+     warm starts carried) over the env's 100 steps, 64 episodes, at a
+     success rate of at least QUAD_MIN_SUCCESS, printed beside the JAX
+     package's eval_fused.json, and on the scan path (K1, 48) for 10 steps;
  17. the float64 training gradient card vs CPU (B 8) on cp1 fused (T 5,
-     seeded weights) and the integrator's scan path, and training through
-     the train entry point with the cp1 checkpoint's meta.json flags (fused,
-     T 10, B 256, qp_iter 4, both expert pickles) cut to
-     CP1_TRAIN_PRETRAIN + CP1_TRAIN_DEQMPC steps, exactly 24 K2 and 6 K1
-     launches a DEQ-MPC step.
+     seeded weights), the integrator's scan path and the quadrotor's fused
+     path (its checkpoint; QUAD_GRAD_TOL), and training through the train
+     entry point with the cp1 checkpoint's meta.json flags (fused, T 10,
+     B 256, qp_iter 4, both expert pickles) cut to CP1_TRAIN_PRETRAIN +
+     CP1_TRAIN_DEQMPC steps, exactly 24 K2 and 6 K1 launches a DEQ-MPC
+     step, and with the quadrotor checkpoint's (fused, T 5, B 128, qp_iter
+     2, rho_max 1e4) cut to QUAD_TRAIN_PRETRAIN + QUAD_TRAIN_DEQMPC steps,
+     exactly 12 K2 and 6 K1 launches a DEQ-MPC step.
 Bounds: the larger of the bytes over the HBM rate and the operations over
 the float32 peak (diff_qp_mpc_tpu_torch/benchmarks/flops.py); each sin or
 cos counts as the 15 FP32 instructions of its fast path (SINF_FP32_INSTR).
-It prints one JSON line per kernel summary, the card's name and power limit,
-and as its last line {"ok": true, "device": {...}}.
+It prints one JSON line per kernel summary (the quadrotor's K2 on a row of
+its own beside the others), the card's name and power limit, and as its
+last line {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -265,20 +280,34 @@ CP1_CKPT = "logs/deqmpc_cp1_fused_v10_T10/ckpt_best.msgpack"
 INT_CKPT = "logs/deqmpc_integrator_mpc_T5_bsz256/ckpt.msgpack"
 CP2_V7_CKPT = "logs/deqmpc_cp2_fused_v7_corrected/ckpt_best.msgpack"
 CP2_V8_CKPT = "logs/deqmpc_cp2_fused_v8_T10/ckpt_best.msgpack"
+# the quadrotor's checkpoint (RexQuadrotor, T 5, deq_iter 6, hdim 128,
+# qp_iter 2, rho_max 1e4, al_reg null: 1e-7, solver_carry on, fused)
+QUAD_CKPT = "logs/deqmpc_quadrotor_fused_v8/ckpt_best.msgpack"
+QUAD_META = QUAD_CKPT + ".meta.json"
+# its closed loop's gate: the JAX package's 0.953 over 64 episodes
+# (eval_fused.json) less two binomial standard deviations at 64 episodes
+# (2·sqrt(0.953·0.047/64) = 0.053)
+QUAD_MIN_SUCCESS = 0.89
+QUAD_MAX_STEPS = 100  # QuadrotorEnv.max_steps
 # their closed loops: (name, checkpoint, flags, max steps, kernel, launches
 # per step, the JAX package's success rate over 64 episodes (its eval
-# JSONs), gated at MIN_SUCCESS). Launches per step: deq_iter 6 tracking
-# solves × on the fused path (warm starts carried: solver_carry on) one K2
-# launch per AL iteration (qp_iter), on the scan path qp_iter × n_newton 4
-# K1 solves
+# JSONs), the least success rate that passes, or None where the run is not
+# gated). Launches per step: deq_iter 6 tracking solves × on the fused path
+# (warm starts carried: solver_carry on) one K2 launch per AL iteration
+# (qp_iter), on the scan path qp_iter × n_newton 4 K1 solves
 MODEL_RUNS = (
-    ("cp1-fused", CP1_CKPT, ["--fused"], MAX_STEPS, "K2", 6 * 4, 1.0, True),
-    ("integrator-scan", INT_CKPT, [], MAX_STEPS, "K1", 6 * 2 * 4, 1.0, True),
+    ("cp1-fused", CP1_CKPT, ["--fused"], MAX_STEPS, "K2", 6 * 4, 1.0,
+     MIN_SUCCESS),
+    ("integrator-scan", INT_CKPT, [], MAX_STEPS, "K1", 6 * 2 * 4, 1.0,
+     MIN_SUCCESS),
     ("cp2-v7-fused", CP2_V7_CKPT, ["--fused"], MAX_STEPS, "K2", 6 * 3,
-     0.09375, False),
+     0.09375, None),
     ("cp2-v8-fused", CP2_V8_CKPT, ["--fused"], MAX_STEPS, "K2", 6 * 4, 0.125,
-     False),
-    ("cp1-scan", CP1_CKPT, [], 10, "K1", 6 * 4 * 4, None, False))
+     None),
+    ("cp1-scan", CP1_CKPT, [], 10, "K1", 6 * 4 * 4, None, None),
+    ("quad-fused", QUAD_CKPT, ["--fused"], QUAD_MAX_STEPS, "K2", 6 * 2,
+     0.953125, QUAD_MIN_SUCCESS),
+    ("quad-scan", QUAD_CKPT, [], 10, "K1", 6 * 2 * 4, None, None))
 # the new paths' float64 policy forward, card vs CPU, per initial state
 # (row): each of its 6 × qp_iter tracking solves meets the line search's
 # near-ties, and the DEQ iterates carry them on, so one ulp of the state
@@ -301,21 +330,37 @@ POLICY_SPREAD_SEEDS = 16
 # the K2 instantiation each fused run launches
 MODEL_RUN_KERNEL = {"cp1-fused": "cartpole1l T10 float32",
                     "cp2-v7-fused": "cartpole2l T5 float32",
-                    "cp2-v8-fused": "cartpole2l T10 float32"}
+                    "cp2-v8-fused": "cartpole2l T10 float32",
+                    "quad-fused": "quadrotor T5 float32"}
 # training with the cp1 checkpoint's flags, cut to this many pretraining and
 # DEQ-MPC steps; per DEQ-MPC step 24 K2 launches (as the closed loop) and
 # one K1 backward solve per tracking solve
 CP1_TRAIN_PRETRAIN, CP1_TRAIN_DEQMPC = 20, 20
 CP1_META = CP1_CKPT + ".meta.json"
 LAUNCHES_PER_TRAIN_STEP["cp1-fused"] = {"K2": 6 * 4, "K1": 6}
+# training with the quadrotor checkpoint's flags (bsz 128), cut likewise;
+# per DEQ-MPC step 12 K2 launches (as its closed loop) and one K1 backward
+# solve per tracking solve
+QUAD_TRAIN_PRETRAIN, QUAD_TRAIN_DEQMPC = 20, 20
+LAUNCHES_PER_TRAIN_STEP["quad-fused"] = {"K2": 6 * 2, "K1": 6}
+TRACED_TRAIN_STEPS["quad-fused"] = 2
+# the quadrotor's float64 training gradient, card vs CPU (B GRAD_B): its
+# problems at rho_max 1e4 are well conditioned (one ulp of an input moves
+# the plain K2 version by at most 2.2e-9 in float64, k2_models --plain)
+QUAD_GRAD_TOL = 1e-8
+# the new paths' float64 training gradient checks, card vs CPU
+GRAD_TOLS = {"cp1-fused-T5": GRAD_TOL, "integrator-scan": GRAD_TOL,
+             "quad-fused": QUAD_GRAD_TOL}
 # K1 at the new models' (n, T): cp1 (n 5) at T 5 (the float64 gradient
 # check, B 8) and T 10 (its scan closed loop, B 64, and the backward of its
 # fused training, B 256), cp2 (n 7) at T 5 and 10 (card tests only)
-K1_MODEL_SHAPES = ((5, 5), (5, 10), (7, 5), (7, 10))
+K1_MODEL_SHAPES = ((5, 5), (5, 10), (7, 5), (7, 10), (16, 5))
 K1_MODEL_BATCHES = (GRAD_B, EPISODES, 256)
 # the runs that launch K1 at each shape, (n, T): [(run, kind)]
 K1_SHAPE_RUNS = {(5, 10): [("cp1-scan", "closed loop"),
-                           ("cp1-fused", "training")]}
+                           ("cp1-fused", "training")],
+                 (16, 5): [("quad-scan", "closed loop"),
+                           ("quad-fused", "training")]}
 TRACED_TRAIN_STEPS["cp1-fused"] = 2
 
 
@@ -858,16 +903,17 @@ def kernel_wrappers():
 
 
 def closed_loops(runs, tag):
-    """Each run (name, evaluate argv, kernel, launches per step, gated) of
-    the evaluate entry point with the launch counts set to 0 before it and
-    read after: exactly that many launches of that kernel per step and no
-    other kernel, a finite reward, and, where gated, a success rate of at
-    least MIN_SUCCESS. Returns the metrics with the launches, by name."""
+    """Each run (name, evaluate argv, kernel, launches per step, least
+    success rate or None) of the evaluate entry point with the launch
+    counts set to 0 before it and read after: exactly that many launches of
+    that kernel per step and no other kernel, a finite reward, and, where
+    gated, a success rate of at least the run's least. Returns the metrics
+    with the launches, by name."""
     from diff_qp_mpc_tpu_torch.learning import evaluate
 
     wrappers = kernel_wrappers()
     out = {}
-    for name, argv, kid, per_step, gated in runs:
+    for name, argv, kid, per_step, min_success in runs:
         for w in wrappers.values():
             w.launches = 0
         metrics = evaluate.main(argv)
@@ -884,9 +930,10 @@ def closed_loops(runs, tag):
                 f"other kernel")
         if not np.isfinite(metrics["mean_reward"]):
             raise RuntimeError(f"{name}: non-finite reward")
-        if gated and metrics["success_rate"] < MIN_SUCCESS:
+        if min_success is not None and \
+                metrics["success_rate"] < min_success:
             raise RuntimeError(f"{name}: success rate "
-                               f"{metrics['success_rate']} < {MIN_SUCCESS}")
+                               f"{metrics['success_rate']} < {min_success}")
     return out
 
 
@@ -894,7 +941,8 @@ def phase_main_path():
     return closed_loops(
         [(path, ["--env", "pendulum", "--deq", "--ckpt", ckpt, "--episodes",
                  str(EPISODES), "--max_steps", str(MAX_STEPS)] + flags,
-          *LAUNCHES_PER_STEP[path], True) for path, ckpt, flags in PATHS],
+          *LAUNCHES_PER_STEP[path], MIN_SUCCESS)
+         for path, ckpt, flags in PATHS],
         "main_path")
 
 
@@ -943,6 +991,11 @@ def phase_k1_models():
         B=256, model_name="cartpole1l", T_=10)
     for r in rows["cp1 AL systems"]:
         log("K1 cp1 AL systems", json.dumps(r))
+    rows["quad AL systems"] = kernel_layouts.k1_al_systems(
+        B=128, rhos=kernel_layouts.K1_QUAD_AL_RHOS, model_name="quadrotor",
+        T_=5)
+    for r in rows["quad AL systems"]:
+        log("K1 quad AL systems", json.dumps(r))
     return rows
 
 
@@ -971,6 +1024,8 @@ def k1_by_shape(k1_models, model_runs, training):
         "integrator-scan"]["launches"]["K1"], checked="the main row")
     al = k1_models["cp1 AL systems"]
     out["n5 T10"]["cp1_al_systems_max_ratio"] = max(r["ratio"] for r in al)
+    out["n16 T5"]["quad_al_systems_max_ratio"] = max(
+        r["ratio"] for r in k1_models["quad AL systems"])
     return out
 
 
@@ -1191,7 +1246,11 @@ def _model_policies():
               INT_CKPT),
              ("cp2-v7-fused", evaluate.parse_args(["--ckpt", CP2_V7_CKPT,
                                                    "--fused"]),
-              CP2_V7_CKPT)]
+              CP2_V7_CKPT),
+             ("quad-scan", evaluate.parse_args(["--ckpt", QUAD_CKPT]),
+              QUAD_CKPT),
+             ("quad-fused", evaluate.parse_args(["--ckpt", QUAD_CKPT,
+                                                 "--fused"]), QUAD_CKPT)]
     out = []
     for name, args, ckpt in cases:
         env = make_env(args.env, **({"stabilization": True}
@@ -1309,14 +1368,26 @@ def phase_model_main_path():
     rate."""
     runs = closed_loops(
         [(name, ["--ckpt", ckpt, "--episodes", str(EPISODES), "--max_steps",
-                 str(max_steps)] + flags, kid, per_step, gated)
-         for name, ckpt, flags, max_steps, kid, per_step, _, gated
+                 str(max_steps)] + flags, kid, per_step, min_success)
+         for name, ckpt, flags, max_steps, kid, per_step, _, min_success
          in MODEL_RUNS], "model main_path")
     for name, *_, jax_success, _ in MODEL_RUNS:
         runs[name]["jax_success_rate"] = jax_success
         log("model main_path vs JAX", name, json.dumps(dict(
             success_rate=runs[name]["success_rate"],
             jax_success_rate=jax_success)))
+    # the quadrotor beside the JAX package's own 64 episodes on its fused
+    # path (its draw of initial states, not the port's)
+    with open(os.path.join(os.path.dirname(QUAD_CKPT),
+                           "eval_fused.json")) as f:
+        jax_eval = json.load(f)
+    keys = ("success_rate", "mean_reward", "mean_episode_len",
+            "median_final_goal_err")
+    log("quad main_path vs JAX", json.dumps(dict(
+        port={k: runs["quad-fused"][k] for k in keys},
+        jax={k: jax_eval[k] for k in keys},
+        ms_per_step=runs["quad-fused"]["ms_per_step"],
+        launches_per_step=runs["quad-fused"]["launches_per_step"])))
     return runs
 
 
@@ -1328,7 +1399,7 @@ def phase_model_train_grad():
 
     rows = {}
     for name, args, env, factory in _model_policies():
-        if name not in ("cp1-fused-T5", "integrator-scan"):
+        if name not in GRAD_TOLS:
             continue
         dataset = data.load_expert_pickle(
             args.data or train.default_data_path(args, env))
@@ -1349,27 +1420,26 @@ def phase_model_train_grad():
                    grad_norm=float(ref.norm()),
                    rel_err_card_vs_cpu_f64=float(
                        (out["cuda"][1] - ref).norm() / ref.norm()),
-                   tol=GRAD_TOL)
+                   tol=GRAD_TOLS[name])
         log("model train grad", json.dumps(row))
         rows[name] = row
         if not (torch.isfinite(out["cuda"][1]).all()
-                and row["rel_err_card_vs_cpu_f64"] <= GRAD_TOL):
+                and row["rel_err_card_vs_cpu_f64"] <= GRAD_TOLS[name]):
             raise RuntimeError(f"training gradient on the card disagrees "
                                f"with the CPU ({name}): {row}")
     return rows
 
 
-def phase_model_train():
-    """Training through the train entry point with the cp1 checkpoint's
-    flags, cut to CP1_TRAIN_PRETRAIN + CP1_TRAIN_DEQMPC steps; launches
-    checked exactly at every step (train_run)."""
-    with open(CP1_META) as f:
+def phase_model_train(path, meta_path, pretrain, deqmpc):
+    """Training through the train entry point with a checkpoint's flags
+    (its meta.json, fused), cut to ``pretrain`` + ``deqmpc`` steps;
+    launches checked exactly at every step (train_run)."""
+    with open(meta_path) as f:
         meta = json.load(f)
-    path = "cp1-fused"
-    argv = meta_argv(CP1_META) + [
+    argv = meta_argv(meta_path) + [
         "--data", meta["data"], "--fused", "--logdir", TRAIN_LOGDIR,
-        "--save", "--iters", str(CP1_TRAIN_PRETRAIN + CP1_TRAIN_DEQMPC),
-        "--pretrain_iters", str(CP1_TRAIN_PRETRAIN), "--ckpt_every", "10",
+        "--save", "--iters", str(pretrain + deqmpc),
+        "--pretrain_iters", str(pretrain), "--ckpt_every", "10",
         "--name", path]
     t0 = time.perf_counter()
     traced = TRACED_TRAIN_STEPS[path]
@@ -1391,6 +1461,9 @@ def phase_model_train():
                grad_norm_max=max(r["grad_norm"] for r in records),
                seconds=time.perf_counter() - t0)
     row.update(trace)
+    if not (len(pre) == pretrain and len(deq) == deqmpc):
+        raise RuntimeError(f"{path} training: {len(pre)} pretraining and "
+                           f"{len(deq)} DEQ-MPC steps")
     log("model train", json.dumps(row))
     return row
 
@@ -1416,21 +1489,24 @@ def ptxas_summary(text):
             f"{r['spill']} B spill stores" for r in rows]
 
 
-def k2_by_model(k2_models, model_runs, cp1_train):
+def k2_by_model(k2_models, model_runs, training):
     """The kernels line's K2 rows per new (model, T): float32 ms, plain ms
-    and bound at B 64, the largest error against the plain version at B 64
-    per dtype, and the launches of the main-path run (and the training run)
-    that takes the instantiation."""
+    and bound at B 64 (and the ms at each other timed B), the largest error
+    against the plain version at B 64 per dtype, and the launches of the
+    main-path run (and the training run) that takes the instantiation."""
     runs_of = {v: k for k, v in MODEL_RUN_KERNEL.items()}
     out = {}
     for key, rows in k2_models.items():
         name, t_, dtype = key.split()
         entry = out.setdefault(f"{name} {t_}", dict(launches=0))
         for r in rows:
-            if "ms" in r:
+            if "ms" in r and r["B"] == EPISODES:
                 entry.update({k: r[k] for k in (
                     "ms", "ms_events", "plain_ms", "bound_ms", "bound_by",
                     "group")})
+            elif "ms" in r:
+                entry[f"ms_B{r['B']}"] = r["ms"]
+                entry[f"bound_ms_B{r['B']}"] = r["bound_ms"]
             elif r["B"] == EPISODES:
                 entry[f"max_abs_err_{dtype}"] = r["max_abs_err_xu"]
                 entry[f"tolerance_{dtype}"] = r["tol"]
@@ -1438,8 +1514,9 @@ def k2_by_model(k2_models, model_runs, cp1_train):
         if run is not None:
             entry["launches"] = model_runs[run]["launches"]["K2"]
             entry["launches_run"] = run
-        if key == MODEL_RUN_KERNEL["cp1-fused"]:
-            entry["launches_training"] = cp1_train["launches_total"]["K2"]
+            if run in training:
+                entry["launches_training"] = \
+                    training[run]["launches_total"]["K2"]
     return out
 
 
@@ -1496,7 +1573,10 @@ def main():
     log(f"training phases: {time.perf_counter() - t_train:.1f} s")
     t_train = time.perf_counter()
     phase_model_train_grad()
-    training["cp1-fused"] = phase_model_train()
+    training["cp1-fused"] = phase_model_train(
+        "cp1-fused", CP1_META, CP1_TRAIN_PRETRAIN, CP1_TRAIN_DEQMPC)
+    training["quad-fused"] = phase_model_train(
+        "quad-fused", QUAD_META, QUAD_TRAIN_PRETRAIN, QUAD_TRAIN_DEQMPC)
     log(f"model training phases: {time.perf_counter() - t_train:.1f} s")
     # the training phases' launches of each kernel, all paths
     train_launches = {k: sum(row["launches_total"][k]
@@ -1549,13 +1629,31 @@ def main():
                 gr["B"]: dict(chosen=gr["chosen_group"], ms=gr["ms"])
                 for gr in k2["groups"]}
             kernels[-1]["by_model"] = k2_by_model(
-                k2_models, model_runs, training["cp1-fused"])
+                k2_models, model_runs, training)
         if kid == "K3":
             f = rows["filled"]
             kernels[-1]["launch_floor_ms"] = r["launch_floor_ms"]
             kernels[-1]["filled_card"] = {
                 k: f[k] for k in ("B", "ms", "ms_events", "bound_ms",
                                   "bound_share", "max_rel_err")}
+    quad = kernels[1]["by_model"]["quadrotor T5"]
+    kernels.append({
+        "name": "al_fused quadrotor (K2, one warp per element)",
+        "route": "cuda",
+        "source": "diff_qp_mpc_tpu_torch/csrc/al_fused_warp.cuh",
+        "replaces": "diff_qp_mpc_tpu/ops/al_fused_pallas.py:340",
+        "launches": quad["launches"],
+        "launches_training": quad["launches_training"],
+        "max_abs_err": quad["max_abs_err_float32"],
+        "tolerance": quad["tolerance_float32"],
+        "max_abs_err_float64": quad["max_abs_err_float64"],
+        "ms": quad["ms"], "ms_events": quad["ms_events"],
+        "ms_B128": quad["ms_B128"], "plain_ms": quad["plain_ms"],
+        "bound_ms": quad["bound_ms"], "bound_by": quad["bound_by"],
+        "library_ms": None,
+        "shared_memory": next(r["shared_memory"] for r in k2_models[
+            "quadrotor T5 float32"] if "shared_memory" in r),
+        "shape": f"B={main_b} T=5 nx=12 nu=4 float32"})
     kernels.append({
         "name": "sin_chain (K5)", "route": "cuda",
         "source": "diff_qp_mpc_tpu_torch/csrc/sin_chain.cu",

@@ -126,6 +126,9 @@ class _Counted:
 
     cos = sin
 
+    def sign(self):  # a compare and a select
+        return _Counted()
+
 
 def _counted(fn):
     """(operations, sin and cos evaluations) of ``fn()``."""
@@ -136,7 +139,8 @@ def _counted(fn):
 
 def functor_counts(model) -> Tuple[int, int, int, int]:
     """(step, Jacobian, step sins, Jacobian sins) of K2's RK4 functor of a
-    cartpole (``csrc/al_fused_cartpole*.cu``), counted by running its plain
+    cartpole or the quadrotor (``csrc/al_fused_cartpole*``,
+    ``al_fused_quadrotor.cu``), counted by running its plain
     version, ``model.step_parts``, which does the functor's operations one
     for one, on counting numbers: the step on values, the Jacobian as one
     pass on duals per input column (``models.dual``; a dual times a
@@ -166,21 +170,28 @@ def _k2_model_counts(model: str) -> Tuple[int, int, int, int]:
     if model == "integrator":
         # IntegratorDyn: two multiply-adds; the Jacobian's dt·dt
         return 4, 1, 0, 0
-    from diff_qp_mpc_tpu_torch.models import Cartpole1L, Cartpole2L
+    from diff_qp_mpc_tpu_torch.models import (
+        Cartpole1L,
+        Cartpole2L,
+        RexQuadrotor,
+    )
 
     return functor_counts({"cartpole1l": Cartpole1L,
-                           "cartpole2l": Cartpole2L}[model]())
+                           "cartpole2l": Cartpole2L,
+                           "quadrotor": RexQuadrotor}[model]())
 
 
 #: the models K2 is built for, by the name ``ops.al_fused_cuda`` gives them
-K2_MODELS = ("pendulum", "integrator", "cartpole1l", "cartpole2l")
+K2_MODELS = ("pendulum", "integrator", "cartpole1l", "cartpole2l",
+             "quadrotor")
 
 
 def k2_ops(T_, nx, nu, al_iter, n_newton, n_ls, model="pendulum"):
     """Floating-point operations of one element's solve, counted from
     csrc/al_fused_common.cuh with ``model``'s functor (its step and
     Jacobian from ``_k2_model_counts``; a multiply-add is 2, a compare or
-    select 0, a sin or cos 1)."""
+    select 0, a sin or cos 1). The quadrotor's warp layout
+    (csrc/al_fused_warp.cuh) does the same arithmetic in other orders."""
     n = nx + nu
     step, jac = _k2_model_counts(model)[:2]
     dyn_terms = (T_ - 1) * (step + nx * 7)  # r, λr, ρ/2 r²

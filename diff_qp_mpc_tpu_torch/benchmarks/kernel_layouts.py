@@ -61,6 +61,8 @@ K2_F64_BATCHES = (64, 256)
 # instead: K1's error at most K1_AL_RATIO times the plain float32
 # version's on the same systems
 K1_AL_RHOS = (1.0, 1e2, 1e4, 1e6)
+#: the quadrotor's, up to its checkpoint's rho_max
+K1_QUAD_AL_RHOS = (1.0, 1e2, 1e4)
 K1_AL_RATIO = 2.0
 
 
@@ -256,7 +258,8 @@ def al_systems(B, rho, dtype=torch.float64, seed=0, device="cuda",
     random cotangent with its x₀ rows 0, the backward's right-hand side.
     The problems are the main path's (``k2_inputs``, the pendulum at T 5,
     solved by K2) or, given ``model_name``, ``k2_models.problem``'s for
-    that model at horizon ``T_`` (solved by K2's plain version)."""
+    that model at horizon ``T_`` (solved by K2's plain version at the
+    model's budget, ``k2_models.budget``)."""
     from diff_qp_mpc_tpu_torch.core.types import (
         Bounds,
         DiagQuadCost,
@@ -267,16 +270,17 @@ def al_systems(B, rho, dtype=torch.float64, seed=0, device="cuda",
     if model_name is None:
         Cd, c, x0, xi, ui = k2_inputs(B, dtype, seed, device)
         model, box = Pendulum(), BOX
-        solve = al_fused_cuda.fused_al_solve
+        solve, budget = al_fused_cuda.fused_al_solve, AL_BUDGET
     else:
         from diff_qp_mpc_tpu_torch.benchmarks import k2_models
 
         model, Cd, c, x0, *box, xi, ui = k2_models.problem(
             model_name, B, T_, dtype, seed, device)
         solve = al_fused_cuda.fused_al_solve_reference
+        budget = k2_models.budget(model_name)
     nx = model.nx
     xu, lamd, lamh, laml, _ = solve(model, Cd, c, x0, *box, xi, ui,
-                                    **AL_BUDGET)
+                                    **budget)
     lam = Lambdas(lam_dyn=lamd, lam_init=torch.zeros_like(x0), lam_hi=lamh,
                   lam_lo=laml)
     g, D, O, _ = almerit.merit_grad_hess(

@@ -1,7 +1,10 @@
-// K2 for the 2-link cartpole (diff_qp_mpc_tpu/models/cartpole.py,
-// Cartpole2L, the default model and .pkg() alike): its functor and its
-// instantiations, float32 at T 5 and 10, float64 at T 5, each at G = 1 ..
-// 32 (the kernel is al_fused_common.cuh's).
+// K2's functor for the 2-link cartpole (diff_qp_mpc_tpu/models/cartpole.py,
+// Cartpole2L, the default model and .pkg() alike), shared by its sources
+// al_fused_cartpole2l_t5.cu and al_fused_cartpole2l_t10.cu: one source per
+// horizon, so nvcc builds the horizons in parallel (the kernel is
+// al_fused_common.cuh's).
+#pragma once
+
 #include "al_fused_common.cuh"
 
 namespace dqmpc {
@@ -91,15 +94,3 @@ template <typename F>
 using Cartpole2LDyn = Rk4Dyn<Cartpole2LSys, F>;
 
 }  // namespace dqmpc
-
-AL_FUSED_ENTRY(al_fused_cartpole2l_f32, float,
-               AL_FUSED_CASE(5, dqmpc::Cartpole2LDyn, float)
-                   AL_FUSED_CASE(10, dqmpc::Cartpole2LDyn, float))
-AL_FUSED_ENTRY(al_fused_cartpole2l_f64, double,
-               AL_FUSED_CASE(5, dqmpc::Cartpole2LDyn, double))
-
-AL_RESIDENT_ENTRY(al_fused_cartpole2l_resident_threads_f32,
-                  AL_RESIDENT_CASE(5, dqmpc::Cartpole2LDyn, float)
-                      AL_RESIDENT_CASE(10, dqmpc::Cartpole2LDyn, float))
-AL_RESIDENT_ENTRY(al_fused_cartpole2l_resident_threads_f64,
-                  AL_RESIDENT_CASE(5, dqmpc::Cartpole2LDyn, double))

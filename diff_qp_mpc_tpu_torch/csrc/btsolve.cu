@@ -30,6 +30,21 @@
 //   every other shape. The forward substitution runs inside the factor
 //   sweep, and the factor's Lₜ and Sₜ go to a batch-minor scratch tensor
 //   [2][T][n][n][B] for the backward sweep; y is parked in the output x.
+//   float32 at n 16 (the quadrotor) computes in float64 (Compute, below):
+//   its scratch holds float64 and a third part [T][n][B] where y is parked.
+//
+// Why n 16 computes wider, unlike the TPU kernel and the plain version
+// (both float32 throughout): the quadrotor's AL Newton systems at its
+// checkpoint's ρ 1e4 (reg 1e-7, cond(H) ~1e7) leave float32 arithmetic
+// with errors of the order of the solution: against the float64 solution,
+// a float32 kernel and the plain float32 version each err by 0.2-0.7 of
+// its largest entry at the worst element of a batch, element by element
+// as often one as the other (a card probe, PERF.md), so which of the two
+// errs more at a batch's worst element is a draw, and the float32 kernel
+// drew 3.9 times the plain version's error at B 128. Computing in float64
+// leaves the error of rounding the systems to float32 (~0.1 there), at
+// 4-6 times the float32 computation's time (1.25 against 0.29 ms at B 64
+// on an H100 80GB HBM3 at 700 W, PERF.md).
 #include <cstddef>
 #include <type_traits>
 
@@ -37,11 +52,21 @@
 
 namespace dqmpc {
 
+// the type the streaming kernel's (N, F) instantiation computes in
 template <int N, typename F>
+struct Compute {
+  using type = F;
+};
+template <>
+struct Compute<16, float> {
+  using type = double;
+};
+
+template <int N, typename F, typename C = typename Compute<N, F>::type>
 __global__ void __launch_bounds__(128)
 btsolve_kernel(const F* __restrict__ D, const F* __restrict__ O,
                const F* __restrict__ b, F* __restrict__ x,
-               F* __restrict__ scratch, int B, int T, F reg) {
+               C* __restrict__ scratch, int B, int T, C reg) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= B) return;
   constexpr int NN = N * N;
@@ -50,12 +75,22 @@ btsolve_kernel(const F* __restrict__ D, const F* __restrict__ O,
   const F* be = b + static_cast<size_t>(e) * T * N;
   F* xe = x + static_cast<size_t>(e) * T * N;
   // scratch entry (which, t, i, j) of element e; which 0 = L, 1 = S
-  auto at = [&](int which, int t, int i, int j) -> F& {
+  auto at = [&](int which, int t, int i, int j) -> C& {
     return scratch[(((static_cast<size_t>(which) * T + t) * N + i) * N + j) *
                        B + e];
   };
+  // where y is parked for the backward sweep: the output x, or, computing
+  // wider than F, the scratch's third part
+  auto park = [&](int t, int i) -> C& {
+    if constexpr (std::is_same_v<C, F>) {
+      return xe[t * N + i];
+    } else {
+      return scratch[((static_cast<size_t>(2 * T * N) * N) + t * N + i) * B +
+                     e];
+    }
+  };
 
-  F M[N][N], L[N][N], Lp[N][N], S[N][N], v[N], y[N], yp[N];
+  C M[N][N], L[N][N], Lp[N][N], S[N][N], v[N], y[N], yp[N];
 
   // ---- stage 0: factor, forward solve ----
 #pragma unroll
@@ -64,10 +99,10 @@ btsolve_kernel(const F* __restrict__ D, const F* __restrict__ O,
     for (int j = 0; j <= i; ++j) M[i][j] = De[i * N + j];
     M[i][i] = M[i][i] + reg;
   }
-  chol<N, F>(M, L);
+  chol<N, C>(M, L);
 #pragma unroll
   for (int i = 0; i < N; ++i) v[i] = be[i];
-  solve_lower_vec<N, F>(L, v, y);
+  solve_lower_vec<N, C>(L, v, y);
 #pragma unroll
   for (int i = 0; i < N; ++i) {
 #pragma unroll
@@ -75,7 +110,7 @@ btsolve_kernel(const F* __restrict__ D, const F* __restrict__ O,
       at(0, 0, i, j) = L[i][j];
       Lp[i][j] = L[i][j];
     }
-    xe[i] = y[i];
+    park(0, i) = y[i];
     yp[i] = y[i];
   }
 
@@ -87,23 +122,23 @@ btsolve_kernel(const F* __restrict__ D, const F* __restrict__ O,
 #pragma unroll
       for (int j = 0; j < N; ++j) M[i][j] = Ot[i * N + j];
     }
-    solve_lower_mat<N, F>(Lp, M, S);
+    solve_lower_mat<N, C>(Lp, M, S);
     const F* Dt = De + static_cast<size_t>(t) * NN;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
 #pragma unroll
       for (int j = 0; j <= i; ++j) M[i][j] = Dt[i * N + j];
     }
-    schur_update<N, F>(M, S, reg);
-    chol<N, F>(M, L);
+    schur_update<N, C>(M, S, reg);
+    chol<N, C>(M, L);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      F s = be[t * N + i];
+      C s = be[t * N + i];
 #pragma unroll
       for (int k = 0; k < N; ++k) s = s - S[i][k] * yp[k];
       v[i] = s;
     }
-    solve_lower_vec<N, F>(L, v, y);
+    solve_lower_vec<N, C>(L, v, y);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
 #pragma unroll
@@ -113,16 +148,16 @@ btsolve_kernel(const F* __restrict__ D, const F* __restrict__ O,
         at(0, t, i, j) = L[i][j];
         Lp[i][j] = L[i][j];
       }
-      xe[t * N + i] = y[i];
+      park(t, i) = y[i];
       yp[i] = y[i];
     }
   }
 
   // ---- backward: Lᵀ x = y; Lp, yp hold stage T-1 ----
-  F xn[N];
-  solve_upper_vec<N, F>(Lp, yp, xn);
+  C xn[N];
+  solve_upper_vec<N, C>(Lp, yp, xn);
 #pragma unroll
-  for (int i = 0; i < N; ++i) xe[(T - 1) * N + i] = xn[i];
+  for (int i = 0; i < N; ++i) xe[(T - 1) * N + i] = static_cast<F>(xn[i]);
   for (int t = T - 2; t >= 0; --t) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -133,15 +168,15 @@ btsolve_kernel(const F* __restrict__ D, const F* __restrict__ O,
     }
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      F s = xe[t * N + i];
+      C s = park(t, i);
 #pragma unroll
       for (int k = 0; k < N; ++k) s = s - S[k][i] * xn[k];
       v[i] = s;
     }
-    solve_upper_vec<N, F>(L, v, y);
+    solve_upper_vec<N, C>(L, v, y);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      xe[t * N + i] = y[i];
+      xe[t * N + i] = static_cast<F>(y[i]);
       xn[i] = y[i];
     }
   }
@@ -310,30 +345,44 @@ int launch_onchip_shape(const void* D, const void* O, const void* b, void* x,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <int N, typename F>
+void launch_stream(const void* D, const void* O, const void* b, void* x,
+                   void* scratch, int B, int T, double reg,
+                   cudaStream_t s) {
+  using C = typename Compute<N, F>::type;
+  const int threads = 128;
+  const int blocks = (B + threads - 1) / threads;
+  btsolve_kernel<N, F><<<blocks, threads, 0, s>>>(
+      static_cast<const F*>(D), static_cast<const F*>(O),
+      static_cast<const F*>(b), static_cast<F*>(x), static_cast<C*>(scratch),
+      B, T, static_cast<C>(static_cast<F>(reg)));
+}
+
+// Bytes of the streaming kernel's scratch at (N, F): L and S, and where C
+// is wider than F the parked y.
+template <int N, typename F>
+long long stream_scratch_bytes(int B, int T) {
+  using C = typename Compute<N, F>::type;
+  const long long parked = std::is_same_v<C, F> ? 0 : T * N;
+  return (2LL * T * N * N + parked) * B * static_cast<long long>(sizeof(C));
+}
+
 template <typename F>
 int launch(const void* D, const void* O, const void* b, void* x,
            void* scratch, int B, int T, int n, double reg, void* stream) {
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const F* Dp = static_cast<const F*>(D);
-  const F* Op = static_cast<const F*>(O);
-  const F* bp = static_cast<const F*>(b);
-  F* xp = static_cast<F*>(x);
-  F* sp = static_cast<F*>(scratch);
-  const F r = static_cast<F>(reg);
   switch (n) {
     case 3:
-      btsolve_kernel<3, F><<<blocks, threads, 0, s>>>(Dp, Op, bp, xp, sp, B, T, r);
+      launch_stream<3, F>(D, O, b, x, scratch, B, T, reg, s);
       break;
     case 5:
-      btsolve_kernel<5, F><<<blocks, threads, 0, s>>>(Dp, Op, bp, xp, sp, B, T, r);
+      launch_stream<5, F>(D, O, b, x, scratch, B, T, reg, s);
       break;
     case 7:
-      btsolve_kernel<7, F><<<blocks, threads, 0, s>>>(Dp, Op, bp, xp, sp, B, T, r);
+      launch_stream<7, F>(D, O, b, x, scratch, B, T, reg, s);
       break;
     case 16:
-      btsolve_kernel<16, F><<<blocks, threads, 0, s>>>(Dp, Op, bp, xp, sp, B, T, r);
+      launch_stream<16, F>(D, O, b, x, scratch, B, T, reg, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -341,11 +390,22 @@ int launch(const void* D, const void* O, const void* b, void* x,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename F>
+long long scratch_bytes(int B, int T, int n) {
+  switch (n) {
+    case 3: return stream_scratch_bytes<3, F>(B, T);
+    case 5: return stream_scratch_bytes<5, F>(B, T);
+    case 7: return stream_scratch_bytes<7, F>(B, T);
+    case 16: return stream_scratch_bytes<16, F>(B, T);
+    default: return -1;
+  }
+}
+
 }  // namespace dqmpc
 
 // D [B,T,n,n], O [B,T-1,n,n], b [B,T,n] -> x [B,T,n], all contiguous.
-// Streaming layout: scratch holds 2·T·n·n·B values. Returns a cudaError_t
-// code.
+// Streaming layout: scratch holds btsolve_scratch_bytes_<dtype>(B, T, n)
+// bytes. Returns a cudaError_t code.
 extern "C" int btsolve_f32(const void* D, const void* O, const void* b,
                            void* x, void* scratch, int B, int T, int n,
                            double reg, void* stream) {
@@ -356,6 +416,15 @@ extern "C" int btsolve_f64(const void* D, const void* O, const void* b,
                            void* x, void* scratch, int B, int T, int n,
                            double reg, void* stream) {
   return dqmpc::launch<double>(D, O, b, x, scratch, B, T, n, reg, stream);
+}
+
+// Bytes of the streaming layout's scratch; -1 for an unbuilt n.
+extern "C" long long btsolve_scratch_bytes_f32(int B, int T, int n) {
+  return dqmpc::scratch_bytes<float>(B, T, n);
+}
+
+extern "C" long long btsolve_scratch_bytes_f64(int B, int T, int n) {
+  return dqmpc::scratch_bytes<double>(B, T, n);
 }
 
 // On-chip layout, no scratch. cudaErrorInvalidValue for an (n, T) without

@@ -1,6 +1,6 @@
 """Concrete environments (port of diff_qp_mpc_tpu.envs): the pendulum, the
-integrator and the 1- and 2-link cartpoles. Each draws its initial states
-from an explicit ``torch.Generator``."""
+integrator, the 1- and 2-link cartpoles and the Rex quadrotor. Each draws
+its initial states from an explicit ``torch.Generator``."""
 from __future__ import annotations
 
 import numpy as np
@@ -12,11 +12,12 @@ from diff_qp_mpc_tpu_torch.models import (
     Cartpole2L,
     Integrator,
     Pendulum,
+    RexQuadrotor,
     angle_normalize,
 )
 
 __all__ = ["Env", "EnvState", "Spaces", "PendulumEnv", "IntegratorEnv",
-           "Cartpole1LEnv", "Cartpole2LEnv", "make_env"]
+           "Cartpole1LEnv", "Cartpole2LEnv", "QuadrotorEnv", "make_env"]
 
 
 def _uniform(generator, bsz, high):
@@ -166,11 +167,45 @@ class Cartpole2LEnv(_CartpoleEnvBase):
         super().__init__(stabilization, init_scale)
 
 
+class QuadrotorEnv(Env):
+    """Hover at the origin from a random pose: position uniform in [−1, 1]³,
+    attitude (MRP), velocity and body rates normal with standard
+    deviations 0.1, 0.2 and 0.1. The rotors' box [0, 20]⁴ is not
+    symmetric about 0."""
+
+    def __init__(self):
+        self.model = RexQuadrotor()
+        self.spec_id = "RexQuadrotor-v0"
+        self.max_steps = 100
+        self.Qlqr = np.concatenate([np.full(3, 10.0), np.full(3, 1.0),
+                                    np.full(3, 1.0), np.full(3, 1.0)])
+        self.Rlqr = np.full(4, 0.01)
+        self.observation_space = Spaces(np.full(12, -np.inf),
+                                        np.full(12, np.inf))
+        self.action_space = Spaces(np.full(4, 0.0), np.full(4, 20.0))
+
+    def _sample_init(self, generator, bsz):
+        normal = lambda std: std * torch.randn(
+            bsz, 3, generator=generator, dtype=torch.float64)
+        return torch.cat([_uniform(generator, bsz, [1.0] * 3), normal(0.1),
+                          normal(0.2), normal(0.1)], dim=-1)
+
+    def _success(self, x):
+        return self.goal_error(x) < 0.05
+
+    def goal_error(self, x):
+        return torch.linalg.vector_norm(x[..., :3], dim=-1)
+
+    def _reward(self, x, u):
+        norm = lambda a: torch.linalg.vector_norm(a, dim=-1)
+        return -(norm(x[..., :3]) + 0.1 * norm(x[..., 6:9]))
+
+
 def make_env(name: str, **kwargs) -> Env:
-    """Env registry by name (the quadrotor is not ported yet)."""
+    """Env registry by name, as the JAX package's ``make_env``."""
     table = {"pendulum": PendulumEnv, "integrator": IntegratorEnv,
              "cartpole1link": Cartpole1LEnv,
-             "cartpole2link": Cartpole2LEnv}
+             "cartpole2link": Cartpole2LEnv, "rexquadrotor": QuadrotorEnv}
     if name not in table:
         raise ValueError(f"unknown env '{name}' (have {sorted(table)})")
     return table[name](**kwargs)

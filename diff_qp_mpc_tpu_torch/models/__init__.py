@@ -1,11 +1,13 @@
 from diff_qp_mpc_tpu_torch.models.base import (  # noqa: F401
     DynamicsModel,
+    Rk4Functor,
     angle_normalize,
     angle_normalize_2pi,
     euler,
     linearize_trajectory,
     midpoint,
     rk4,
+    rk4_parts,
     semi_implicit_euler,
     step_with_jac,
 )
@@ -20,3 +22,5 @@ from diff_qp_mpc_tpu_torch.models.lagrangian import (  # noqa: F401
     manipulator_accel,
 )
 from diff_qp_mpc_tpu_torch.models.pendulum import Pendulum  # noqa: F401
+from diff_qp_mpc_tpu_torch.models.quadrotor import RexQuadrotor  # noqa: F401
+from diff_qp_mpc_tpu_torch.models import rotation  # noqa: F401,E402

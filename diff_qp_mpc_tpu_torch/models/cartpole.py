@@ -19,77 +19,23 @@ the energies by automatic differentiation.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
-
 import torch
 
 from diff_qp_mpc_tpu_torch.models.base import (
     DynamicsModel,
+    Rk4Functor,
     angle_normalize,
     angle_normalize_2pi,
 )
-from diff_qp_mpc_tpu_torch.models.dual import Dual
 
 Tensor = torch.Tensor
 
 
-def rk4_parts(ode_parts, p, xs, us):
-    """RK4 on tuples of coordinates, ``p["h"]`` = dt/2, ``p["dt6"]`` =
-    dt/6, as ``RK4`` of csrc/al_fused_common.cuh."""
-    add = lambda a, k, s: tuple(ai + s * ki for ai, ki in zip(a, k))
-    k1 = ode_parts(p, xs, us)
-    k2 = ode_parts(p, add(xs, k1, p["h"]), us)
-    k3 = ode_parts(p, add(xs, k2, p["h"]), us)
-    k4 = ode_parts(p, add(xs, k3, p["dt"]), us)
-    return tuple(x + p["dt6"] * (a + 2 * b + 2 * c + d)
-                 for x, a, b, c, d in zip(xs, k1, k2, k3, k4))
-
-
-class _Cartpole(DynamicsModel):
-    """A cartpole whose ``step_parts`` is K2's functor, with the constants
-    ``PARAMS`` names (``kernel_params`` gives them in that order)."""
-
-    PARAMS: Tuple[str, ...] = ()
+class _Cartpole(Rk4Functor):
+    """A cartpole whose step is its K2 functor's closed form."""
 
     def step(self, x: Tensor, u: Tensor) -> Tensor:
         return torch.stack(self.step_parts(x.unbind(-1), u.unbind(-1)), -1)
-
-    def kernel_params(self) -> Tuple[float, ...]:  # pragma: no cover
-        raise NotImplementedError
-
-    def _ode_parts(self, p, xs, us):  # pragma: no cover
-        raise NotImplementedError
-
-    def scalars(self, like) -> Dict[str, object]:
-        """The constants as 0-dim tensors of ``like``'s dtype and device
-        (a dual's value), so each operation on them rounds as the kernel's
-        does."""
-        like = like.v if isinstance(like, Dual) else like
-        return {k: like.new_tensor(v) for k, v in
-                zip(self.PARAMS, self.kernel_params())}
-
-    def step_parts(self, xs, us, p=None):
-        """The functor's step on tuples of coordinates (tensors, duals, or
-        any number type given its own constants ``p``)."""
-        if p is None:
-            p = self.scalars(xs[0])
-        return rk4_parts(self._ode_parts, p, tuple(xs), tuple(us))
-
-    def jac(self, x: Tensor, u: Tensor):
-        """(x_next, (A, B)) from one forward-mode pass with a unit seed per
-        input column, as the functor's ``jac`` runs them."""
-        n = self.nx + self.nu
-        seeds = torch.eye(n, dtype=x.dtype, device=x.device).reshape(
-            (n, n) + (1,) * (x.ndim - 1))
-        xu = torch.cat([x, u], dim=-1)
-        duals = [Dual(xu[..., i], seeds[:, i].expand((n,) + xu.shape[:-1]))
-                 for i in range(n)]
-        out = self.step_parts(duals[:self.nx], duals[self.nx:])
-        x_next = torch.stack([o.v for o in out], dim=-1)
-        J = torch.stack([o.d for o in out], dim=-1)  # [n, ..., nx]
-        J = J.movedim(0, -1)  # [..., nx, n]
-        return x_next, (J[..., :self.nx].contiguous(),
-                        J[..., self.nx:].contiguous())
 
 
 class Cartpole1L(_Cartpole):

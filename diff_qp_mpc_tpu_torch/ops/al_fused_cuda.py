@@ -1,26 +1,32 @@
 """K2: the whole AL-MPC solve as one hand-written CUDA kernel
-(``csrc/al_fused.cu``), the port of diff_qp_mpc_tpu.ops.al_fused_pallas.
+(``csrc/al_fused_common.cuh``, ``csrc/al_fused_warp.cuh``), the port of
+diff_qp_mpc_tpu.ops.al_fused_pallas.
 
 ``fused_al_solve`` takes the plain PyTorch version
 (``fused_al_solve_reference``, same signature and semantics) for CPU tensors
 and launches the kernel for CUDA tensors; it never falls back from one to
 the other. Each kernel launch adds one to ``launches``.
 
-The kernel runs each batch element on a group of G lanes (``GROUPS``) that
-share its line search; the outputs are bit-identical at every G.
-``choose_group`` is the rule that picks G from the batch.
+Two layouts. "group" (``al_fused_common.cuh``): each batch element on a
+group of G lanes (``GROUPS``) that share its line search, each lane holding
+the element in its registers; the outputs are bit-identical at every G, and
+``choose_group`` is the rule that picks G from the batch. "warp"
+(``al_fused_warp.cuh``, the quadrotor at n 16, whose element does not fit
+one lane): one warp per element, its blocks in shared memory; it raises on
+a launch whose blocks ask for more shared memory than the device allows.
 
-``BUILT`` names the models the kernel is built for, each with its source,
-its functor's constants and its horizons per dtype: the pendulum, the
-integrator with one position (nx 2), ``Cartpole1L`` and ``Cartpole2L`` (the
-default model and ``.pkg()``). Another model, shape, horizon or dtype
-raises; the plain version takes any model with ``step`` and ``jac``.
+``BUILT`` names the models the kernel is built for, each with its
+source(s), its functor's constants, its horizons per dtype and its layout:
+the pendulum, the integrator with one position (nx 2), ``Cartpole1L``,
+``Cartpole2L`` (the default model and ``.pkg()``; one source per horizon)
+and ``RexQuadrotor``. Another model, shape, horizon or dtype raises; the
+plain version takes any model with ``step`` and ``jac``.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -30,6 +36,7 @@ from diff_qp_mpc_tpu_torch.models import (
     Cartpole2L,
     Integrator,
     Pendulum,
+    RexQuadrotor,
 )
 from diff_qp_mpc_tpu_torch.ops import almerit, btsolve, newton_al
 from diff_qp_mpc_tpu_torch.utils import cuda_build
@@ -39,21 +46,37 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class Built:
-    """One model's kernel: ``csrc/<library>.cu`` exports ``al_fused_<name>_
-    f32``/``_f64`` and their ``_resident_threads_`` queries; ``params``
-    folds the model's constants in double precision, in the order of its
-    functor's ``make``; ``horizons`` per dtype have an instantiation."""
+    """One model's kernel: ``csrc/<library>.cu`` (or, per horizon,
+    ``csrc/<library[T]>.cu``) exports ``al_fused_<name>_f32``/``_f64`` and,
+    on the "group" layout, their ``_resident_threads_`` queries, on the
+    "warp" layout their ``_smem_`` queries; ``params`` folds the model's
+    constants in double precision, in the order of its functor's ``make``
+    (or ``load``); ``horizons`` per dtype have an instantiation."""
 
-    library: str
+    library: Union[str, Mapping[int, str]]
     name: str
     nx: int
     nu: int
     params: Callable[[object], Tuple[float, ...]]
     horizons: Mapping[torch.dtype, Tuple[int, ...]]
+    layout: str = "group"
 
-    def symbol(self, dtype: torch.dtype, resident: bool = False) -> str:
+    def library_for(self, T: int) -> str:
+        return self.library if isinstance(self.library, str) \
+            else self.library[T]
+
+    @property
+    def libraries(self) -> Tuple[str, ...]:
+        return (self.library,) if isinstance(self.library, str) \
+            else tuple(dict.fromkeys(self.library.values()))
+
+    def symbol(self, dtype: torch.dtype, resident: bool = False,
+               smem: bool = False) -> str:
+        """The launch's entry point, or the resident-threads or the
+        shared-memory query's."""
         bits = {torch.float32: "f32", torch.float64: "f64"}[dtype]
-        return f"al_fused_{self.name}_{'resident_threads_' * resident}{bits}"
+        query = "resident_threads_" * resident + "smem_" * smem
+        return f"al_fused_{self.name}_{query}{bits}"
 
 
 _T5_10 = {torch.float32: (5, 10), torch.float64: (5,)}
@@ -68,12 +91,18 @@ BUILT = {
                       {torch.float32: (5,), torch.float64: (5,)}),
     Cartpole1L: Built("al_fused_cartpole1l", "cartpole1l", 4, 1,
                       lambda m: m.kernel_params(), _T5_10),
-    Cartpole2L: Built("al_fused_cartpole2l", "cartpole2l", 6, 1,
+    Cartpole2L: Built({5: "al_fused_cartpole2l_t5",
+                       10: "al_fused_cartpole2l_t10"}, "cartpole2l", 6, 1,
                       lambda m: m.kernel_params(), _T5_10),
+    RexQuadrotor: Built("al_fused_quadrotor", "quadrotor", 12, 4,
+                        lambda m: m.kernel_params(),
+                        {torch.float32: (5,), torch.float64: (5,)},
+                        layout="warp"),
 }
 #: the kernels' sources, for a build of them all
-LIBRARIES = tuple(b.library for b in BUILT.values())
-#: lanes per batch element the kernel takes (a power of two dividing a warp)
+LIBRARIES = tuple(lib for b in BUILT.values() for lib in b.libraries)
+#: lanes per batch element the "group" layout takes (a power of two dividing
+#: a warp); the "warp" layout takes 32
 GROUPS = (1, 2, 4, 8, 16, 32)
 #: kernel launches since the count was last set to 0
 launches = 0
@@ -81,8 +110,10 @@ launches = 0
 # the line search's running minimum starts at float32's max in every dtype,
 # as the reference kernel's does
 _F32_MAX = float(torch.finfo(torch.float32).max)
-# resident threads per (model, device index, dtype, T, G), read once
+# resident threads per (model, device index, dtype, T, G), and shared memory
+# per (model, device index, dtype, T), read once
 _resident: dict = {}
+_smem: dict = {}
 
 
 def built_for(model) -> Built:
@@ -129,8 +160,9 @@ def fused_al_solve(model, Cd: Tensor, c: Tensor, x0: Tensor,
     rho0 [B] default to zeros/ones, the fresh-state semantics. Returns
     (xu [B, T, n], lam_dyn, lam_hi, lam_lo, res [B]). The defaults of
     rho_max and reg are the kernel's own; solvers pass ALConfig's values.
-    ``group`` sets the kernel's lanes per element (one of ``GROUPS``; the
-    results do not depend on it); None takes ``choose_group``'s.
+    ``group`` sets the "group" layout's lanes per element (one of
+    ``GROUPS``; the results do not depend on it); None takes
+    ``choose_group``'s. The "warp" layout takes None or 32.
     """
     if group is not None and group not in GROUPS:
         raise ValueError(f"group {group} is not one of {GROUPS}")
@@ -263,18 +295,25 @@ def _check(model, Cd, c, x0, u_lo, u_hi, x_init, u_init, lam_dyn, lam_hi,
     return built, B, T, n, nx, nu
 
 
+def _device_index(device) -> int:
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
 def resident_threads(dtype: torch.dtype, T: int, device: torch.device,
                      model=None) -> Dict[int, int]:
-    """Threads of ``model``'s kernel (default the pendulum's) for (dtype, T)
-    that ``device`` holds resident at once, per G of ``GROUPS`` (CUDA's
-    occupancy calculator at each G instantiation's register count)."""
+    """Threads of ``model``'s kernel (default the pendulum's; the "group"
+    layout) for (dtype, T) that ``device`` holds resident at once, per G of
+    ``GROUPS`` (CUDA's occupancy calculator at each G instantiation's
+    register count)."""
     built = built_for(Pendulum() if model is None else model)
-    index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
+    if built.layout != "group":
+        raise ValueError(f"the {built.name} kernel has no groups: it runs "
+                         f"one warp per element")
+    index = _device_index(device)
     key = (built.name, index, dtype, T)
     if key not in _resident:
-        lib = cuda_build.load(built.library)
+        lib = cuda_build.load(built.library_for(T))
         fn = getattr(lib, built.symbol(dtype, resident=True))
         fn.argtypes = [ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_int)]
@@ -288,6 +327,32 @@ def resident_threads(dtype: torch.dtype, T: int, device: torch.device,
             threads[G] = out.value
         _resident[key] = threads
     return _resident[key]
+
+
+def warp_smem(dtype: torch.dtype, T: int, device: torch.device,
+              model) -> Dict[str, int]:
+    """Shared memory of ``model``'s "warp" kernel for (dtype, T) on
+    ``device``: bytes an element (``per_element``) and a block
+    (``per_block``), and the most a block may ask of the device
+    (``device_max``)."""
+    built = built_for(model)
+    if built.layout != "warp":
+        raise ValueError(f"the {built.name} kernel keeps its elements in "
+                         f"registers, not in shared memory")
+    index = _device_index(device)
+    key = (built.name, index, dtype, T)
+    if key not in _smem:
+        lib = cuda_build.load(built.library_for(T))
+        fn = getattr(lib, built.symbol(dtype, smem=True))
+        fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+        fn.restype = ctypes.c_int
+        out = [ctypes.c_int(0) for _ in range(3)]
+        with torch.cuda.device(index):
+            err = fn(T, *(ctypes.byref(o) for o in out))
+        cuda_build.check(lib, err, "al_fused shared-memory query")
+        _smem[key] = dict(zip(("per_element", "per_block", "device_max"),
+                              (o.value for o in out)))
+    return _smem[key]
 
 
 def call_entry(fn, tensors, B, log2G, T, al_iter, n_newton, n_ls,
@@ -319,13 +384,21 @@ def _launch(model, Cd, c, x0, u_lo, u_hi, x_init, u_init, al_iter, n_newton,
     res = torch.empty_like(rho0)
     if B == 0:
         return w, lamd_o, lamh_o, laml_o, res
-    if group is None:
+    if built.layout == "warp":
+        if group not in (None, 32):
+            raise ValueError(f"the {built.name} kernel runs one warp per "
+                             f"element: group must be None or 32, not "
+                             f"{group}")
+        # the entry refuses (invalid configuration) a block whose shared
+        # memory exceeds the device's; check raises on its code
+        group = 32
+    elif group is None:
         group = choose_group(B, resident_threads(Cd.dtype, T, Cd.device,
                                                  model))
     if B * group >= 2 ** 31:
         raise ValueError(f"B·G = {B}·{group} threads exceed the kernel's "
                          "int indexing")
-    lib = cuda_build.load(built.library)
+    lib = cuda_build.load(built.library_for(T))
     stream = torch.cuda.current_stream(Cd.device).cuda_stream
     with torch.cuda.device(Cd.device):
         err = call_entry(getattr(lib, built.symbol(Cd.dtype)),

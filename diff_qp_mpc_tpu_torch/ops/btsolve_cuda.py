@@ -10,7 +10,10 @@ The kernel has two layouts (``LAYOUTS``): "onchip" keeps each element's
 blocks, factor and substitution in shared memory and registers, for the
 (dtype, n, T) of ``ONCHIP_SHAPES``; "stream" takes every block size of
 ``BLOCK_SIZES`` at any T, with the factor in a scratch tensor.
-``choose_layout`` is the rule.
+``choose_layout`` is the rule. At float32 n 16 (the quadrotor) the
+streaming kernel computes in float64 and rounds x to float32 once, where
+the TPU kernel and the plain version compute in float32 (csrc/btsolve.cu
+says why); the source sizes its scratch (``btsolve_scratch_bytes_*``).
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ LAYOUTS = ("onchip", "stream")
 launches = 0
 
 _SYMBOLS = {torch.float32: "btsolve_f32", torch.float64: "btsolve_f64"}
+_SCRATCH_SYMBOLS = {torch.float32: "btsolve_scratch_bytes_f32",
+                    torch.float64: "btsolve_scratch_bytes_f64"}
 _ONCHIP_SYMBOLS = {torch.float32: "btsolve_onchip_f32",
                    torch.float64: "btsolve_onchip_f64"}
 
@@ -94,7 +99,10 @@ def _launch(D: Tensor, O: Tensor, b: Tensor, reg: float,
     lib = cuda_build.load("btsolve")
     stream = torch.cuda.current_stream(D.device).cuda_stream
     if layout == "stream":
-        scratch = torch.empty(2 * T * n * n * B, dtype=D.dtype,
+        size = getattr(lib, _SCRATCH_SYMBOLS[D.dtype])
+        size.argtypes = [ctypes.c_int] * 3
+        size.restype = ctypes.c_longlong
+        scratch = torch.empty(size(B, T, n), dtype=torch.uint8,
                               device=D.device)
         fn = getattr(lib, _SYMBOLS[D.dtype])
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \

@@ -19,6 +19,12 @@ models' merit as the pendulum's is (``kRoundedMerit`` false). The card's
 own sin and cos and its contraction choices differ from g++'s, so this
 shows how the kernel's arithmetic, not the card, moves a result. Needs g++;
 each build lives under ``build/k2_host/`` while it loads.
+
+The build defines ``K2_HOST``: the quadrotor's source, whose card kernel
+runs one warp per element with its blocks in shared memory
+(``al_fused_warp.cuh``), then instantiates ``al_fused_common.cuh``'s
+one-lane kernel with the same functor instead, so its functor's and its
+merit's arithmetic run here too (not the warp layout's sums and solves).
 """
 from __future__ import annotations
 
@@ -136,7 +142,7 @@ def build(library: str, contract: bool = False, exempt=(),
     fp = ["-ffp-contract=fast", "-mfma"] if contract else \
         ["-ffp-contract=off"]
     subprocess.run(["g++", "-std=c++17", "-O2", *fp, "-fPIC", "-shared",
-                    "-x", "c++", "-I", str(src / "inc"), "-include",
+                    "-DK2_HOST", "-x", "c++", "-I", str(src / "inc"), "-include",
                     str(src / "stub.h"), "-o", str(so),
                     str(src / f"{library}.cu")], check=True,
                    capture_output=True)
@@ -150,12 +156,13 @@ def launch(model, Cd, c, x0, u_lo, u_hi, x_init, u_init, al_iter=2,
     """``al_fused_cuda.fused_al_solve`` on CPU tensors through the host
     build of the model's kernel (``group`` is ignored: G 1)."""
     built = al_fused_cuda.built_for(model)
-    key = (built.library, contract, tuple(exempt), rounded_merit)
+    B, T, n = Cd.shape
+    library = built.library_for(T)
+    key = (library, contract, tuple(exempt), rounded_merit)
     if key not in _loaded:
-        so = build(built.library, contract, exempt, rounded_merit)
+        so = build(library, contract, exempt, rounded_merit)
         _loaded[key] = ctypes.CDLL(str(so))
         shutil.rmtree(so.parent)  # loaded; the mapping stays
-    B, T, n = Cd.shape
     lam_dyn, lam_hi, lam_lo, rho0 = al_fused_cuda._fill_warm_start(
         B, T, model.nx, model.nu, Cd, lam_dyn, lam_hi, lam_lo, rho0)
     ins = [a.contiguous() for a in (Cd, c, x0, x_init, u_init, lam_dyn,
@@ -167,7 +174,7 @@ def launch(model, Cd, c, x0, u_lo, u_hi, x_init, u_init, al_iter=2,
         al_iter, n_newton, n_ls, rho_factor, rho_max, reg,
         built.params(model), u_lo, u_hi, None)
     if err:
-        raise RuntimeError(f"host build of {built.library}: error {err}")
+        raise RuntimeError(f"host build of {library}: error {err}")
     return tuple(outs)
 
 

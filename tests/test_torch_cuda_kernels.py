@@ -586,11 +586,22 @@ def test_trajqp_layer_backward_is_one_k3_launch(cuda, kernel):
 # ------------------------------------ K2 on the integrator, cartpoles ----
 # k2_models.problem: seeded tracking problems of each model's env; check
 # raises unless the kernel agrees with its plain version (TOL per element,
-# SHARE_LIMIT of elements outside it) and every G is bit-identical to G 1
-K2_MODEL_T5 = [(name, torch.float32) for name in k2_models.ENVS]
+# SHARE_LIMIT of elements outside it) and every G is bit-identical to G 1.
+# The quadrotor's kernel runs one warp per element (the "warp" layout, no
+# group width): its own tests follow.
+def _layout(name):
+    from diff_qp_mpc_tpu_torch.envs import make_env
+
+    env_name, kwargs, _ = k2_models.ENVS[name]
+    return al_fused_cuda.built_for(make_env(env_name, **kwargs).model).layout
 
 
-@pytest.mark.parametrize("name,T,dtype", k2_models.CASES, ids=str)
+GROUP_MODELS = [name for name in k2_models.ENVS if _layout(name) == "group"]
+GROUP_CASES = [c for c in k2_models.CASES if c[0] in GROUP_MODELS]
+K2_MODEL_T5 = [(name, torch.float32) for name in GROUP_MODELS]
+
+
+@pytest.mark.parametrize("name,T,dtype", GROUP_CASES, ids=str)
 def test_al_fused_models_match_plain(cuda, name, T, dtype):
     before = al_fused_cuda.launches
     row = k2_models.check(name, T, dtype, 64)
@@ -643,7 +654,9 @@ def test_al_fused_refuses_unbuilt_models(cuda):
     before = al_fused_cuda.launches
     for name, T, dtype in (("cartpole1l", 10, torch.float64),
                            ("cartpole2l", 7, torch.float32),
-                           ("integrator", 10, torch.float32)):
+                           ("cartpole2l", 10, torch.float64),
+                           ("integrator", 10, torch.float32),
+                           ("quadrotor", 10, torch.float32)):
         args = k2_models.problem(name, 4, T, dtype, seed=0)
         with pytest.raises(ValueError):
             al_fused_cuda.fused_al_solve(*args)
@@ -697,3 +710,63 @@ def test_cartpole1l_f32_breakdown_through_k2(cuda):
         before[0] + 1, before[1] + 1)
     assert torch.isfinite(u).all() and torch.isfinite(c.grad).all()
     assert float(res.mean()) < 1e-4
+
+
+# ------------------------------------------------ K2 on the quadrotor ----
+@pytest.mark.parametrize("B", k2_models.batches("quadrotor"))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_al_fused_quadrotor_matches_plain(cuda, B, dtype):
+    """The warp layout against its plain version on hover problems at the
+    checkpoint's budget, B 64 and 128 and the batch edge 65 (two elements
+    a block): float64 every element within TOL; float32 the share of
+    elements beyond TOL from the plain float64 result within
+    F32_SHARE_VS_F64. One launch."""
+    before = al_fused_cuda.launches
+    row = k2_models.check("quadrotor", 5, dtype, B)
+    assert al_fused_cuda.launches == before + 1
+    assert row["layout"] == "warp" and row["B"] == B
+
+
+def test_al_fused_quadrotor_shared_memory(cuda):
+    """An element's blocks in shared memory: the sizes of WarpElement
+    (al_fused_warp.cuh) at nx 12, nu 4, T 5, two elements a block, within
+    what the card allows a block."""
+    from diff_qp_mpc_tpu_torch.models import RexQuadrotor
+
+    nx, nu, T = 12, 4, 5
+    n = nx + nu
+    values = (5 * T * n + nx + (T - 1) * nx + 2 * T * nu
+              + (T - 1) * nx * n + 2 * (T - 1) * nx + T * nu
+              + T * n * (n + 1) // 2 + (T - 1) * n * n)
+    for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
+        smem = al_fused_cuda.warp_smem(dtype, T, cuda, RexQuadrotor())
+        assert smem["per_element"] == values * size
+        assert smem["per_block"] == 2 * values * size
+        assert smem["per_block"] <= smem["device_max"]
+
+
+def test_al_fused_quadrotor_refuses_groups(cuda):
+    from diff_qp_mpc_tpu_torch.models import RexQuadrotor
+
+    args = k2_models.problem("quadrotor", 4, 5, torch.float32, seed=0)
+    before = al_fused_cuda.launches
+    for group in (1, 8):
+        with pytest.raises(ValueError, match="one warp per element"):
+            al_fused_cuda.fused_al_solve(*args, group=group)
+    with pytest.raises(ValueError):
+        al_fused_cuda.resident_threads(torch.float32, 5, cuda,
+                                       RexQuadrotor())
+    assert al_fused_cuda.launches == before
+
+
+def test_k1_on_quadrotor_al_newton_systems(cuda):
+    """K1 at n 16 in float32 on the quadrotor's own AL Newton systems (ρ 1
+    … 1e4, reg 1e-7, B 128): within K1_AL_RATIO of the plain float32
+    version's error against the float64 solution (raises otherwise)."""
+    from diff_qp_mpc_tpu_torch.benchmarks import kernel_layouts
+
+    rows = kernel_layouts.k1_al_systems(
+        B=128, rhos=kernel_layouts.K1_QUAD_AL_RHOS, model_name="quadrotor",
+        T_=5)
+    assert {r["n"] for r in rows} == {16}
+    assert len(rows) == 2 * len(kernel_layouts.K1_QUAD_AL_RHOS)

@@ -1,5 +1,5 @@
-"""The port's integrator and cartpole envs (and the pendulum's) vs the JAX
-package's: their constants, reset from given initial states, a run of
+"""The port's integrator, cartpole and quadrotor envs (and the pendulum's)
+vs the JAX package's: their constants, reset from given initial states, a run of
 steps with the same actions (state, reward, done, the success streak),
 _success, goal_error and _diverged, and the port's own initial-state draws
 within the JAX draws' box. Float64; held to 1e-12 (cp2's RK4 sums in
@@ -16,9 +16,13 @@ from diff_qp_mpc_tpu_torch import envs as tenvs
 ENVS = [("pendulum", {}), ("integrator", {}), ("cartpole1link", {}),
         ("cartpole1link", {"stabilization": True}),
         ("cartpole2link", {"stabilization": True}),
-        ("cartpole2link", {})]
+        ("cartpole2link", {}), ("rexquadrotor", {})]
 IDS = ["pendulum", "integrator", "cp1", "cp1-stabilize", "cp2-stabilize",
-       "cp2"]
+       "cp2", "quadrotor"]
+# the quadrotor's attitude, velocity and rates are drawn from normals (its
+# position uniform): their draws have no box, so they are held by their
+# mean and standard deviation
+NORMAL_COORDS = {"rexquadrotor": slice(3, 12)}
 
 
 def _pair(name, kwargs):
@@ -77,7 +81,8 @@ def test_env_predicates_match_jax(name, kwargs):
 @pytest.mark.parametrize("name,kwargs", ENVS, ids=IDS)
 def test_env_steps_match_jax(name, kwargs):
     """From the same initial states, 16 steps with the same actions (some
-    beyond the box): state, reward, done and the success counter."""
+    beyond the box; the quadrotor's near its hover thrust): state, reward,
+    done and the success counter."""
     je, te = _pair(name, kwargs)
     x0 = _states(je, seed=2, scale=0.3)[:-3]
     js, ts = jenvs.EnvState.make(j(x0)), tenvs.EnvState.make(t(x0))
@@ -86,6 +91,12 @@ def test_env_steps_match_jax(name, kwargs):
     jstep = jax.jit(je.step)
     for k in range(16):
         u = rng.uniform(-1.5, 1.5, (x0.shape[0], je.nu)) * high * (k % 2)
+        if hasattr(je.model, "hover_thrust"):
+            # a hover task: near the hover thrust, inside the box (far from
+            # it the quadrotor tumbles and its MRP blows up within the 16
+            # steps, where rounding alone sets where a NaN appears)
+            u = np.asarray(je.model.hover_thrust()) + 0.05 * high * \
+                rng.uniform(-1.0, 1.0, (x0.shape[0], je.nu))
         js, jr, jd = jstep(js, j(u))
         ts, tr, td = te.step(ts, t(u))
         np.testing.assert_allclose(npy(ts.x), np.asarray(js.x), atol=1e-12,
@@ -106,6 +117,17 @@ def test_env_reset_draws_within_jax_box(name, kwargs):
     jx = np.asarray(je.reset(jax.random.PRNGKey(0), B).x)
     tx = npy(te.reset(torch.Generator().manual_seed(0), B,
                       dtype=torch.float64).x)
+    normal = NORMAL_COORDS.get(name)
+    if normal is not None:
+        # the standard error of a mean of 4096 draws is 1.6% of their
+        # standard deviation, of a standard deviation 1.1%
+        jn, tn = jx[:, normal], tx[:, normal]
+        np.testing.assert_allclose(tn.std(0), jn.std(0), rtol=0.05)
+        np.testing.assert_allclose(tn.mean(0), jn.mean(0),
+                                   atol=0.1 * jn.std(0).min())
+        keep = np.ones(jx.shape[1], bool)
+        keep[normal] = False
+        jx, tx = jx[:, keep], tx[:, keep]
     lo, hi = jx.min(0), jx.max(0)
     span = hi - lo
     assert (tx.min(0) >= lo - 0.01 * span).all()
@@ -114,13 +136,15 @@ def test_env_reset_draws_within_jax_box(name, kwargs):
                                atol=0.05 * span.max())
     again = npy(te.reset(torch.Generator().manual_seed(0), B,
                          dtype=torch.float64).x)
+    if normal is not None:
+        again = again[:, keep]
     np.testing.assert_array_equal(tx, again)
 
 
 def test_make_env_names():
     for name in ("pendulum", "integrator", "cartpole1link",
-                 "cartpole2link"):
+                 "cartpole2link", "rexquadrotor"):
         assert type(tenvs.make_env(name)).__name__ == type(
             jenvs.make_env(name)).__name__
     with pytest.raises(ValueError):
-        tenvs.make_env("rexquadrotor")
+        tenvs.make_env("no_such_env")

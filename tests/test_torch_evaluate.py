@@ -166,6 +166,7 @@ def test_noise_modes(noise_type):
 CP1 = "logs/deqmpc_cp1_fused_v10_T10/ckpt_best.msgpack"
 INTEGRATOR = "logs/deqmpc_integrator_mpc_T5_bsz256/ckpt.msgpack"
 CP2_V8 = "logs/deqmpc_cp2_fused_v8_T10/ckpt_best.msgpack"
+QUAD = "logs/deqmpc_quadrotor_fused_v8/ckpt_best.msgpack"
 
 
 def test_new_checkpoints_adopt_their_flags():
@@ -184,12 +185,18 @@ def test_new_checkpoints_adopt_their_flags():
     assert (args.env, args.stabilization, args.T, args.qp_iter,
             args.rho_max, args.al_reg, args.tracking_r) == (
         "cartpole2link", True, 10, 4, 1e4, 1e-6, 0.01)
+    args = evaluate.parse_args(["--ckpt", QUAD, "--fused"])
+    assert (args.env, args.T, args.deq_iter, args.hdim, args.qp_iter,
+            args.rho_max, args.al_reg, args.solver_carry,
+            args.deq_out_type) == ("rexquadrotor", 5, 6, 128, 2, 1e4, None,
+                                   "on", 1)
 
 
 @pytest.mark.parametrize("name,kwargs,expert", [
     ("integrator", {}, "mpc"), ("cartpole1link", {}, "sac"),
     ("cartpole1link", {"stabilization": True}, "mpc"),
-    ("cartpole2link", {"stabilization": True}, "mpc")])
+    ("cartpole2link", {"stabilization": True}, "mpc"),
+    ("rexquadrotor", {}, "mpc")])
 def test_default_data_paths_exist(name, kwargs, expert):
     """train's default expert pickle, from the env's spec_id, is committed
     for each new env (as the JAX trainer names it)."""
@@ -226,8 +233,10 @@ def test_comma_separated_data_is_concatenated():
 
 @pytest.mark.parametrize("ckpt,flags", [(CP1, ["--fused"]),
                                         (INTEGRATOR, []),
-                                        (CP2_V8, ["--fused"])],
-                         ids=["cp1-fused", "integrator-scan", "cp2-fused"])
+                                        (CP2_V8, ["--fused"]),
+                                        (QUAD, ["--fused"])],
+                         ids=["cp1-fused", "integrator-scan", "cp2-fused",
+                              "quad-fused"])
 def test_new_checkpoints_evaluate_on_cpu(ckpt, flags):
     """The evaluate entry point on each new checkpoint, kernels through
     their plain versions: two episodes, three steps."""

@@ -1,7 +1,8 @@
-"""Kernel K2's CUDA sources for the integrator and the cartpoles, built for
-the host with g++ (``utils.k2_host``: one thread per element, no
-multiply-add contraction), against the plain PyTorch version on the CPU:
-the kernel's own arithmetic, checked without a card.
+"""Kernel K2's CUDA sources for the integrator, the cartpoles and the
+quadrotor, built for the host with g++ (``utils.k2_host``: one thread per
+element, no multiply-add contraction; the quadrotor's functor in the
+one-lane kernel), against the plain PyTorch version on the CPU: the
+kernel's own arithmetic, checked without a card.
 
 Tolerances as K2's card checks hold it (``k2_models``): each element's
 error on xu within TOL (float32: but for at most SHARE_LIMIT of the
@@ -20,8 +21,9 @@ from diff_qp_mpc_tpu_torch.utils import k2_host
 def test_host_build_matches_plain(name, T, dtype):
     B = 256
     args = k2_models.problem(name, B, T, dtype, seed=B, device="cpu")
-    host = k2_host.launch(*args, **k2_models.BUDGET)
-    ref = al_fused_cuda.fused_al_solve_reference(*args, **k2_models.BUDGET)
+    budget = k2_models.budget(name)
+    host = k2_host.launch(*args, **budget)
+    ref = al_fused_cuda.fused_al_solve_reference(*args, **budget)
     assert all(bool(torch.isfinite(o).all()) for o in host)
     el = k2_models.element_errors(host, ref)
     assert float((el > k2_models.TOL[dtype]).double().mean()) <= \
