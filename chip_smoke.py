@@ -112,11 +112,11 @@ Phases, each of which raises on failure (there is no CPU fallback):
      integrator's on the scan path (K1, 48), each at a success rate of at
      least 0.95, 64 episodes; cp2 v7 and v8 on the fused path (K2, 18 and
      24), 64 episodes, printed beside the JAX package's 0.094 and 0.125 and
-     not gated; cp1 on the scan path (K1, 96) for 10 steps; the quadrotor
+     not gated; cp1 on the scan path (K1, 96) for 5 steps; the quadrotor
      checkpoint on the fused path (K2, 12 a step: deq_iter 6 × qp_iter 2,
      warm starts carried) over the env's 100 steps, 64 episodes, at a
      success rate of at least QUAD_MIN_SUCCESS, printed beside the JAX
-     package's eval_fused.json, and on the scan path (K1, 48) for 10 steps;
+     package's eval_fused.json, and on the scan path (K1, 48) for 5 steps;
  17. the float64 training gradient card vs CPU (B 8) on cp1 fused (T 5,
      seeded weights), the integrator's scan path and the quadrotor's fused
      path (its checkpoint; QUAD_GRAD_TOL), and training through the train
@@ -126,6 +126,36 @@ Phases, each of which raises on failure (there is no CPU fallback):
      step, and with the quadrotor checkpoint's (fused, T 5, B 128, qp_iter
      2, rho_max 1e4) cut to QUAD_TRAIN_PRETRAIN + QUAD_TRAIN_DEQMPC steps,
      exactly 12 K2 and 6 K1 launches a DEQ-MPC step.
+ 18. the terminal-LQR ip path and the MPC expert, in this order:
+     (a) K3 at (T, nx, nu) = (5, 6, 1) (csrc/riccati.cu) and its horizon
+     kernel (csrc/riccati_horizon.cu) at every expert planner's shape
+     (K3_HORIZON_SHAPES), B 64, 256 and the dataset's batch (200; the
+     quadrotor's 300), float32 and float64, against the plain version:
+     float64 within K3_TOL; float32 at T 5 within K3_TOL, over the longer
+     horizons against the float64 solution within F32_VS_F64_RATIO of the
+     plain float32 version's error; timed at B 64 with the dense KKT's
+     torch.linalg.solve beside it, the horizon kernel also at (5, 6, 1).
+     K3 at (5, 6, 1) on the cp2 ip checkpoint's own scan-IPM systems and
+     the horizon kernel at (10, 6, 1) on the cp2 stabilize expert's, and
+     K4 at (5, 6, 1) on the checkpoint's own QPs (terminal P included),
+     float32 against float64 by the same ratio rule;
+     (b) K4 at (5, 6, 1) on the K4 profiler's random QPs, B 64 and 256,
+     both dtypes, all eight outputs within K4_TOL, timed at B 64;
+     (c) the float64 policy forward card vs CPU on the cp2 ip checkpoint's
+     scan and fused paths (as phase 15), and its closed loops through the
+     evaluate entry point (CP2_IP_RUNS), launches per step exact;
+     (d) its float64 training gradient card vs CPU (B 8, fused) and
+     training with its meta.json's flags (ip, fused, terminal_lqr) cut to
+     CP2_IP_TRAIN_PRETRAIN + CP2_IP_TRAIN_DEQMPC steps, exactly 18 K4 and
+     6 K3 launches a DEQ-MPC step;
+     (e) the MPC expert (learning/datagen.py, float64) on EXPERT_RUNS: the
+     cp2 stabilize planner (T 10, terminal LQR) on 64 trajectories × 30
+     steps and the quadrotor's (T 20) on 16 × 10, exactly (qp_iter + 1) ×
+     12 × 2 horizon-kernel launches an MPC step, ms a step, the success
+     share, its first actions card vs CPU within EXPERT_TOL;
+     (f) DAgger through its entry point from the cp1 checkpoint: 8
+     episodes × 20 steps, 8 states relabeled × 10 steps by the cp1
+     stabilize planner (T 60: 264 horizon-kernel launches an MPC step).
 Bounds: the larger of the bytes over the HBM rate and the operations over
 the float32 peak (diff_qp_mpc_tpu_torch/benchmarks/flops.py); each sin or
 cos counts as the 15 FP32 instructions of its fast path (SINF_FP32_INSTR).
@@ -158,6 +188,7 @@ from diff_qp_mpc_tpu_torch.benchmarks.flops import (
     k5_ops,
 )
 from diff_qp_mpc_tpu_torch.benchmarks.kernel_layouts import (
+    F32_VS_F64_RATIO,
     K1_TOL,
     k2_inputs,
     random_bt_spd,
@@ -165,6 +196,7 @@ from diff_qp_mpc_tpu_torch.benchmarks.kernel_layouts import (
 from diff_qp_mpc_tpu_torch.benchmarks.timing import (
     device_kernel_ms,
     events_ms,
+    queued_events_ms,
 )
 
 CKPT = "logs/deqmpc_pendulum_sac_fused_T5_bsz256/ckpt.msgpack"
@@ -304,10 +336,10 @@ MODEL_RUNS = (
      0.09375, None),
     ("cp2-v8-fused", CP2_V8_CKPT, ["--fused"], MAX_STEPS, "K2", 6 * 4, 0.125,
      None),
-    ("cp1-scan", CP1_CKPT, [], 10, "K1", 6 * 4 * 4, None, None),
+    ("cp1-scan", CP1_CKPT, [], 5, "K1", 6 * 4 * 4, None, None),
     ("quad-fused", QUAD_CKPT, ["--fused"], QUAD_MAX_STEPS, "K2", 6 * 2,
      0.953125, QUAD_MIN_SUCCESS),
-    ("quad-scan", QUAD_CKPT, [], 10, "K1", 6 * 2 * 4, None, None))
+    ("quad-scan", QUAD_CKPT, [], 5, "K1", 6 * 2 * 4, None, None))
 # the new paths' float64 policy forward, card vs CPU, per initial state
 # (row): each of its 6 × qp_iter tracking solves meets the line search's
 # near-ties, and the DEQ iterates carry them on, so one ulp of the state
@@ -326,6 +358,11 @@ MODEL_RUNS = (
 # CPU; PERF.md PR 7); the card's rounding is held to twice the largest
 POLICY_JUMP = 1e-3
 POLICY_ULP_FACTOR = 14.0
+# the paths of the new models' policy check, and the cp2 ip checkpoint's
+# (held alike in phase (c) of the terminal-LQR slice)
+MODEL_POLICY_PATHS = ("cp1-scan", "cp1-fused-T5", "integrator-scan",
+                      "cp2-v7-fused", "quad-scan", "quad-fused")
+CP2_IP_POLICY_PATHS = ("cp2-ip-scan", "cp2-ip-fused")
 POLICY_SPREAD_SEEDS = 16
 # the K2 instantiation each fused run launches
 MODEL_RUN_KERNEL = {"cp1-fused": "cartpole1l T10 float32",
@@ -350,7 +387,7 @@ TRACED_TRAIN_STEPS["quad-fused"] = 2
 QUAD_GRAD_TOL = 1e-8
 # the new paths' float64 training gradient checks, card vs CPU
 GRAD_TOLS = {"cp1-fused-T5": GRAD_TOL, "integrator-scan": GRAD_TOL,
-             "quad-fused": QUAD_GRAD_TOL}
+             "quad-fused": QUAD_GRAD_TOL, "cp2-ip-fused": GRAD_TOL}
 # K1 at the new models' (n, T): cp1 (n 5) at T 5 (the float64 gradient
 # check, B 8) and T 10 (its scan closed loop, B 64, and the backward of its
 # fused training, B 256), cp2 (n 7) at T 5 and 10 (card tests only)
@@ -362,6 +399,58 @@ K1_SHAPE_RUNS = {(5, 10): [("cp1-scan", "closed loop"),
                  (16, 5): [("quad-scan", "closed loop"),
                            ("quad-fused", "training")]}
 TRACED_TRAIN_STEPS["cp1-fused"] = 2
+
+# the terminal-LQR ip path: the cp2 ip checkpoint (Cartpole2L stabilize, ip,
+# T 5, qp_iter 2, tracking_r 0.01, terminal_lqr, trained fused)
+CP2_IP_CKPT = "logs/deqmpc_cp2_ip_term_v1/ckpt_best.msgpack"
+CP2_IP_META = CP2_IP_CKPT + ".meta.json"
+# its closed loops: (name, flags, max steps, kernel, launches per step),
+# as LAUNCHES_PER_STEP's ip paths; not gated (the JAX package reads 0.016
+# fused and 0.094 scan over its own 64 episodes of up to 200 steps:
+# eval_fused.json, eval.json, written before its Cartpole2L.state_clip
+# wrapped θ₂ to [−π, π), which the port copies: RESULTS.md's
+# "pre-seam-fix"; tests/test_torch_cp2_ip_closed_loop.py rolls both
+# packages as they are from the JAX evaluator's initial states). Both are
+# host-bound (the cp2 model's dual Jacobians and rollouts: ~0.8 s a fused
+# step), so the fused path runs 64 episodes cut to 30 steps and the scan
+# path to 10
+CP2_IP_RUNS = (("cp2-ip-fused", ["--fused"], 30, "K4", 6 * 3),
+               ("cp2-ip-scan", [], 10, "K3", 6 * 3 * 12 * 2))
+# its training, cut as cp1's: per DEQ-MPC step 18 K4 and one K3 backward
+# solve per tracking solve
+CP2_IP_TRAIN_PRETRAIN, CP2_IP_TRAIN_DEQMPC = 20, 20
+LAUNCHES_PER_TRAIN_STEP["cp2-ip-fused"] = {"K4": 6 * 3, "K3": 6}
+TRACED_TRAIN_STEPS["cp2-ip-fused"] = 2
+# the MPC expert planners' (T, nx, nu) (learning/datagen.py EXPERT_PLANNER):
+# cp2 stabilize (terminal LQR), the pendulum's two, the integrator's CLI
+# default T, cp1 stabilize and swing-up, cp2 swing-up, the quadrotor
+K3_HORIZON_SHAPES = ((10, 6, 1), (20, 2, 1), (40, 2, 1), (30, 2, 1),
+                     (60, 4, 1), (80, 4, 1), (120, 6, 1), (20, 12, 4))
+# the datasets' batch by (nx, nu): 200 trajectories, the quadrotor's 300
+K3_DATASET_B = {(12, 4): 300}
+# the device ms of the terminal-LQR kernel rows (K3 at (5, 6, 1), the
+# horizon kernel, K4 at (5, 6, 1)) come from CUDA events queued
+# behind a spin kernel (timing.queued_events_ms), not from torch.profiler:
+# on one card machine the profiler saw no time of the horizon kernel in
+# three windows running, where on another it saw every launch
+
+# the expert runs: (name, env, env flags, trajectories, MPC steps)
+EXPERT_RUNS = (("cp2-stabilize", "cartpole2link", {"stabilization": True},
+                EPISODES, 30),
+               ("quadrotor", "rexquadrotor", {}, 16, 10))
+# the expert's first actions card vs CPU, float64, on EXPERT_CPU_ROWS rows:
+# each plan's SQP meets near-ties (its best-iterate comparison and rollout
+# line search pick between candidates whose costs agree to rounding); the
+# port and the JAX package, both on the CPU, differ by up to 6.3e-7 of the
+# plan's largest force on cp2's stabilize plans
+# (tests/test_torch_datagen.py), and the card rounds differently again
+EXPERT_CPU_ROWS, EXPERT_TOL = 4, 1e-5
+# DAgger from the cp1 checkpoint: episodes × steps of the policy (fused,
+# warm starts carried: 24 K2 a step), relabeled states × expert steps with
+# the cp1 stabilize planner (T 60, qp_iter 10: 11 QPs × 12 × 2 K3h a step)
+DAGGER_EPISODES, DAGGER_STEPS = 8, 20
+DAGGER_RELABEL, DAGGER_RELABEL_STEPS = 8, 10
+DAGGER_K2_PER_STEP, DAGGER_K3H_PER_STEP = 6 * 4, 11 * 12 * 2
 
 
 def log(*a):
@@ -752,9 +841,7 @@ def phase_roofline():
     from diff_qp_mpc_tpu_torch.benchmarks import prof_trajqp_fused as prof
     from diff_qp_mpc_tpu_torch.benchmarks import roofline_fused
 
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     roof = roofline_fused.roofline(quick=True, n_rep=ROOF_REP,
                                    n_outer=ROOF_OUTER)
     log("roofline", json.dumps(roof))
@@ -763,7 +850,7 @@ def phase_roofline():
         row = prof.bench(*case, n_rep=ROOF_REP, n_outer=ROOF_OUTER)
         log("prof_trajqp_fused", json.dumps(row))
         cases.append(row)
-    counts = {k: w.launches for k, w in wrappers.items()}
+    counts = read_launches()
     log("roofline launches", json.dumps(counts))
     if counts["K5"] <= 0:
         raise RuntimeError("the roofline path launched K5 no time")
@@ -888,8 +975,9 @@ def phase_policy():
 
 # --------------------------------------------------------- main path ----
 def kernel_wrappers():
-    """Each kernel's wrapper module, whose ``launches`` counts its
-    launches."""
+    """Each kernel's wrapper module and the name of its launch count: K3's
+    wrapper counts its unrolled kernel in ``launches`` and its horizon
+    kernel (K3h) in ``horizon_launches``."""
     from diff_qp_mpc_tpu_torch.ops import (
         al_fused_cuda,
         btsolve_cuda,
@@ -898,8 +986,24 @@ def kernel_wrappers():
         trajqp_fused_cuda,
     )
 
-    return {"K1": btsolve_cuda, "K2": al_fused_cuda, "K3": riccati_cuda,
-            "K4": trajqp_fused_cuda, "K5": sin_chain_cuda}
+    return {"K1": (btsolve_cuda, "launches"),
+            "K2": (al_fused_cuda, "launches"),
+            "K3": (riccati_cuda, "launches"),
+            "K3h": (riccati_cuda, "horizon_launches"),
+            "K4": (trajqp_fused_cuda, "launches"),
+            "K5": (sin_chain_cuda, "launches")}
+
+
+def reset_launches():
+    """Every kernel's launch count set to 0."""
+    for module, count in kernel_wrappers().values():
+        setattr(module, count, 0)
+
+
+def read_launches():
+    """Every kernel's launch count, by kernel id."""
+    return {k: getattr(module, count)
+            for k, (module, count) in kernel_wrappers().items()}
 
 
 def closed_loops(runs, tag):
@@ -911,13 +1015,11 @@ def closed_loops(runs, tag):
     with the launches, by name."""
     from diff_qp_mpc_tpu_torch.learning import evaluate
 
-    wrappers = kernel_wrappers()
     out = {}
     for name, argv, kid, per_step, min_success in runs:
-        for w in wrappers.values():
-            w.launches = 0
+        reset_launches()
         metrics = evaluate.main(argv)
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = read_launches()
         out[name] = dict(metrics, launches=counts, launches_per_step=(
             counts[kid] / metrics["steps_run"]))
         log(tag, name, json.dumps(out[name]))
@@ -987,6 +1089,9 @@ def phase_k1_models():
                                                 T_=T_)
         for r in rows[n, T_]:
             log("K1 model shapes", json.dumps(r))
+        rows["library", n, T_] = k1_library_ms(EPISODES, n, T_)
+        log("K1 model shapes library", json.dumps(dict(
+            B=EPISODES, n=n, T=T_, library_ms=rows["library", n, T_])))
     rows["cp1 AL systems"] = kernel_layouts.k1_al_systems(
         B=256, model_name="cartpole1l", T_=10)
     for r in rows["cp1 AL systems"]:
@@ -999,16 +1104,31 @@ def phase_k1_models():
     return rows
 
 
+def k1_library_ms(B, n, T_):
+    """ms of torch.linalg.cholesky + cholesky_solve on the dense (T·n)²
+    systems K1 solves (float32, K1's reg on the diagonal)."""
+    from diff_qp_mpc_tpu_torch.ops import btsolve
+
+    reg = AL_BUDGET["reg"]
+    D, O, b = random_bt_spd(B, T_, n, torch.float32, seed=B)
+    H = btsolve.to_dense(D, O) + reg * torch.eye(
+        T_ * n, dtype=torch.float32, device="cuda")
+    bf = b.reshape(B, T_ * n, 1)
+    return events_ms(lambda: torch.cholesky_solve(
+        bf, torch.linalg.cholesky(H)), 50)
+
+
 def k1_by_shape(k1_models, model_runs, training):
     """The kernels line's K1 rows per new (n, T): float32 ms (the layout
     the rule picks), bound and the largest relative error per dtype at B
     64, and the launches of the runs that take the shape."""
     out = {}
     for (n, T_), rows in ((k, v) for k, v in k1_models.items()
-                          if isinstance(k, tuple)):
+                          if isinstance(k, tuple) and len(k) == 2):
         r = next(r for r in rows if r["B"] == EPISODES)
         lay = r["chosen_layout"]
         entry = dict(B=EPISODES, layout=lay, ms=r["ms"][lay],
+                     library_ms=k1_models["library", n, T_],
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      launches=0, **{k: max(x[k] for x in rows)
                                     for k in r if k.startswith("max_rel")})
@@ -1097,18 +1217,16 @@ def train_run(path, argv, traced_steps):
     )
 
     iters = train.build_parser().parse_args(argv).iters
-    wrappers = kernel_wrappers()
     records = []
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = {}
 
     def reset():
-        for w in wrappers.values():
-            w.launches = 0
+        reset_launches()
         al_mpc.guard_drops = 0
 
     def on_step(rec):
-        rec["launches"] = {k: w.launches for k, w in wrappers.items()}
+        rec["launches"] = read_launches()
         rec["guard_drops"] = int(al_mpc.guard_drops)
         records.append(rec)
         if len(records) == iters - traced_steps:
@@ -1126,11 +1244,11 @@ def train_run(path, argv, traced_steps):
         al_mpc.guard_drops = None
         if "t0" in window and "wall_us" not in window:
             prof.stop()
-    want = {k: 0 for k in wrappers}
+    want = {k: 0 for k in kernel_wrappers()}
     want.update(LAUNCHES_PER_TRAIN_STEP[path])
     for rec in records:
         expected = want if rec["mode"] == "deqmpc" else {
-            k: 0 for k in wrappers}
+            k: 0 for k in kernel_wrappers()}
         if rec["launches"] != expected:
             raise RuntimeError(f"{path} training step {rec['iter']} "
                                f"({rec['mode']}): launches "
@@ -1230,8 +1348,9 @@ def _cp1_t5_policy(args, env):
     return make_policy(args, env)
 
 
-def _model_policies():
-    """(name, args, env, policy factory) of the float64 checks' paths."""
+def _model_policies(names=MODEL_POLICY_PATHS):
+    """(name, args, env, policy factory) of the float64 checks' paths
+    ``names``."""
     from diff_qp_mpc_tpu_torch.envs import make_env
     from diff_qp_mpc_tpu_torch.learning import evaluate, train
 
@@ -1250,9 +1369,14 @@ def _model_policies():
              ("quad-scan", evaluate.parse_args(["--ckpt", QUAD_CKPT]),
               QUAD_CKPT),
              ("quad-fused", evaluate.parse_args(["--ckpt", QUAD_CKPT,
-                                                 "--fused"]), QUAD_CKPT)]
+                                                 "--fused"]), QUAD_CKPT),
+             ("cp2-ip-scan", evaluate.parse_args(["--ckpt", CP2_IP_CKPT]),
+              CP2_IP_CKPT),
+             ("cp2-ip-fused", evaluate.parse_args(["--ckpt", CP2_IP_CKPT,
+                                                   "--fused"]),
+              CP2_IP_CKPT)]
     out = []
-    for name, args, ckpt in cases:
+    for name, args, ckpt in (c for c in cases if c[0] in names):
         env = make_env(args.env, **({"stabilization": True}
                                     if args.stabilization else {}))
         state = (make_policy_from(args, env, ckpt) if ckpt else
@@ -1312,7 +1436,8 @@ def policy_spread(seeds=POLICY_SPREAD_SEEDS, B=8):
     largest ratio over the seeds, from which POLICY_ULP_FACTOR is set. Run
     it as ``python3 -c 'import chip_smoke; chip_smoke.policy_spread()'``."""
     out = {}
-    for name, args, env, factory in _model_policies():
+    for name, args, env, factory in _model_policies(
+            MODEL_POLICY_PATHS + CP2_IP_POLICY_PATHS):
         policy = factory().to(dtype=torch.float64)
         ratios, witness, jumps = [], [], 0
         for seed in range(seeds):
@@ -1332,12 +1457,12 @@ def policy_spread(seeds=POLICY_SPREAD_SEEDS, B=8):
     return out
 
 
-def phase_model_policy():
-    """One float64 policy forward on the card against the CPU on the new
-    models' paths, row by row: within POLICY_ULP_FACTOR times the CPU's own
+def phase_model_policy(names=MODEL_POLICY_PATHS):
+    """One float64 policy forward on the card against the CPU on the paths
+    ``names``, row by row: within POLICY_ULP_FACTOR times the CPU's own
     largest change under one ulp of the state (or POLICY_TOL if larger) on
     every row that change moves by at most POLICY_JUMP (at least half)."""
-    for name, args, env, factory in _model_policies():
+    for name, args, env, factory in _model_policies(names):
         x = env._sample_init(torch.Generator().manual_seed(0), 8)
         cpu = factory().to(dtype=torch.float64)
         ref = _last_iterate(cpu, x)
@@ -1391,14 +1516,14 @@ def phase_model_main_path():
     return runs
 
 
-def phase_model_train_grad():
+def phase_model_train_grad(names=MODEL_POLICY_PATHS):
     """One DEQ-MPC loss and gradient, float64, B GRAD_B, on the card against
     the CPU: cp1 fused (T 5, seeded weights, a batch of its expert data)
     and the integrator's checkpoint on the scan path."""
     from diff_qp_mpc_tpu_torch.learning import data, train
 
     rows = {}
-    for name, args, env, factory in _model_policies():
+    for name, args, env, factory in _model_policies(names):
         if name not in GRAD_TOLS:
             continue
         dataset = data.load_expert_pickle(
@@ -1468,6 +1593,533 @@ def phase_model_train(path, meta_path, pretrain, deqmpc):
     return row
 
 
+# ------------------- the terminal-LQR ip path and the MPC expert (cp2) ----
+def _rel_err(got, want):
+    """max |got − want| over max |want|, in float64."""
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+def _k3_errors(out, ref):
+    """The largest of dx's, du's and λ's _rel_err."""
+    return max(_rel_err(g, w) for g, w in zip(out, ref))
+
+
+def _plain_k3(args, reg):
+    from diff_qp_mpc_tpu_torch.ops import riccati
+
+    sol = riccati.batched_lqr_kkt_solve(*args, reg)
+    return sol.dx, sol.du, sol.lam
+
+
+def k3_check(args, reg, ratio=None):
+    """K3 on ``args`` against its plain version: float64 within K3_TOL;
+    float32 within K3_TOL, or with ``ratio`` (by default where T is not
+    the tracker's 5; an IPM's own systems pass True) against the float64
+    solution within F32_VS_F64_RATIO of the plain float32 version's error
+    (or K3_TOL). Returns the row; raises on a failure."""
+    from diff_qp_mpc_tpu_torch.ops import riccati_cuda
+
+    dtype = args[0].dtype
+    B, T_, nx, nu = args[1].shape
+    out = riccati_cuda.batched_lqr_kkt_solve(*args, reg)
+    plain = _plain_k3(args, reg)
+    torch.cuda.synchronize()
+    row = dict(B=B, T=T_, nx=nx, nu=nu, dtype=str(dtype),
+               kernel=riccati_cuda.kernel_for(T_, nx, nu),
+               max_rel_err=_k3_errors(out, plain), tol=K3_TOL[dtype])
+    finite = all(bool(torch.isfinite(o).all()) for o in out)
+    if ratio is None:
+        ratio = T_ != T
+    if dtype == torch.float64 or not ratio:
+        ok = finite and row["max_rel_err"] <= K3_TOL[dtype]
+    else:
+        ref = _plain_k3([a.double() for a in args], reg)
+        row["kernel_vs_f64"] = _k3_errors(out, ref)
+        row["plain_vs_f64"] = _k3_errors(plain, ref)
+        row["limit"] = max(K3_TOL[dtype],
+                           F32_VS_F64_RATIO * row["plain_vs_f64"])
+        ok = finite and row["kernel_vs_f64"] <= row["limit"]
+    if not ok:
+        raise RuntimeError(f"K3 disagrees with its plain version: {row}")
+    return row
+
+
+def k3_timing(args, reg, name=None):
+    """ms of the kernel ``name`` (by default the one the shape routes to;
+    device time from events queued behind a spin kernel, see the note
+    above EXPERT_RUNS), of the plain version, and of torch.linalg.solve on
+    the dense KKT system (events around 50 calls, as phase_k3's rows), and
+    the bound, float32."""
+    from diff_qp_mpc_tpu_torch.ops import riccati_cuda
+
+    B, T_, nx, nu = args[1].shape
+    name = name or riccati_cuda.kernel_for(T_, nx, nu)
+    kern = lambda: riccati_cuda._launch(args, float(reg), name)
+    row = dict(B=B, T=T_, nx=nx, nu=nu, kernel=name,
+               ms=queued_events_ms(kern, 20),
+               plain_ms=events_ms(lambda: _plain_k3(args, reg), 3,
+                                  warmup=1))
+    Kd, rhs = dense_kkt(*args, reg)
+    library = lambda: torch.linalg.solve(Kd, rhs)
+    row["library_ms"] = events_ms(library, 50)
+    row["library_max_rel_err"] = _k3_errors(
+        dense_kkt_split(library(), T_, nx, nu), _plain_k3(args, reg))
+    row["bound_ms"], row["bound_by"] = bound(B * k3_bytes(T_, nx, nu),
+                                             B * k3_ops(T_, nx, nu))
+    return row
+
+
+def phase_k3_horizon():
+    """(a) K3 at (5, 6, 1) (the unrolled kernel) and the horizon kernel at
+    every expert planner's shape, B 64, 256 and the dataset's batch, both
+    dtypes, against the plain version (k3_check); timed in float32 at B
+    64, the horizon kernel also at (5, 6, 1) beside the unrolled one."""
+    reg = IP_BUDGET["reg"]
+    rows = {}
+    for shape in ((T, 6, 1),) + K3_HORIZON_SHAPES:
+        T_, nx, nu = shape
+        key = f"T{T_} nx{nx} nu{nu}"
+        checks = []
+        for dtype in (torch.float32, torch.float64):
+            for B in (EPISODES, 256, K3_DATASET_B.get((nx, nu), 200)):
+                args = lqr_problem(B, T_, nx, nu, dtype, seed=B + T_)
+                checks.append(k3_check(args, reg))
+                log("K3 horizon", json.dumps(checks[-1]))
+        args = lqr_problem(EPISODES, T_, nx, nu, torch.float32,
+                           seed=EPISODES + T_)
+        rows[key] = dict(k3_timing(args, reg), checks=checks)
+        if T_ == T:
+            rows[key]["horizon_kernel"] = k3_timing(args, reg,
+                                                    "riccati_horizon")
+        log("K3 horizon timing", json.dumps(
+            {k: v for k, v in rows[key].items() if k != "checks"}))
+    return rows
+
+
+class recording:
+    """Within the block, ``module.name`` also records a copy of its
+    positional arguments (and keywords) at every call."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        fn = getattr(self.module, self.name)
+
+        def spy(*args, **kw):
+            self.calls.append((tuple(a.clone() if isinstance(
+                a, torch.Tensor) else a for a in args), dict(kw)))
+            return fn(*args, **kw)
+
+        self.fn = fn
+        setattr(self.module, self.name, spy)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def _cp2_ip_policy(fused, device="cuda", dtype=torch.float32):
+    from diff_qp_mpc_tpu_torch.envs import make_env
+    from diff_qp_mpc_tpu_torch.learning import evaluate
+
+    args = evaluate.parse_args(["--ckpt", CP2_IP_CKPT]
+                               + (["--fused"] if fused else []))
+    env = make_env(args.env, stabilization=args.stabilization)
+    policy = make_policy_from(args, env, CP2_IP_CKPT)
+    return policy.to(device=device, dtype=dtype), env
+
+
+def phase_cp2_qps():
+    """K3 at (5, 6, 1) on the cp2 ip checkpoint's own Riccati systems (its
+    scan IPM's, terminal P included), K4 at (5, 6, 1) on its own QPs (its
+    fused path's) and the horizon kernel at (10, 6, 1) on the cp2
+    stabilize expert's systems, recorded on the card in float32 from 64
+    initial states; and (b) K4 at (5, 6, 1) on the K4 profiler's random
+    QPs, B 64 and 256, both dtypes, within K4_TOL on all eight outputs,
+    timed at B 64."""
+    from diff_qp_mpc_tpu_torch.benchmarks import prof_trajqp_fused as prof
+    from diff_qp_mpc_tpu_torch.envs import make_env
+    from diff_qp_mpc_tpu_torch.learning import datagen
+    from diff_qp_mpc_tpu_torch.ops import riccati_cuda, trajqp_fused_cuda
+
+    rows = {"K3 checkpoint systems": [], "K4 checkpoint QPs": [],
+            "K3 expert systems": []}
+    policy, env = _cp2_ip_policy(fused=False)
+    x = env._sample_init(torch.Generator().manual_seed(1), EPISODES).to(
+        device="cuda", dtype=torch.float32)
+    with recording(riccati_cuda, "batched_lqr_kkt_solve") as calls:
+        with torch.no_grad():
+            policy(x)
+    # every 24th system: the predictor of each IPM solve's first iteration
+    for args, _ in calls[::24] + calls[23::24]:
+        for dtype in (torch.float32, torch.float64):
+            rows["K3 checkpoint systems"].append(k3_check(
+                [a.to(dtype) for a in args[:9]], args[9], ratio=True))
+    log("K3 cp2 checkpoint systems", json.dumps(dict(
+        systems=len(rows["K3 checkpoint systems"]) // 2,
+        worst=max(rows["K3 checkpoint systems"], key=lambda r: r.get(
+            "kernel_vs_f64", 0.0) / r.get("limit", 1.0)))))
+
+    policy, env = _cp2_ip_policy(fused=True)
+    with recording(trajqp_fused_cuda, "fused_trajqp_solve") as calls:
+        with torch.no_grad():
+            policy(x)
+    for args, kw in calls[::3]:
+        rows["K4 checkpoint QPs"].append(k4_check(args, kw, ratio=True))
+    log("K4 cp2 checkpoint QPs", json.dumps(rows["K4 checkpoint QPs"][-1]))
+
+    stab = make_env("cartpole2link", stabilization=True)
+    with recording(riccati_cuda, "batched_lqr_kkt_solve") as calls:
+        datagen.mpc_expert_rollouts(
+            stab, EPISODES, max_steps=1, dtype=torch.float32, seed=1,
+            device="cuda")
+    for args, _ in calls[::12]:
+        for dtype in (torch.float32, torch.float64):
+            rows["K3 expert systems"].append(k3_check(
+                [a.to(dtype) for a in args[:9]], args[9], ratio=True))
+    log("K3 cp2 expert systems", json.dumps(dict(
+        systems=len(rows["K3 expert systems"]) // 2,
+        worst=max(rows["K3 expert systems"], key=lambda r: r.get(
+            "kernel_vs_f64", 0.0) / r.get("limit", 1.0)))))
+
+    rows["K4 random"] = []
+    for dtype in (torch.float32, torch.float64):
+        for B in (EPISODES, 256):
+            arrays, box = prof.problem(B, T, 6, 1, dtype)
+            arrays = (*arrays, *prof.cold_start(*arrays))
+            bounds = (box.u_lo, box.u_hi)
+            row = k4_check(arrays, dict(IP_BUDGET, u_lo=bounds[0],
+                                        u_hi=bounds[1]))
+            rows["K4 random"].append(row)
+            log("K4 T5 nx6 nu1", json.dumps(row))
+            if dtype == torch.float32 and B == EPISODES:
+                kern = lambda: trajqp_fused_cuda.fused_trajqp_solve(
+                    *arrays, *bounds, **IP_BUDGET)
+                rows["timing"] = dict(
+                    B=B, ms=queued_events_ms(kern, 10),
+                    plain_ms=events_ms(
+                        lambda: trajqp_fused_cuda.fused_trajqp_solve_reference(
+                            *arrays, *bounds, **IP_BUDGET), 3, warmup=1),
+                    library_ms=None)
+                rows["timing"]["bound_ms"], rows["timing"]["bound_by"] = \
+                    bound(B * k4_bytes(T, 6, 1),
+                          B * k4_ops(T, 6, 1, IP_BUDGET["max_iter"]))
+                log("K4 T5 nx6 nu1 timing", json.dumps(rows["timing"]))
+    return rows
+
+
+def _ulp_nudged(args, i, up):
+    """``args`` with the tensor at ``i`` one ulp up or down."""
+    out = list(args)
+    out[i] = torch.nextafter(args[i], torch.full_like(
+        args[i], float("inf") if up else -float("inf")))
+    return out
+
+
+def k4_check(args, kw, ratio=False):
+    """K4 on the QP ``args`` (C … u_init, then the box if positional) with
+    the keywords ``kw`` against its plain version, on all eight outputs:
+    float64 within K4_TOL; float32 within K4_TOL, or with ``ratio`` (the
+    checkpoint's own QPs) against the float64 solution, per output, within
+    F32_VS_F64_RATIO of the plain float32 version's error or K4_TOL. The
+    plain version's error there is its rounding envelope: the largest over
+    the QP and its four one-ulp nudges of c and x0 (float32 rounding of the
+    residual total alone, with P's entries at 2.5e5, moves it by 1-3% from
+    draw to draw). Returns the row; raises on a failure."""
+    from diff_qp_mpc_tpu_torch.ops import trajqp_fused_cuda
+
+    args = [a.contiguous() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    dtype = args[0].dtype
+    out = trajqp_fused_cuda.fused_trajqp_solve(*args, **kw)
+    plain = trajqp_fused_cuda.fused_trajqp_solve_reference(*args, **kw)
+    torch.cuda.synchronize()
+    errs = k4_errors(out, plain)
+    row = dict(B=args[0].shape[0], dtype=str(dtype), scaled_err=errs,
+               tol=K4_TOL[dtype])
+    finite = all(bool(torch.isfinite(o).all()) for o in out)
+    if dtype == torch.float64 or not ratio:
+        ok = finite and max(errs.values()) <= K4_TOL[dtype]
+    else:
+        a64 = [a.double() if isinstance(a, torch.Tensor) else a
+               for a in args]
+        ref = trajqp_fused_cuda.fused_trajqp_solve_reference(*a64, **kw)
+        k_err = k4_errors([o.double() for o in out], ref)
+        p_err = k4_errors([o.double() for o in plain], ref)
+        for i in (1, 5):  # c, x0
+            for up in (True, False):
+                e = k4_errors([o.double() for o in
+                               trajqp_fused_cuda.fused_trajqp_solve_reference(
+                                   *_ulp_nudged(args, i, up), **kw)], ref)
+                p_err = {f: max(p_err[f], e[f]) for f in K4_FIELDS}
+        row.update(kernel_vs_f64=k_err, plain_vs_f64=p_err)
+        ok = finite and all(k_err[f] <= max(K4_TOL[dtype],
+                                            F32_VS_F64_RATIO * p_err[f])
+                            for f in K4_FIELDS)
+        out64 = trajqp_fused_cuda.fused_trajqp_solve(*a64, **kw)
+        row["float64_scaled_err"] = k4_errors(out64, ref)
+        ok = ok and max(row["float64_scaled_err"].values()) \
+            <= K4_TOL[torch.float64]
+    if not ok:
+        raise RuntimeError(f"K4 disagrees with its plain version: {row}")
+    return row
+
+
+def phase_cp2_ip_main_path():
+    """(c) the cp2 ip checkpoint in closed loop through the evaluate entry
+    point, float32, 64 episodes: the fused path (K4, 18 launches a step)
+    cut to 30 steps, beside the JAX package's eval_fused.json (its
+    episodes run up to 200), and the scan path (K3 at (5, 6, 1), 432 a
+    step) cut to 10 steps; the launches per step exact, no other kernel.
+    The float64 forward card vs CPU runs in phase_model_policy (its cases
+    include these paths)."""
+    runs = closed_loops(
+        [(name, ["--ckpt", CP2_IP_CKPT, "--episodes", str(EPISODES),
+                 "--max_steps", str(steps)] + flags, kid, per_step, None)
+         for name, flags, steps, kid, per_step in CP2_IP_RUNS],
+        "cp2 ip main_path")
+    with open(os.path.join(os.path.dirname(CP2_IP_CKPT),
+                           "eval_fused.json")) as f:
+        jax_eval = json.load(f)
+    keys = ("success_rate", "mean_reward", "mean_episode_len",
+            "median_final_goal_err")
+    log("cp2 ip main_path vs JAX", json.dumps(dict(
+        port={k: runs["cp2-ip-fused"][k] for k in keys},
+        jax={k: jax_eval[k] for k in keys})))
+    return runs
+
+
+def expert_run(name, env, num_traj, max_steps, per_step):
+    """The MPC expert (datagen.mpc_expert_rollouts, float64, the default)
+    on ``env`` from its reset draw: the launch counts set to 0 before every
+    MPC step and read after it, exactly ``per_step`` horizon-kernel (K3h)
+    launches and no other kernel; ms per step (host clock, each step ends
+    in a copy to the host), the success share of the trajectories' last
+    states; its first step's actions against the CPU expert's on the first
+    EXPERT_CPU_ROWS initial states, within EXPERT_TOL of their largest; and
+    the device's busy share over a torch.profiler trace of the second and
+    third MPC steps (kernels, copies and memsets over the host's time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diff_qp_mpc_tpu_torch.learning import datagen
+    from diff_qp_mpc_tpu_torch.utils.profile_main_path import (
+        _trace_device_time,
+    )
+
+    want = {k: 0 for k in kernel_wrappers()}
+    want["K3h"] = per_step
+    times, bad = [], []
+    t_prev = [time.perf_counter()]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def on_step(step):
+        counts = read_launches()
+        if counts != want:
+            bad.append((step, counts))
+        reset_launches()
+        now = time.perf_counter()
+        times.append((now - t_prev[0]) * 1e3)
+        t_prev[0] = now
+        if step == 0:  # trace the second and third steps
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif step == 2:
+            window["wall_us"] = (time.perf_counter() - window["t0"]) * 1e6
+            prof.stop()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        trajs = datagen.mpc_expert_rollouts(
+            env, num_traj, max_steps=max_steps, device="cuda",
+            on_step=on_step)
+    finally:
+        if "t0" in window and "wall_us" not in window:
+            prof.stop()
+    seconds = time.perf_counter() - t0
+    trace = os.path.join("build", "profile", f"trace_expert_{name}.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    prof.export_chrome_trace(trace)
+    busy, kernels = _trace_device_time(trace)
+    if bad:
+        raise RuntimeError(f"{name}: launches per MPC step {bad[:3]}, "
+                           f"expected {want}")
+    finals = torch.as_tensor(np.stack([t[-1][0] for t in trajs]))
+    # the reset draw the card run started from (drawn on the CPU, float64)
+    x0 = env._sample_init(torch.Generator().manual_seed(0), num_traj)
+    cpu = datagen.mpc_expert_rollouts(env, EXPERT_CPU_ROWS, max_steps=1,
+                                      init_states=x0[:EXPERT_CPU_ROWS],
+                                      device="cpu")
+    u_card = np.stack([t[0][1] for t in trajs[:EXPERT_CPU_ROWS]])
+    u_cpu = np.stack([t[0][1] for t in cpu])
+    row = dict(name=name, trajectories=len(trajs),
+               steps=len(times), launches_per_step=dict(K3h=per_step),
+               ms_per_step_median=float(np.median(times[1:])),
+               ms_first_step=times[0], seconds=seconds,
+               success_share=float(env._success(finals).double().mean()),
+               mean_len=float(np.mean([len(t) for t in trajs])),
+               first_action_card_vs_cpu=float(np.abs(u_card - u_cpu).max()),
+               tol=EXPERT_TOL * float(np.abs(u_cpu).max()),
+               traced_steps=2,
+               device_busy_ms_per_step=sum(busy.values()) / 2 / 1e3,
+               device_busy_share=sum(busy.values()) / window["wall_us"],
+               device_launches_per_step=sum(
+                   c for _, c in kernels.values()) / 2,
+               launches_total={"K3h": per_step * len(times)})
+    log("expert", json.dumps(row))
+    if not (all(np.isfinite(p).all() for t in trajs for s in t for p in s)
+            and row["first_action_card_vs_cpu"] <= row["tol"]):
+        raise RuntimeError(f"{name}: {row}")
+    return row
+
+
+def phase_experts():
+    """(e) the cp2 stabilize expert (terminal LQR, T 10, K3h at (10, 6, 1))
+    on 64 trajectories cut to 30 steps, and the quadrotor's (T 20, K3h at
+    (20, 12, 4)) on 16 × 10; per MPC step (qp_iter + 1) QPs × max_iter 12
+    × 2 Riccati solves."""
+    from diff_qp_mpc_tpu_torch.envs import make_env
+    from diff_qp_mpc_tpu_torch.learning import datagen
+
+    out = {}
+    for name, env_name, kw, n, steps in EXPERT_RUNS:
+        env = make_env(env_name, **kw)
+        qp_iter = datagen.planner_settings(env)["qp_iter"]
+        per_step = (qp_iter + 1) * IP_BUDGET["max_iter"] * 2
+        out[name] = expert_run(name, env, n, steps, per_step)
+    return out
+
+
+def phase_dagger():
+    """(f) DAgger through its entry point from the cp1 checkpoint (its
+    meta.json's flags, fused): DAGGER_EPISODES episodes of DAGGER_STEPS
+    steps (K2, 24 launches a step), DAGGER_RELABEL states relabeled by the
+    stabilize expert for DAGGER_RELABEL_STEPS steps (K3h at (60, 4, 1),
+    264 launches an MPC step, exact); the pickle it writes must load."""
+    from diff_qp_mpc_tpu_torch.learning import dagger, data
+
+    out = os.path.join("build", "chip_smoke_dagger.pkl")
+    argv = meta_argv(CP1_META) + [
+        "--ckpt", CP1_CKPT, "--fused", "--episodes", str(DAGGER_EPISODES),
+        "--max_steps", str(DAGGER_STEPS), "--num_relabel",
+        str(DAGGER_RELABEL), "--relabel_steps", str(DAGGER_RELABEL_STEPS),
+        "--out", out]
+    want = {k: 0 for k in kernel_wrappers()}
+    want["K3h"] = DAGGER_K3H_PER_STEP
+    collect, bad, times = {}, [], []
+
+    def on_step(step):
+        if not collect:
+            collect.update(read_launches())
+        elif read_launches() != want:
+            bad.append((step, read_launches()))
+        reset_launches()
+        times.append(time.perf_counter())
+
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = dagger.main(argv, on_expert_step=on_step)
+    seconds = time.perf_counter() - t0
+    loaded = data.load_expert_pickle(out)
+    # the first expert step's counts also hold the collection's K2 launches
+    k2 = collect.get("K2", 0)
+    first = {k: v for k, v in collect.items() if k != "K2"}
+    row = dict(summary, seconds=seconds, collect_k2_launches=k2,
+               expert_steps=len(times),
+               ms_per_expert_step=float(np.median(np.diff(times)) * 1e3)
+               if len(times) > 1 else None,
+               launches_per_expert_step=dict(K3h=DAGGER_K3H_PER_STEP),
+               launches_total={"K2": k2, "K3h": DAGGER_K3H_PER_STEP
+                               * len(times)})
+    log("dagger", json.dumps(row))
+    if bad or first != {k: v for k, v in want.items() if k != "K2"} or not (
+            0 < k2 <= DAGGER_K2_PER_STEP * DAGGER_STEPS
+            and k2 % DAGGER_K2_PER_STEP == 0):
+        raise RuntimeError(f"DAgger launches: collection and first expert "
+                           f"step {collect}, later steps {bad[:3]}, "
+                           f"expected {want} an expert step and "
+                           f"{DAGGER_K2_PER_STEP} K2 a policy step")
+    if not (summary["num_traj"] == DAGGER_RELABEL
+            and len(loaded["state"]) == summary["steps"]
+            and np.isfinite(loaded["state"]).all()):
+        raise RuntimeError(f"DAgger wrote {summary}, loaded "
+                           f"{len(loaded['state'])} steps")
+    return row
+
+
+def k3_by_shape(k3_horizon, cp2_qps, cp2_runs, training, experts):
+    """The kernels line's K3 rows per new (T, nx, nu): the kernel that
+    serves it and its source, float32 ms at B 64 with plain, library (the
+    dense KKT's torch.linalg.solve) and bound, the largest error per dtype
+    of the random-problem checks (float32 against the float64 solution
+    over long horizons), and the launches of the runs that take it."""
+    runs_at = {"T5 nx6 nu1": [("cp2-ip-scan closed loop", cp2_runs[
+                   "cp2-ip-scan"]["launches"]["K3"]),
+                   ("cp2-ip-fused training", training["cp2-ip-fused"][
+                       "launches_total"]["K3"])],
+               "T10 nx6 nu1": [("cp2-stabilize expert", experts[
+                   "cp2-stabilize"]["launches_total"]["K3h"])],
+               "T20 nx12 nu4": [("quadrotor expert", experts["quadrotor"][
+                   "launches_total"]["K3h"])],
+               "T60 nx4 nu1": [("cp1 DAgger relabeling", experts["dagger"][
+                   "launches_total"]["K3h"])]}
+    out = {}
+    for key, row in k3_horizon.items():
+        checks = row["checks"]
+        entry = {k: row[k] for k in ("kernel", "ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by",
+                                     "library_max_rel_err")}
+        entry["source"] = ("diff_qp_mpc_tpu_torch/csrc/riccati.cu"
+                           if row["kernel"] == "riccati" else
+                           "diff_qp_mpc_tpu_torch/csrc/riccati_horizon.cu")
+        for dtype in ("torch.float32", "torch.float64"):
+            mine = [c for c in checks if c["dtype"] == dtype]
+            entry[f"max_rel_err_{dtype[6:]}"] = max(
+                c.get("kernel_vs_f64", c["max_rel_err"]) for c in mine)
+        if "horizon_kernel" in row:
+            entry["horizon_kernel_ms"] = row["horizon_kernel"]["ms"]
+        entry["launches"] = sum(n for _, n in runs_at.get(key, []))
+        entry["launches_by_run"] = dict(runs_at.get(key, []))
+        out[key] = entry
+    worst = lambda rows: max(r.get("kernel_vs_f64", r["max_rel_err"])
+                             for r in rows if r["dtype"] == "torch.float32")
+    out["T5 nx6 nu1"]["checkpoint_systems_max_rel_err_f32_vs_f64"] = worst(
+        cp2_qps["K3 checkpoint systems"])
+    out["T10 nx6 nu1"]["expert_systems_max_rel_err_f32_vs_f64"] = worst(
+        cp2_qps["K3 expert systems"])
+    return out
+
+
+def k4_by_shape(cp2_qps, cp2_runs, training):
+    """The kernels line's K4 row at (5, 6, 1): float32 ms at B 64 with
+    plain and bound, the errors of the random-QP and checkpoint-QP checks,
+    and the launches of the cp2 ip checkpoint's fused runs."""
+    t = cp2_qps["timing"]
+    rand = cp2_qps["K4 random"]
+    ckpt = cp2_qps["K4 checkpoint QPs"]
+    closed = cp2_runs["cp2-ip-fused"]["launches"]["K4"]
+    trained = training["cp2-ip-fused"]["launches_total"]["K4"]
+    return {"T5 nx6 nu1": dict(
+        {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms")},
+        max_scaled_err_float32=max(max(r["scaled_err"].values())
+                                   for r in rand
+                                   if r["dtype"] == "torch.float32"),
+        max_scaled_err_float64=max(max(r["scaled_err"].values())
+                                   for r in rand
+                                   if r["dtype"] == "torch.float64"),
+        checkpoint_qps_kernel_vs_f64=max(max(r["kernel_vs_f64"].values())
+                                         for r in ckpt),
+        checkpoint_qps_plain_vs_f64=max(max(r["plain_vs_f64"].values())
+                                        for r in ckpt),
+        launches=closed + trained,
+        launches_by_run={"cp2-ip-fused closed loop": closed,
+                         "cp2-ip-fused training": trained})}
+
+
 def ptxas_summary(text):
     """One line per kernel and device function of an nvcc -Xptxas -v log:
     its name (cut), registers (kernels only), stack frame and spill
@@ -1532,7 +2184,8 @@ def main():
 
     t0 = time.perf_counter()
     logs = cuda_build.build(["btsolve", *al_fused_cuda.LIBRARIES, "riccati",
-                             "trajqp_fused", "sin_chain"])
+                             "riccati_horizon", "trajqp_fused",
+                             "sin_chain"])
     log(f"build: {time.perf_counter() - t0:.1f} s")
     log("build seconds by source", json.dumps(cuda_build.build_seconds))
     for name, text in logs.items():
@@ -1578,6 +2231,30 @@ def main():
     training["quad-fused"] = phase_model_train(
         "quad-fused", QUAD_META, QUAD_TRAIN_PRETRAIN, QUAD_TRAIN_DEQMPC)
     log(f"model training phases: {time.perf_counter() - t_train:.1f} s")
+
+    # the terminal-LQR ip path at cp2's shape and the MPC expert
+    t_slice = time.perf_counter()
+    k3_horizon = phase_k3_horizon()
+    cp2_qps = phase_cp2_qps()
+    log(f"K3/K4 new shapes phase: {time.perf_counter() - t_slice:.1f} s")
+    t_phase = time.perf_counter()
+    phase_model_policy(CP2_IP_POLICY_PATHS)
+    cp2_runs = phase_cp2_ip_main_path()
+    log(f"cp2 ip paths phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    phase_model_train_grad(CP2_IP_POLICY_PATHS)
+    training["cp2-ip-fused"] = phase_model_train(
+        "cp2-ip-fused", CP2_IP_META, CP2_IP_TRAIN_PRETRAIN,
+        CP2_IP_TRAIN_DEQMPC)
+    log(f"cp2 ip training phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    experts = phase_experts()
+    log(f"expert phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    experts["dagger"] = phase_dagger()
+    log(f"DAgger phase: {time.perf_counter() - t_phase:.1f} s")
+    log(f"terminal-LQR and expert phases: "
+        f"{time.perf_counter() - t_slice:.1f} s")
     # the training phases' launches of each kernel, all paths
     train_launches = {k: sum(row["launches_total"][k]
                              for row in training.values())
@@ -1636,6 +2313,14 @@ def main():
             kernels[-1]["filled_card"] = {
                 k: f[k] for k in ("B", "ms", "ms_events", "bound_ms",
                                   "bound_share", "max_rel_err")}
+            kernels[-1]["launches_horizon_kernel"] = sum(
+                row["launches_total"].get("K3h", 0)
+                for row in experts.values())
+            kernels[-1]["by_shape"] = k3_by_shape(
+                k3_horizon, cp2_qps, cp2_runs, training, experts)
+        if kid == "K4":
+            kernels[-1]["by_shape"] = k4_by_shape(cp2_qps, cp2_runs,
+                                                  training)
     quad = kernels[1]["by_model"]["quadrotor T5"]
     kernels.append({
         "name": "al_fused quadrotor (K2, one warp per element)",

@@ -103,6 +103,30 @@ def events_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_events_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn`` without the profiler: CUDA
+    events recorded around each call while a spin kernel
+    (``torch.cuda._sleep``, ~0.5 ms) holds the stream, so the start event,
+    the call's work and the end event are all queued before the device
+    reaches them and the host's launch time falls outside the bracket. For
+    a call that launches one kernel this is that kernel's device time
+    (plus the events' own ~µs)."""
+    _require_card()
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def device_kernel_ms(fn, reps: int, name: str) -> float:
     """Device time per launch of the CUDA kernel whose name contains
     ``name``, from torch.profiler. A profiled window in which the profiler

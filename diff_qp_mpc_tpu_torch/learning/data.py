@@ -1,7 +1,7 @@
 """Expert-trajectory data pipeline (port of diff_qp_mpc_tpu.learning.data,
 without its reference-checkpoint adapter).
 
-Reads the reference's pickled datasets (``data/expert_traj_<type>-
+Reads and writes the reference's pickled datasets (``data/expert_traj_<type>-
 <spec_id>_new.pkl``: a list of trajectories, each a list of (state, action)
 pairs, numpy arrays or torch tensors). The sampler takes uniform random
 start indices into the concatenated data; windows crossing an episode end
@@ -55,6 +55,13 @@ def load_expert_pickle(path: str) -> Dict[str, Array]:
     if isinstance(trajs, dict):  # already merged
         return {k: _to_numpy(v) for k, v in trajs.items()}
     return merge_trajectories(trajs)
+
+
+def save_expert_pickle(path: str, trajs: Sequence[Sequence[Tuple]]) -> None:
+    """Write trajectories (lists of (state, action) numpy pairs) in the
+    reference pickle format that ``load_expert_pickle`` reads."""
+    with open(path, "wb") as f:
+        pickle.dump([list(t) for t in trajs], f)
 
 
 def sample_window_batch(data: Dict[str, Array], bsz: int, T: int,

@@ -13,7 +13,12 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from diff_qp_mpc_tpu_torch.core.types import ALState, Bounds, DiagQuadCost
+from diff_qp_mpc_tpu_torch.core.types import (
+    ALState,
+    Bounds,
+    DiagQuadCost,
+    QuadCost,
+)
 from diff_qp_mpc_tpu_torch.learning.deq import DEQLayer
 from diff_qp_mpc_tpu_torch.models.base import DynamicsModel
 from diff_qp_mpc_tpu_torch.solvers import al_mpc, sqp_mpc
@@ -28,7 +33,9 @@ class TrackingMPC:
     ``solver_type`` "al" solves it with the box-constrained AL solver (scan
     path, or kernel K2 with ``use_fused``); "ip" with the interior-point SQP
     solver ``solvers.sqp_mpc`` (scan IPM over kernel K3, or kernel K4 when
-    ``sqp_cfg.qp.kernel`` is "fused").
+    ``sqp_cfg.qp.kernel`` is "fused"). ``terminal_P`` (ip only) adds the
+    dense terminal value cost x_Tᵀ P x_T about the terminal reference
+    (``solvers.lqr.terminal_value_cost``).
     """
 
     model: DynamicsModel
@@ -46,6 +53,10 @@ class TrackingMPC:
     carry_state: Optional[bool] = None
     solver_type: str = "al"  # "al" | "ip"
     sqp_cfg: sqp_mpc.SQPConfig = sqp_mpc.SQPConfig(qp_iter=2)
+    # the terminal value cost's P as a tuple of row tuples (hashable, as
+    # the JAX package's frozen-dataclass attribute), or None. The AL
+    # solvers' cost is diagonal, so only the ip path takes it.
+    terminal_P: Optional[Tuple[Tuple[float, ...], ...]] = None
 
     @property
     def carry(self) -> bool:
@@ -64,6 +75,18 @@ class TrackingMPC:
                           device=xu_ref.device).expand(bsz, T, n)
         return DiagQuadCost(Cd=Cd, c=-Cd * xu_ref)
 
+    def cost_with_terminal(self, xu_ref: Tensor) -> QuadCost:
+        """The dense tracking cost with P added to the last stage's state
+        block; c = −C·τ_ref, so each stage's minimum is still the
+        reference."""
+        bsz, T, n = xu_ref.shape
+        nx = self.model.nx
+        kw = dict(dtype=xu_ref.dtype, device=xu_ref.device)
+        C = torch.diag(torch.tensor(self.Q + self.R, **kw)).expand(
+            bsz, T, n, n).clone()
+        C[:, -1, :nx, :nx] += torch.tensor(self.terminal_P, **kw)
+        return QuadCost(C=C, c=-(C @ xu_ref[..., None])[..., 0])
+
     def init_state(self, bsz: int, dtype=torch.float32, device=None
                    ) -> ALState:
         return ALState.init(bsz, self.T, self.model.nx, self.model.nu,
@@ -75,7 +98,13 @@ class TrackingMPC:
               u_init: Optional[Tensor] = None):
         """Returns (x, u, new_state, diagnostics): the AL stats or residual,
         or the last QP residual on the ip path."""
-        cost = self.cost(torch.cat([x_ref, u_ref], dim=-1))
+        xu_ref = torch.cat([x_ref, u_ref], dim=-1)
+        if self.terminal_P is not None and self.solver_type != "ip":
+            raise NotImplementedError(
+                "terminal_P needs the dense-cost ip (trajectory-QP) path; "
+                "the AL solvers' cost is diagonal by construction")
+        cost = (self.cost_with_terminal(xu_ref)
+                if self.terminal_P is not None else self.cost(xu_ref))
         if self.solver_type == "ip":
             # the fused trajectory-QP kernel takes the box as python floats
             ip_bounds = (Bounds(u_lo=self.u_lo, u_hi=self.u_hi)

@@ -36,6 +36,7 @@ from diff_qp_mpc_tpu_torch.learning import losses as losses_mod
 from diff_qp_mpc_tpu_torch.learning import noise as noise_mod
 from diff_qp_mpc_tpu_torch.learning.policies import DEQMPCPolicy, TrackingMPC
 from diff_qp_mpc_tpu_torch.solvers import al_mpc
+from diff_qp_mpc_tpu_torch.solvers.lqr import terminal_value_cost
 from diff_qp_mpc_tpu_torch.solvers.sqp_mpc import SQPConfig
 from diff_qp_mpc_tpu_torch.solvers.trajqp import TrajQPConfig
 from diff_qp_mpc_tpu_torch.utils.checkpoint import (
@@ -86,7 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tracking_r", type=float, default=None,
                    help="override the tracking-cost control weight R")
     p.add_argument("--terminal_lqr", action="store_true",
-                   help="LQR terminal cost (ip solver path; not ported)")
+                   help="DARE terminal value cost at the goal "
+                        "(solvers/lqr.py; ip solver path only)")
     p.add_argument("--deq_out_type", type=int, default=1)
     p.add_argument("--layer_type", type=str, default="mlp",
                    choices=["mlp", "conv"])
@@ -139,14 +141,19 @@ def make_policy(args, env) -> DEQMPCPolicy:
     if solver_type not in ("al", "ip"):
         raise ValueError(f"--solver_type must be 'al' or 'ip', got "
                          f"{solver_type!r}")
-    if getattr(args, "terminal_lqr", False):
-        raise NotImplementedError(
-            "--terminal_lqr needs solvers/lqr.py, which is not ported yet")
     if not args.deq:
         raise NotImplementedError("only the DEQ-MPC policy (--deq) is ported")
     R = np.asarray(env.Rlqr, dtype=float)
     if getattr(args, "tracking_r", None) is not None:
         R = np.full_like(R, args.tracking_r)
+    terminal_P = None
+    if getattr(args, "terminal_lqr", False):
+        u_goal = (env.model.hover_thrust()
+                  if hasattr(env.model, "hover_thrust") else None)
+        P = terminal_value_cost(env.model,
+                                getattr(env, "goal", np.zeros(env.nx)),
+                                u_goal, np.asarray(env.Qlqr), R)
+        terminal_P = tuple(tuple(float(v) for v in row) for row in P)
     cfg = al_mpc.ALConfig(al_iter=args.qp_iter, **{
         k: v for k, v in (("rho_max", getattr(args, "rho_max", None)),
                           ("reg", getattr(args, "al_reg", None)))
@@ -165,7 +172,8 @@ def make_policy(args, env) -> DEQMPCPolicy:
         # the scan IPM over kernel K3
         sqp_cfg=SQPConfig(qp_iter=args.qp_iter, qp=TrajQPConfig(
             kernel="fused" if solver_type == "ip" and getattr(
-                args, "fused", False) else "scan")))
+                args, "fused", False) else "scan")),
+        terminal_P=terminal_P)
     return DEQMPCPolicy(
         nx=env.nx, nu=env.nu, nq=env.nq, T=args.T, hdim=args.hdim,
         dt=env.dt, tracking=tracking, deq_iter=args.deq_iter,

@@ -1,15 +1,25 @@
-"""K3: batched Riccati LQR-KKT solve as a hand-written CUDA kernel
-(``csrc/riccati.cu``), the port of diff_qp_mpc_tpu.ops.riccati_pallas.
+"""K3: batched Riccati LQR-KKT solve as hand-written CUDA kernels, the port
+of diff_qp_mpc_tpu.ops.riccati_pallas.
+
+Two kernels compute it, one thread per batch element:
+- ``csrc/riccati.cu`` at the (T, nx, nu) of ``BUILT``: every stage loop
+  unrolled, the element in registers (the DEQ-MPC tracker's horizon, T 5);
+- ``csrc/riccati_horizon.cu`` at the (nx, nu) of ``HORIZON_BUILT`` and any
+  T: the stage loop rolled, P and p carried in registers, each stage's K,
+  k, P and p in a workspace this wrapper allocates (the MPC expert's
+  planners, T 10 to 120).
 
 ``batched_lqr_kkt_solve`` takes the plain PyTorch version
-(``ops.riccati.batched_lqr_kkt_solve``) for CPU tensors and launches the
-kernel for CUDA tensors; it never falls back from one to the other. Each
-kernel launch adds one to ``launches``.
+(``ops.riccati.batched_lqr_kkt_solve``) for CPU tensors. On CUDA tensors
+it launches the unrolled kernel where its shape is built, else the horizon
+kernel where (nx, nu) is, and raises otherwise; it never falls back to the
+plain version. Each launch adds one to ``launches`` (the unrolled kernel)
+or ``horizon_launches`` (the horizon kernel).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -18,12 +28,18 @@ from diff_qp_mpc_tpu_torch.utils import cuda_build
 
 Tensor = torch.Tensor
 
-#: (T, nx, nu) with a kernel instantiation
-BUILT = ((5, 2, 1), (5, 3, 2), (5, 4, 1))
-#: kernel launches since the count was last set to 0
+#: (T, nx, nu) with an instantiation of the unrolled kernel
+BUILT = ((5, 2, 1), (5, 3, 2), (5, 4, 1), (5, 6, 1))
+#: (nx, nu) with an instantiation of the horizon kernel (any T)
+HORIZON_BUILT = ((2, 1), (4, 1), (6, 1), (12, 4))
+#: launches of the unrolled kernel since the count was last set to 0
 launches = 0
+#: launches of the horizon kernel since the count was last set to 0
+horizon_launches = 0
 
 _SYMBOLS = {torch.float32: "riccati_f32", torch.float64: "riccati_f64"}
+_HORIZON_SYMBOLS = {torch.float32: "riccati_horizon_f32",
+                    torch.float64: "riccati_horizon_f64"}
 
 
 def batched_lqr_kkt_solve(Cxx: Tensor, Cxu: Tensor, Cuu: Tensor, gx: Tensor,
@@ -39,14 +55,24 @@ def batched_lqr_kkt_solve(Cxx: Tensor, Cxu: Tensor, Cuu: Tensor, gx: Tensor,
     return _launch(args, float(reg))
 
 
+def kernel_for(T: int, nx: int, nu: int) -> str:
+    """"riccati" or "riccati_horizon", the kernel a CUDA solve of this
+    shape launches; raises where neither is built for it."""
+    if (T, nx, nu) in BUILT:
+        return "riccati"
+    if (nx, nu) in HORIZON_BUILT and T >= 1:
+        return "riccati_horizon"
+    raise ValueError(f"no kernel for T={T}, nx={nx}, nu={nu} (built: "
+                     f"(T, nx, nu) in {BUILT}, and (nx, nu) in "
+                     f"{HORIZON_BUILT} at any T)")
+
+
 def _check(args):
     Cxx, Cxu = args[0], args[1]
     if Cxu.ndim != 4:
         raise ValueError("expected Cxu [B,T,nx,nu]")
     Bsz, T, nx, nu = Cxu.shape
-    if (T, nx, nu) not in BUILT:
-        raise ValueError(f"no kernel for T={T}, nx={nx}, nu={nu} "
-                         f"(built: (T, nx, nu) in {BUILT})")
+    kernel_for(T, nx, nu)
     shapes = (("Cxx", (Bsz, T, nx, nx)), ("Cxu", (Bsz, T, nx, nu)),
               ("Cuu", (Bsz, T, nu, nu)), ("gx", (Bsz, T, nx)),
               ("gu", (Bsz, T, nu)), ("A", (Bsz, T - 1, nx, nx)),
@@ -69,23 +95,44 @@ def _check(args):
     return Bsz, T, nx, nu
 
 
-def _launch(args, reg: float) -> Tuple[Tensor, Tensor, Tensor]:
-    global launches
+def _launch(args, reg: float, name: Optional[str] = None
+            ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Launch the kernel ``name`` serves by shape (kernel_for); measurements
+    pass "riccati_horizon" to time the horizon kernel where the unrolled
+    one serves."""
+    global launches, horizon_launches
     Bsz, T, nx, nu = _check(args)
+    name = name or kernel_for(T, nx, nu)
+    if name == "riccati_horizon" and (nx, nu) not in HORIZON_BUILT:
+        raise ValueError(f"the horizon kernel is not built for nx={nx}, "
+                         f"nu={nu}")
     gx, gu = args[3], args[4]
     dx, du, lam = torch.empty_like(gx), torch.empty_like(gu), \
         torch.empty_like(gx)
     if Bsz == 0:
         return dx, du, lam
-    lib = cuda_build.load("riccati")
-    fn = getattr(lib, _SYMBOLS[gx.dtype])
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
-        + [ctypes.c_double, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = cuda_build.load(name)
     stream = torch.cuda.current_stream(gx.device).cuda_stream
+    outs = [dx.data_ptr(), du.data_ptr(), lam.data_ptr()]
+    if name == "riccati":
+        fn = getattr(lib, _SYMBOLS[gx.dtype])
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
+            + [ctypes.c_double, ctypes.c_void_p]
+    else:
+        lib.riccati_horizon_workspace.restype = ctypes.c_int
+        width = lib.riccati_horizon_workspace(nx, nu)
+        ws = gx.new_empty(T * width * Bsz)
+        outs.append(ws.data_ptr())
+        fn = getattr(lib, _HORIZON_SYMBOLS[gx.dtype])
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 \
+            + [ctypes.c_double, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     with torch.cuda.device(gx.device):
-        err = fn(*(a.data_ptr() for a in args), dx.data_ptr(),
-                 du.data_ptr(), lam.data_ptr(), Bsz, T, nx, nu, reg, stream)
-    cuda_build.check(lib, err, "riccati kernel launch")
-    launches += 1
+        err = fn(*(a.data_ptr() for a in args), *outs, Bsz, T, nx, nu, reg,
+                 stream)
+    cuda_build.check(lib, err, f"{name} kernel launch")
+    if name == "riccati":
+        launches += 1
+    else:
+        horizon_launches += 1
     return dx, du, lam

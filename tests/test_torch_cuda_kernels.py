@@ -9,7 +9,10 @@ import pytest
 import torch
 
 from diff_qp_mpc_tpu_torch.benchmarks import k2_models
-from diff_qp_mpc_tpu_torch.benchmarks.kernel_layouts import K1_TOL
+from diff_qp_mpc_tpu_torch.benchmarks.kernel_layouts import (
+    F32_VS_F64_RATIO,
+    K1_TOL,
+)
 from diff_qp_mpc_tpu_torch.core.types import ALState, Bounds, DiagQuadCost
 from diff_qp_mpc_tpu_torch.models import Pendulum
 from diff_qp_mpc_tpu_torch.ops import (
@@ -356,9 +359,104 @@ def test_riccati_kernel_isolates_elements(cuda, B, poisoned, poison, T, nx,
 
 
 def test_riccati_kernel_refuses_unbuilt_size(cuda):
-    args = _lqr_problem(4, 4, 2, 1, torch.float32, cuda)
-    with pytest.raises(ValueError):
+    """A shape neither K3 kernel is built for raises: (nx, nu) = (3, 1)
+    at T 4 (since the horizon kernel takes (2, 1) at any T, the shape this
+    test used before is now served)."""
+    args = _lqr_problem(4, 4, 3, 1, torch.float32, cuda)
+    with pytest.raises(ValueError, match="no kernel"):
         riccati_cuda.batched_lqr_kkt_solve(*args)
+    before = (riccati_cuda.launches, riccati_cuda.horizon_launches)
+    riccati_cuda.batched_lqr_kkt_solve(
+        *_lqr_problem(4, 4, 2, 1, torch.float32, cuda))
+    assert (riccati_cuda.launches, riccati_cuda.horizon_launches) == (
+        before[0], before[1] + 1)
+
+
+# the MPC expert planners' (T, nx, nu) (learning/datagen.py), which the
+# horizon kernel serves
+HORIZON_SHAPES = [(10, 6, 1), (20, 2, 1), (30, 2, 1), (40, 2, 1),
+                  (60, 4, 1), (80, 4, 1), (120, 6, 1), (20, 12, 4)]
+
+
+def _horizon_errors(out, args):
+    """(kernel vs the float64 solution, plain float32 vs it) relative to
+    the float64 solution's largest entry, or (kernel vs plain, 0) in
+    float64."""
+    plain = riccati.batched_lqr_kkt_solve(*args, 1e-9)
+    plain = (plain.dx, plain.du, plain.lam)
+    if args[0].dtype == torch.float64:
+        ref = plain
+    else:
+        ref = riccati.batched_lqr_kkt_solve(*(a.double() for a in args),
+                                            1e-9)
+        ref = (ref.dx, ref.du, ref.lam)
+    rel = lambda got: max(float((g.double() - w).abs().max()
+                                / w.abs().max()) for g, w in zip(got, ref))
+    return rel(out), (rel(plain) if args[0].dtype == torch.float32 else 0.0)
+
+
+@pytest.mark.parametrize("T,nx,nu", HORIZON_SHAPES)
+@pytest.mark.parametrize("B", [64, 129])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_riccati_horizon_kernel_matches_plain(cuda, T, nx, nu, B, dtype):
+    """The horizon kernel at every planner shape: float64 within 1e-10 of
+    the plain version; float32 against the float64 solution, within
+    F32_VS_F64_RATIO of the plain float32 version's error (or 1e-4)."""
+    args = _lqr_problem(B, T, nx, nu, dtype, cuda, seed=T + nx)
+    before = (riccati_cuda.launches, riccati_cuda.horizon_launches)
+    out = riccati_cuda.batched_lqr_kkt_solve(*args, 1e-9)
+    assert (riccati_cuda.launches, riccati_cuda.horizon_launches) == (
+        before[0], before[1] + 1)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    err, plain_err = _horizon_errors(out, args)
+    if dtype == torch.float64:
+        assert err <= 1e-10
+    else:
+        assert err <= max(1e-4, F32_VS_F64_RATIO * plain_err)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-10)])
+def test_riccati_horizon_kernel_matches_unrolled_at_T5(cuda, dtype, tol):
+    """At (5, 6, 1), where the unrolled kernel serves, the horizon kernel
+    (launched by name, as chip_smoke.py times it) solves the same systems
+    alike."""
+    args = _lqr_problem(100, 5, 6, 1, dtype, cuda, seed=6)
+    unrolled = riccati_cuda.batched_lqr_kkt_solve(*args, 1e-9)
+    before = riccati_cuda.horizon_launches
+    horizon = riccati_cuda._launch(args, 1e-9, "riccati_horizon")
+    assert riccati_cuda.horizon_launches == before + 1
+    for a, b in zip(horizon, unrolled):
+        assert float((a - b).abs().max() / b.abs().max()) <= tol
+
+
+def test_queued_events_time_one_kernel(cuda):
+    """timing.queued_events_ms brackets the kernel's device work: positive,
+    and no more than the back-to-back events' time per call, which also
+    holds each call's host launch."""
+    from diff_qp_mpc_tpu_torch.benchmarks import timing
+
+    args = _lqr_problem(64, 20, 2, 1, torch.float32, cuda)
+    kern = lambda: riccati_cuda.batched_lqr_kkt_solve(*args, 1e-9)
+    ms = timing.queued_events_ms(kern, 10)
+    assert 0.0 < ms <= 1.5 * timing.events_ms(kern, 10)
+
+
+@pytest.mark.parametrize("B,poisoned", ISOLATION_CASES)
+@pytest.mark.parametrize("T,nx,nu", [(10, 6, 1), (20, 12, 4)])
+def test_riccati_horizon_kernel_isolates_elements(cuda, B, poisoned, T, nx,
+                                                  nu):
+    """A non-finite input of some elements leaves every other element's
+    outputs bit-identical (the workspace is per element)."""
+    args = _lqr_problem(B, T, nx, nu, torch.float32, cuda, seed=nx)
+    clean = riccati_cuda.batched_lqr_kkt_solve(*args, 1e-9)
+    bad = [a.clone() for a in args]
+    for a in bad:
+        a[list(poisoned)] = float("nan")
+    dirty = riccati_cuda.batched_lqr_kkt_solve(*bad, 1e-9)
+    keep = _unpoisoned(B, poisoned, cuda)
+    for c, d in zip(clean, dirty):
+        assert torch.equal(c[keep], d[keep])
 
 
 def _trajqp_problem(B, T, nx, nu, dtype, device, seed=0):

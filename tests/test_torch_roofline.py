@@ -219,6 +219,12 @@ def _no_card():
         pytest.skip("a CUDA device is present")
 
 
+def test_queued_events_raise_without_card():
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        timing.queued_events_ms(lambda: torch.zeros(1), 1)
+
+
 def test_timing_raises_without_card():
     _no_card()
     run = lambda: torch.zeros(1)
