@@ -39,11 +39,12 @@ Phases, each of which raises on failure (there is no CPU fallback):
   8. the main paths: closed-loop evaluation through the evaluate entry point,
      64 episodes of up to 200 steps, of the AL checkpoint on the scan path
      (K1) and the fused path (K2), and of the ip checkpoint on the ip scan
-     path (K3) and the ip fused path (K4). The launch counts are set to 0
-     just before each run and read just after; each path must launch its
-     kernel and no other, exactly 48 (K1), 6 (K2), 432 (K3) or 18 (K4) times
-     per closed-loop step, and each must reach a success rate of at least
-     0.95;
+     path (K3) and the ip fused path (K4), the two scan paths cut to
+     MAIN_PATH_CUT_STEPS steps. The launch counts are set to 0 just before
+     each run and read just after; each path must launch its kernel and no
+     other, exactly 48 (K1), 6 (K2), 432 (K3) or 18 (K4) times per
+     closed-loop step, and each fused path must reach a success rate of at
+     least 0.95;
   9. the roofline path, counts set to 0 before it and read after: the
      roofline entry point's functions in quick mode (K2 at B 262144 at the
      reference budget, K5's saturated rate from both chain lengths), then
@@ -112,11 +113,11 @@ Phases, each of which raises on failure (there is no CPU fallback):
      integrator's on the scan path (K1, 48), each at a success rate of at
      least 0.95, 64 episodes; cp2 v7 and v8 on the fused path (K2, 18 and
      24), 64 episodes, printed beside the JAX package's 0.094 and 0.125 and
-     not gated; cp1 on the scan path (K1, 96) for 5 steps; the quadrotor
+     not gated; cp1 on the scan path (K1, 96) for 3 steps; the quadrotor
      checkpoint on the fused path (K2, 12 a step: deq_iter 6 × qp_iter 2,
      warm starts carried) over the env's 100 steps, 64 episodes, at a
      success rate of at least QUAD_MIN_SUCCESS, printed beside the JAX
-     package's eval_fused.json, and on the scan path (K1, 48) for 5 steps;
+     package's eval_fused.json, and on the scan path (K1, 48) for 2 steps;
  17. the float64 training gradient card vs CPU (B 8) on cp1 fused (T 5,
      seeded weights), the integrator's scan path and the quadrotor's fused
      path (its checkpoint; QUAD_GRAD_TOL), and training through the train
@@ -149,20 +150,48 @@ Phases, each of which raises on failure (there is no CPU fallback):
      CP2_IP_TRAIN_PRETRAIN + CP2_IP_TRAIN_DEQMPC steps, exactly 18 K4 and
      6 K3 launches a DEQ-MPC step;
      (e) the MPC expert (learning/datagen.py, float64) on EXPERT_RUNS: the
-     cp2 stabilize planner (T 10, terminal LQR) on 64 trajectories × 30
-     steps and the quadrotor's (T 20) on 16 × 10, exactly (qp_iter + 1) ×
+     cp2 stabilize planner (T 10, terminal LQR) on 64 trajectories × 20
+     steps and the quadrotor's (T 20) on 16 × 5, exactly (qp_iter + 1) ×
      12 × 2 horizon-kernel launches an MPC step, ms a step, the success
      share, its first actions card vs CPU within EXPERT_TOL;
      (f) DAgger through its entry point from the cp1 checkpoint: 8
      episodes × 20 steps, 8 states relabeled × 10 steps by the cp1
      stabilize planner (T 60: 264 horizon-kernel launches an MPC step).
+ 19. the OptNet QP layer, SL1QP and the slew-rate option, in this order
+     (the launch counts set to 0 before each and read after):
+     (a) the QP layer (solvers/qp.py) at nz = nineq = 100, B 128, both
+     solvers, neq 0 and 50: float64 card vs CPU on the first QP_CPU_ROWS
+     elements (z and the residual total within QP_TOL, all six gradients
+     within QP_GRAD_TOL), float32 against the float64 solution within
+     F32_VS_F64_RATIO of the CPU float32 solve's error, no kernel launched;
+     ms per solve and per forward plus backward at B 1, 64, 128 in float64
+     (benchmarks/prof_qp_sizes.py);
+     (b) the sudoku OptNet example through its entry point, 200 iterations
+     in float32: the loss halves, no kernel launched;
+     (c) SL1QP MPC (riccati backend, SL1QPConfig's defaults) on cp2
+     stabilize (T 10, terminal LQR P, B 64) and the quadrotor hover (T 20,
+     B 16) with their expert planner's weights and box: float64 value and
+     gradient w.r.t. c and x0 card vs CPU within SL1QP_TOL, slack_l1, s
+     per solve; the dense backend against the riccati backend on cp2 at T
+     5, B 64 (SL1QP_DENSE_CFG); no kernel launched;
+     (d) the slew-rate option (sqp_mpc.solve, s 50, with and without
+     prev_ctrl) on pendulum tracking problems, B 64, scan and fused, both
+     dtypes: exactly 72 K3 (scan) or 3 K4 (fused) launches a solve at
+     (5, 3, 1) and one K3 in its backward, no other kernel; float64 u card
+     vs CPU within SLEW_TOL; the slew energy below SLEW_ENERGY_RATIO × the
+     unpenalized solve's; K3 and K4 at (5, 3, 1) against their plain
+     versions on the solves' own systems and on random problems, timed.
+Every phase prints its seconds ("phase <name>: <s> s") and the run ends
+with their table.
 Bounds: the larger of the bytes over the HBM rate and the operations over
 the float32 peak (diff_qp_mpc_tpu_torch/benchmarks/flops.py); each sin or
 cos counts as the 15 FP32 instructions of its fast path (SINF_FP32_INSTR).
-It prints one JSON line per kernel summary (the quadrotor's K2 on a row of
-its own beside the others), the card's name and power limit, and as its
+It prints one JSON line per kernel summary (the quadrotor's K2, and K3 and
+K4 at the slew-augmented pendulum's (5, 3, 1), on rows of their own beside
+the others), the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}.
 """
+import dataclasses
 import json
 import os
 import sys
@@ -204,6 +233,13 @@ CKPT = "logs/deqmpc_pendulum_sac_fused_T5_bsz256/ckpt.msgpack"
 IP_CKPT = "logs/deqmpc_pendulum_ip_fused_v2/ckpt.msgpack"
 EPISODES, MAX_STEPS = 64, 200
 MIN_SUCCESS = 0.95
+# the pendulum's scan closed loops are host-bound (AL scan ~0.2 s a step,
+# 48 K1 launches; ip scan ~0.7-1.1 s a step, 432 K3 launches: the Newton
+# and IPM elementwise work around each launch), so they run
+# MAIN_PATH_CUT_STEPS steps, their exact launch counts checked, and no
+# success gate: the fused path of each checkpoint computes the same
+# solves and keeps the gate over MAX_STEPS
+MAIN_PATH_CUT_STEPS = {"scan": 20, "ip-scan": 10}
 T, NX, NU = 5, 2, 1
 N = NX + NU
 # K2's budget on the main path (ALConfig defaults, qp_iter 2)
@@ -336,10 +372,10 @@ MODEL_RUNS = (
      0.09375, None),
     ("cp2-v8-fused", CP2_V8_CKPT, ["--fused"], MAX_STEPS, "K2", 6 * 4, 0.125,
      None),
-    ("cp1-scan", CP1_CKPT, [], 5, "K1", 6 * 4 * 4, None, None),
+    ("cp1-scan", CP1_CKPT, [], 3, "K1", 6 * 4 * 4, None, None),
     ("quad-fused", QUAD_CKPT, ["--fused"], QUAD_MAX_STEPS, "K2", 6 * 2,
      0.953125, QUAD_MIN_SUCCESS),
-    ("quad-scan", QUAD_CKPT, [], 5, "K1", 6 * 2 * 4, None, None))
+    ("quad-scan", QUAD_CKPT, [], 2, "K1", 6 * 2 * 4, None, None))
 # the new paths' float64 policy forward, card vs CPU, per initial state
 # (row): each of its 6 × qp_iter tracking solves meets the line search's
 # near-ties, and the DEQ iterates carry them on, so one ulp of the state
@@ -412,9 +448,10 @@ CP2_IP_META = CP2_IP_CKPT + ".meta.json"
 # "pre-seam-fix"; tests/test_torch_cp2_ip_closed_loop.py rolls both
 # packages as they are from the JAX evaluator's initial states). Both are
 # host-bound (the cp2 model's dual Jacobians and rollouts: ~0.8 s a fused
-# step), so the fused path runs 64 episodes cut to 30 steps and the scan
-# path to 10
-CP2_IP_RUNS = (("cp2-ip-fused", ["--fused"], 30, "K4", 6 * 3),
+# step), so the fused path runs 64 episodes cut to 15 steps (every episode
+# that succeeds on the port's draw does so within its first 10 steps) and
+# the scan path to 10
+CP2_IP_RUNS = (("cp2-ip-fused", ["--fused"], 15, "K4", 6 * 3),
                ("cp2-ip-scan", [], 10, "K3", 6 * 3 * 12 * 2))
 # its training, cut as cp1's: per DEQ-MPC step 18 K4 and one K3 backward
 # solve per tracking solve
@@ -436,8 +473,8 @@ K3_DATASET_B = {(12, 4): 300}
 
 # the expert runs: (name, env, env flags, trajectories, MPC steps)
 EXPERT_RUNS = (("cp2-stabilize", "cartpole2link", {"stabilization": True},
-                EPISODES, 30),
-               ("quadrotor", "rexquadrotor", {}, 16, 10))
+                EPISODES, 20),
+               ("quadrotor", "rexquadrotor", {}, 16, 5))
 # the expert's first actions card vs CPU, float64, on EXPERT_CPU_ROWS rows:
 # each plan's SQP meets near-ties (its best-iterate comparison and rollout
 # line search pick between candidates whose costs agree to rounding); the
@@ -452,9 +489,75 @@ DAGGER_EPISODES, DAGGER_STEPS = 8, 20
 DAGGER_RELABEL, DAGGER_RELABEL_STEPS = 8, 10
 DAGGER_K2_PER_STEP, DAGGER_K3H_PER_STEP = 6 * 4, 11 * 12 * 2
 
+# the OptNet QP layer at the reference's profiling size (qpth's
+# prof-gurobi.py: nz = nineq = 100, neq 0), B 128, both solvers, and one
+# draw with QP_NEQ_DRAW equality rows through a feasible point. Each
+# element's IPM is independent of the others', so the CPU solves the first
+# QP_CPU_ROWS elements of the card's batch. float64 card vs CPU: z within
+# QP_TOL of its largest entry (the same factorizations in another
+# library's order over 20 iterations) and the residual total within QP_TOL
+# of max(1, its largest entry) (at convergence it is ~1e-12, rounding noise
+# that differs by half of itself between the card and the CPU), the six
+# gradients within QP_GRAD_TOL; float32 against the float64 solution
+# within F32_VS_F64_RATIO of the CPU float32 solve's error (Q = LLᵀ +
+# 1e-3·I with L uniform is ill conditioned: float32 alone moves z by up to
+# 4e-2 of its largest entry on one element of 16 with neq 50, the prefactor
+# solver, on the CPU)
+QP_NZ, QP_NINEQ, QP_B, QP_NEQ_DRAW = 100, 100, 128, 50
+QP_CPU_ROWS, QP_TOL, QP_GRAD_TOL = 16, 1e-8, 1e-6
+# SL1QP (SL1QPConfig's defaults: qp_iter 10, μ 10, QP max_iter 20, the
+# riccati backend) on the two widest models the port runs, with their
+# expert planner's stage weights, box and (cp2) terminal LQR P as a
+# QuadCost: (name, env, env flags, B). The CPU solves the first
+# SL1QP_CPU_ROWS elements (independent of the others); float64 value and
+# gradient within SL1QP_TOL (the SQP tolerance, ROADMAP Queue 3 item 3)
+SL1QP_RUNS = (("cp2-stabilize", "cartpole2link", {"stabilization": True},
+               EPISODES),
+              ("quadrotor", "rexquadrotor", {}, 16))
+SL1QP_CPU_ROWS, SL1QP_TOL = 4, 1e-6
+# the dense backend against the riccati backend on the card, cp2 at T 5,
+# B 64, as tests/test_sl1qp.py:93 (qp_iter 4, μ 100, rtol 1e-2, atol 1e-3)
+# on a problem whose slacks vanish, as that test's: the planner's stage
+# weights without the terminal P. With P (entries to 2.5e5) the dynamics
+# rows' duals exceed μ, the ℓ1 penalty is inexact and the slacks stay
+# active (Σ ≈ 0.1 in both backends); the dense expansion's problem then
+# differs from the structured one (its 1e-6 quadratic on the slacks, its
+# box slacks) and so does its minimizer: u 0.19 apart of 4.05 in float64
+# on the CPU, whatever the IPM's iteration count. That case is printed,
+# not gated
+SL1QP_DENSE_T, SL1QP_DENSE_CFG = 5, dict(qp_iter=4, mu=100.0)
+# the slew-rate option: pendulum tracking problems (k4_inputs' draw) at the
+# ip checkpoint's budget, B 64, s 50, with and without prev_ctrl; the
+# augmented problem runs K3 (scan) or K4 (fused) at (5, 3, 1). Launches per
+# solve: (qp_iter + 1) QPs × max_iter × 2 K3 on scan, qp_iter + 1 K4 on
+# fused; the backward one K3. float64 u card vs CPU within SLEW_TOL (the
+# SQP tolerance); the slew energy below SLEW_ENERGY_RATIO × the unpenalized
+# solve's (tests/test_sqp_mpc.py:90)
+SLEW_PENALTY, SLEW_QP_ITER = 50.0, 2
+SLEW_LAUNCHES = {"scan": ("K3", (SLEW_QP_ITER + 1) * IP_BUDGET["max_iter"]
+                          * 2),
+                 "fused": ("K4", SLEW_QP_ITER + 1)}
+SLEW_TOL, SLEW_ENERGY_RATIO = 1e-6, 0.2
+SLEW_SHAPE = (T, NX + NU, NU)  # (5, 3, 1)
+# the device of this slice's phases
+CARD = "cuda"
+
 
 def log(*a):
     print(*a, flush=True)
+
+
+#: seconds of each phase of main(), by name
+PHASE_SECONDS = {}
+
+
+def timed(name, phase, *args):
+    """Run ``phase(*args)``, print and record its seconds."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+    log(f"phase {name}: {PHASE_SECONDS[name]} s")
+    return out
 
 
 # ---------------------------------------------------------------- K1 ----
@@ -569,7 +672,7 @@ def phase_k2():
 
 
 # ---------------------------------------------------------------- K3 ----
-def lqr_problem(B, T_, nx, nu, dtype, seed):
+def lqr_problem(B, T_, nx, nu, dtype, seed, device="cuda"):
     """Random LQR-KKT system with SPD stage costs, on the card."""
     rng = np.random.RandomState(seed)
     M = rng.randn(B, T_, nx, nx)
@@ -581,7 +684,7 @@ def lqr_problem(B, T_, nx, nu, dtype, seed):
               np.eye(nx) + 0.1 * rng.randn(B, T_ - 1, nx, nx),
               0.2 * rng.randn(B, T_ - 1, nx, nu),
               0.1 * rng.randn(B, T_ - 1, nx), rng.randn(B, nx))
-    return [torch.tensor(a, dtype=dtype, device="cuda") for a in arrays]
+    return [torch.tensor(a, dtype=dtype, device=device) for a in arrays]
 
 
 def dense_kkt(Cxx, Cxu, Cuu, gx, gu, A, Bm, r, dx0, reg):
@@ -708,7 +811,7 @@ def phase_k3_filled(reg):
 
 
 # ---------------------------------------------------------------- K4 ----
-def k4_inputs(B, dtype, seed):
+def k4_inputs(B, dtype, seed, device="cuda"):
     """Pendulum tracking QPs as the ip path's first SQP QP poses them: the
     dynamics linearized along a reference that drifts from x0, C = diag(Q,
     R), c = −C·τ_ref, warm-started at the reference."""
@@ -723,7 +826,7 @@ def k4_inputs(B, dtype, seed):
     C = np.broadcast_to(np.diag(Cd), (B, T, N, N))
     c = -Cd * np.concatenate([x_ref, u_ref], -1)
     to = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=dtype,
-                                device="cuda")
+                                device=device)
     x_ref, u_ref = to(x_ref), to(u_ref)
     x_next, A, Bm = Pendulum().linearize(x_ref, u_ref)
     f = x_next - (A @ x_ref[:, :-1, :, None])[..., 0] \
@@ -1040,10 +1143,12 @@ def closed_loops(runs, tag):
 
 
 def phase_main_path():
+    cut = MAIN_PATH_CUT_STEPS
     return closed_loops(
         [(path, ["--env", "pendulum", "--deq", "--ckpt", ckpt, "--episodes",
-                 str(EPISODES), "--max_steps", str(MAX_STEPS)] + flags,
-          *LAUNCHES_PER_STEP[path], MIN_SUCCESS)
+                 str(EPISODES), "--max_steps",
+                 str(cut.get(path, MAX_STEPS))] + flags,
+          *LAUNCHES_PER_STEP[path], None if path in cut else MIN_SUCCESS)
          for path, ckpt, flags in PATHS],
         "main_path")
 
@@ -1870,7 +1975,7 @@ def k4_check(args, kw, ratio=False):
 def phase_cp2_ip_main_path():
     """(c) the cp2 ip checkpoint in closed loop through the evaluate entry
     point, float32, 64 episodes: the fused path (K4, 18 launches a step)
-    cut to 30 steps, beside the JAX package's eval_fused.json (its
+    cut to 15 steps, beside the JAX package's eval_fused.json (its
     episodes run up to 200), and the scan path (K3 at (5, 6, 1), 432 a
     step) cut to 10 steps; the launches per step exact, no other kernel.
     The float64 forward card vs CPU runs in phase_model_policy (its cases
@@ -1978,8 +2083,8 @@ def expert_run(name, env, num_traj, max_steps, per_step):
 
 def phase_experts():
     """(e) the cp2 stabilize expert (terminal LQR, T 10, K3h at (10, 6, 1))
-    on 64 trajectories cut to 30 steps, and the quadrotor's (T 20, K3h at
-    (20, 12, 4)) on 16 × 10; per MPC step (qp_iter + 1) QPs × max_iter 12
+    on 64 trajectories cut to 20 steps, and the quadrotor's (T 20, K3h at
+    (20, 12, 4)) on 16 × 5; per MPC step (qp_iter + 1) QPs × max_iter 12
     × 2 Riccati solves."""
     from diff_qp_mpc_tpu_torch.envs import make_env
     from diff_qp_mpc_tpu_torch.learning import datagen
@@ -2048,6 +2153,417 @@ def phase_dagger():
         raise RuntimeError(f"DAgger wrote {summary}, loaded "
                            f"{len(loaded['state'])} steps")
     return row
+
+
+# ------------- the OptNet QP layer, SL1QP and the slew-rate option ----
+class one_cpu_thread:
+    """Within the block, PyTorch's CPU ops run on one thread: the batched
+    CPU LU (getrf) of the QP layer's references has deadlocked and
+    reported bad pivots under several threads on one host."""
+
+    def __enter__(self):
+        self.n = torch.get_num_threads()
+        torch.set_num_threads(1)
+
+    def __exit__(self, *exc):
+        torch.set_num_threads(self.n)
+
+
+def sync():
+    torch.cuda.synchronize()
+
+
+def _check_err(row):
+    """The error a K3 or K4 check is judged by: against the float64
+    solution where the ratio rule applies, else against the plain
+    version (K4: its largest field)."""
+    err = row.get("kernel_vs_f64", row.get("max_rel_err",
+                                           row.get("scaled_err")))
+    return max(err.values()) if isinstance(err, dict) else err
+
+
+def _scaled_err(got, want, floor=1e-300):
+    """max |got − want| over max(max |want|, floor), in float64; 0 for
+    empty tensors."""
+    if want.numel() == 0:
+        return 0.0
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max()
+                 / max(float(want.abs().max()), floor))
+
+
+def phase_qp_layer():
+    """The OptNet QP layer (solvers.qp) at nz = nineq = 100, B 128, neq 0
+    and QP_NEQ_DRAW, both solvers: float64 card vs CPU (z, the residual
+    total, the six gradients), float32 by the ratio rule; no kernel
+    launched. Then ms per solve and per forward plus backward at B 1, 64
+    and 128 in float64 (benchmarks/prof_qp_sizes.py)."""
+    from diff_qp_mpc_tpu_torch.benchmarks import prof_qp_sizes
+    from diff_qp_mpc_tpu_torch.solvers.qp import QPConfig, qp_solve
+
+    rows = []
+    R = QP_CPU_ROWS
+    reset_launches()
+    for neq in (0, QP_NEQ_DRAW):
+        for solver in prof_qp_sizes.SOLVERS:
+            cfg = QPConfig(solver=solver)
+            card = prof_qp_sizes.problem(QP_B, QP_NZ, QP_NINEQ, neq,
+                                         torch.float64, CARD)
+            cpu = [a[:R].cpu() for a in card]
+            sol = qp_solve(*card, cfg)
+            grads = prof_qp_sizes.forward_backward(card, cfg)[1:]
+            sol32 = qp_solve(*(a.float() for a in card), cfg)
+            with one_cpu_thread():
+                ref = qp_solve(*cpu, cfg)
+                ref_grads = prof_qp_sizes.forward_backward(cpu, cfg)[1:]
+                ref32 = qp_solve(*(a.float() for a in cpu), cfg)
+            row = dict(neq=neq, solver=solver, B=QP_B, cpu_rows=R,
+                       z_f64=_scaled_err(sol.z[:R], ref.z),
+                       resid_f64=_scaled_err(sol.resids[:R], ref.resids,
+                                             floor=1.0),
+                       grads_f64={n: _scaled_err(g[:R], w) for n, g, w in
+                                  zip("Q p G h A b".split(), grads,
+                                      ref_grads)},
+                       z_f32_card_vs_f64=_scaled_err(sol32.z[:R], ref.z),
+                       z_f32_cpu_vs_f64=_scaled_err(ref32.z, ref.z),
+                       resid_max=float(sol.resids.max()))
+            row["f32_limit"] = F32_VS_F64_RATIO * row["z_f32_cpu_vs_f64"]
+            log("QP layer", json.dumps(row))
+            rows.append(row)
+            ok = (bool(torch.isfinite(sol.z).all())
+                  and row["z_f64"] <= QP_TOL and row["resid_f64"] <= QP_TOL
+                  and max(row["grads_f64"].values()) <= QP_GRAD_TOL
+                  and row["z_f32_card_vs_f64"] <= row["f32_limit"])
+            if not ok:
+                raise RuntimeError(f"QP layer card vs CPU: {row}")
+    counts = read_launches()
+    if any(counts.values()):
+        raise RuntimeError(f"the QP layer launched kernels: {counts}")
+    timing = prof_qp_sizes.measure(CARD, torch.float64)
+    log("QP layer timing", json.dumps(timing))
+    return dict(checks=rows, timing=timing)
+
+
+def phase_sudoku():
+    """The sudoku OptNet example through its entry point on the card, its
+    full 200 iterations in float32: the loss halves (its own check), the
+    held-out cell accuracy and ms per iteration printed; no kernel."""
+    from diff_qp_mpc_tpu_torch.examples import sudoku_optnet
+
+    reset_launches()
+    out = sudoku_optnet.main(["--device", CARD])
+    counts = read_launches()
+    log("sudoku", json.dumps(dict(out, launches=counts)))
+    if any(counts.values()) or not out["lossN"] < 0.5 * out["loss0"]:
+        raise RuntimeError(f"sudoku: {out}, launches {counts}")
+    return out
+
+
+def _sl1qp_problem(env_name, env_kw, B, device, T_=None, terminal=True):
+    """(env, cost, x0, bounds, u_init) of the expert planner's problem
+    from the env's reset draw (seed 1), float64, on ``device``; without
+    ``terminal`` the planner's terminal LQR P is left out."""
+    from diff_qp_mpc_tpu_torch.core.types import Bounds
+    from diff_qp_mpc_tpu_torch.envs import make_env
+    from diff_qp_mpc_tpu_torch.learning import datagen
+
+    env = make_env(env_name, **env_kw)
+    planner = datagen.planner_settings(env)
+    if T_ is not None:
+        planner["T"] = T_
+    if not terminal:
+        planner.pop("terminal_lqr", None)
+    kw = dict(dtype=torch.float64, device=device)
+    cost = datagen.expert_cost(env, planner, B, torch.float64, device)
+    x0 = env.reset(torch.Generator().manual_seed(1), B, **kw).x
+    bounds = Bounds(u_lo=torch.as_tensor(env.action_space.low, **kw),
+                    u_hi=torch.as_tensor(env.action_space.high, **kw))
+    return env, cost, x0, bounds, torch.zeros(B, planner["T"], env.nu, **kw)
+
+
+def _first_rows(cost, R, device):
+    """The cost of the first R elements (a QuadCost or DiagQuadCost) on
+    ``device``."""
+    return type(cost)(**{f.name: getattr(cost, f.name)[:R].to(device)
+                         for f in dataclasses.fields(cost)})
+
+
+def _sl1qp_value_and_grad(env, cost, x0, bounds, u_init, cfg):
+    """The differentiable SL1QP solve and the gradient of Σ x² + Σ u²
+    w.r.t. the cost's linear term c and x0."""
+    from diff_qp_mpc_tpu_torch.solvers import sl1qp_mpc
+
+    c = cost.c.detach().clone().requires_grad_(True)
+    x0 = x0.detach().clone().requires_grad_(True)
+    res = sl1qp_mpc.solve(env.model, dataclasses.replace(cost, c=c), x0,
+                          bounds, u_init, cfg=cfg)
+    dc, dx0 = torch.autograd.grad((res.x ** 2).sum() + (res.u ** 2).sum(),
+                                  (c, x0))
+    return res, dc, dx0
+
+
+def phase_sl1qp():
+    """SL1QP MPC (riccati backend, SL1QPConfig's defaults) on cp2 stabilize
+    (T 10, terminal LQR P, B 64) and the quadrotor hover (T 20, B 16):
+    float64 card vs CPU on the first SL1QP_CPU_ROWS elements, the value
+    and the gradient w.r.t. c and x0; ms per solve; slack_l1. Then the
+    dense backend against the riccati backend on cp2 at T 5, B 64. The
+    launch counts are set to 0 before and read after: no kernel."""
+    from diff_qp_mpc_tpu_torch.solvers import sl1qp_mpc
+
+    out = {}
+    R = SL1QP_CPU_ROWS
+    reset_launches()
+    for name, env_name, env_kw, B in SL1QP_RUNS:
+        env, cost, x0, bounds, u0 = _sl1qp_problem(env_name, env_kw, B,
+                                                   CARD)
+        cfg = sl1qp_mpc.SL1QPConfig()
+        sync()
+        t0 = time.perf_counter()
+        res, dc, dx0 = _sl1qp_value_and_grad(env, cost, x0, bounds, u0, cfg)
+        sync()
+        seconds = time.perf_counter() - t0
+        cpu = lambda a: a[:R].cpu()
+        ref, ref_dc, ref_dx0 = _sl1qp_value_and_grad(
+            env, _first_rows(cost, R, "cpu"), cpu(x0),
+            type(bounds)(bounds.u_lo.cpu(), bounds.u_hi.cpu()), cpu(u0), cfg)
+        row = dict(name=name, B=B, T=u0.shape[1], nx=env.nx, nu=env.nu,
+                   s_per_solve_with_grad=seconds,
+                   **{f"{k}_f64": _scaled_err(getattr(res, k)[:R],
+                                              getattr(ref, k))
+                      for k in ("x", "u", "cost")},
+                   grad_c_f64=_scaled_err(dc[:R], ref_dc),
+                   grad_x0_f64=_scaled_err(dx0[:R], ref_dx0),
+                   slack_l1_max=float(res.slack_l1.max()),
+                   slack_l1_median=float(res.slack_l1.median()),
+                   tol=SL1QP_TOL)
+        log("SL1QP", json.dumps(row))
+        out[name] = row
+        errs = [row[k] for k in ("x_f64", "u_f64", "cost_f64", "grad_c_f64",
+                                 "grad_x0_f64")]
+        if not (all(e <= SL1QP_TOL for e in errs)
+                and bool(torch.isfinite(res.u).all())):
+            raise RuntimeError(f"SL1QP card vs CPU: {row}")
+
+    for terminal in (False, True):
+        env, cost, x0, bounds, u0 = _sl1qp_problem(
+            "cartpole2link", {"stabilization": True}, EPISODES, CARD,
+            T_=SL1QP_DENSE_T, terminal=terminal)
+        res, seconds = {}, {}
+        for backend in ("riccati", "dense"):
+            sync()
+            t0 = time.perf_counter()
+            res[backend] = sl1qp_mpc.solve(
+                env.model, cost, x0, bounds, u0, differentiable=False,
+                cfg=sl1qp_mpc.SL1QPConfig(backend=backend,
+                                          **SL1QP_DENSE_CFG))
+            sync()
+            seconds[backend] = time.perf_counter() - t0
+        du = (res["riccati"].u - res["dense"].u).abs()
+        row = dict(T=SL1QP_DENSE_T, B=EPISODES, terminal_P=terminal,
+                   gated=not terminal, max_abs_du=float(du.max()),
+                   u_absmax=float(res["dense"].u.abs().max()),
+                   within=bool((du <= 1e-3 + 1e-2 * res["dense"].u.abs())
+                               .all()),
+                   slack_l1_max={k: float(r.slack_l1.max())
+                                 for k, r in res.items()},
+                   s_per_solve=seconds)
+        log("SL1QP riccati vs dense", json.dumps(row))
+        out[f"riccati_vs_dense{' terminal P' if terminal else ''}"] = row
+        if not terminal and not row["within"]:
+            raise RuntimeError(f"SL1QP riccati vs dense: {row}")
+    counts = read_launches()
+    out["launches"] = counts
+    log("SL1QP launches", json.dumps(counts))
+    if any(counts.values()):
+        raise RuntimeError(f"SL1QP launched kernels: {counts}")
+    return out
+
+
+def _slew_solve(kernel, dtype, prev, device=None, slew=SLEW_PENALTY,
+                requires_grad=False):
+    """sqp_mpc.solve with the slew penalty on k4_inputs' pendulum tracking
+    problems (B 64), the ip checkpoint's budget, box ±3; returns the result
+    and the (c, x0) it differentiates."""
+    from diff_qp_mpc_tpu_torch.core.types import Bounds, QuadCost
+    from diff_qp_mpc_tpu_torch.models import Pendulum
+    from diff_qp_mpc_tpu_torch.solvers import sqp_mpc, trajqp
+
+    device = device or CARD
+    C, c, _, _, _, x0, x_ref, u_init = k4_inputs(EPISODES, dtype, seed=7,
+                                                 device=device)
+    c.requires_grad_(requires_grad)
+    x0.requires_grad_(requires_grad)
+    bounds = (Bounds(*IP_BOX) if kernel == "fused" else
+              Bounds(*(torch.tensor(b, dtype=dtype, device=device)
+                       for b in IP_BOX)))
+    prev_ctrl = (torch.linspace(-1.0, 1.0, EPISODES, dtype=dtype,
+                                device=device)[:, None] if prev else None)
+    cfg = sqp_mpc.SQPConfig(qp_iter=SLEW_QP_ITER, qp=trajqp.TrajQPConfig(
+        kernel=kernel, **IP_BUDGET))
+    res = sqp_mpc.solve(Pendulum(), QuadCost(C=C, c=c), x0, bounds, u_init,
+                        x_ref, cfg, slew_rate_penalty=slew,
+                        prev_ctrl=prev_ctrl)
+    return res, (c, x0)
+
+
+def phase_slew():
+    """The slew-rate option on the card: sqp_mpc.solve with s 50 on the
+    pendulum's tracking problems, with and without prev_ctrl, scan (K3 at
+    (5, 3, 1)) and fused (K4 at (5, 3, 1)), float32 and float64, B 64; the
+    counts set to 0 before each solve and read after it, then before and
+    after its backward: exactly SLEW_LAUNCHES and no other kernel, one K3
+    backward launch; float64 u card vs CPU within SLEW_TOL; the slew energy
+    criterion. K3 and K4 at (5, 3, 1) are held against their plain
+    versions on the solves' own systems (recorded; float32 by the ratio
+    rule) and on random problems, and timed."""
+    from diff_qp_mpc_tpu_torch.benchmarks import prof_trajqp_fused as prof
+    from diff_qp_mpc_tpu_torch.ops import riccati_cuda, trajqp_fused_cuda
+
+    T_, nx, nu = SLEW_SHAPE
+    reg = IP_BUDGET["reg"]
+    out = dict(runs=[], launches={"K3": 0, "K4": 0})
+    for kernel in ("scan", "fused"):
+        kid, per_solve = SLEW_LAUNCHES[kernel]
+        for dtype in (torch.float32, torch.float64):
+            for prev in (False, True):
+                reset_launches()
+                t0 = time.perf_counter()
+                res, (c, x0) = _slew_solve(kernel, dtype, prev,
+                                           requires_grad=True)
+                sync()
+                ms = 1e3 * (time.perf_counter() - t0)
+                fwd = read_launches()
+                reset_launches()
+                (res.u ** 2).sum().backward()
+                bwd = read_launches()
+                row = dict(kernel=kernel, dtype=str(dtype), prev_ctrl=prev,
+                           ms_per_solve=ms, launches=fwd,
+                           backward_launches=bwd)
+                if dtype == torch.float64:
+                    ref, _ = _slew_solve(kernel, dtype, prev, device="cpu")
+                    row["u_card_vs_cpu"] = float(
+                        (res.u.detach().cpu() - ref.u).abs().max())
+                log("slew", json.dumps(row))
+                out["runs"].append(row)
+                out["launches"][kid] += fwd[kid]
+                out["launches"]["K3"] += bwd["K3"]
+                others = {k: v for k, v in fwd.items() if k != kid and v}
+                bad_bwd = {k: v for k, v in bwd.items()
+                           if v != (1 if k == "K3" else 0)}
+                if (fwd[kid] != per_solve or others or bad_bwd
+                        or row.get("u_card_vs_cpu", 0.0) > SLEW_TOL
+                        or not bool(torch.isfinite(res.u).all())):
+                    raise RuntimeError(f"slew solve: {row}, expected "
+                                       f"{per_solve} {kid} launches and "
+                                       f"one K3 in the backward")
+
+    energy = lambda u: float(((u[:, 1:] - u[:, :-1]) ** 2).sum())
+    plain, _ = _slew_solve("scan", torch.float64, False, slew=None)
+    slew, _ = _slew_solve("scan", torch.float64, False)
+    out["energy"] = dict(slew=energy(slew.u), unpenalized=energy(plain.u),
+                         ratio=energy(slew.u) / energy(plain.u),
+                         limit=SLEW_ENERGY_RATIO)
+    log("slew energy", json.dumps(out["energy"]))
+    if not out["energy"]["ratio"] < SLEW_ENERGY_RATIO:
+        raise RuntimeError(f"slew energy: {out['energy']}")
+
+    # K3 and K4 at (5, 3, 1) on the slew solves' own systems and QPs
+    with recording(riccati_cuda, "batched_lqr_kkt_solve") as k3_calls:
+        with torch.no_grad():
+            _slew_solve("scan", torch.float32, True)
+    with recording(trajqp_fused_cuda, "fused_trajqp_solve") as k4_calls:
+        with torch.no_grad():
+            _slew_solve("fused", torch.float32, True)
+    checks = {"K3 slew systems": [], "K4 slew QPs": [], "K3 random": [],
+              "K4 random": []}
+    for args, _ in k3_calls[::24] + k3_calls[23::24]:
+        for dtype in (torch.float32, torch.float64):
+            checks["K3 slew systems"].append(k3_check(
+                [a.to(dtype) for a in args[:9]], args[9], ratio=True))
+    for args, kw in k4_calls:
+        checks["K4 slew QPs"].append(k4_check(args, kw, ratio=True))
+    for dtype in (torch.float32, torch.float64):
+        for B in (EPISODES, 256):
+            checks["K3 random"].append(k3_check(
+                lqr_problem(B, T_, nx, nu, dtype, seed=B + 3, device=CARD),
+                reg))
+            arrays, box = prof.problem(B, T_, nx, nu, dtype, device=CARD)
+            arrays = (*arrays, *prof.cold_start(*arrays))
+            checks["K4 random"].append(k4_check(
+                arrays, dict(IP_BUDGET, u_lo=box.u_lo, u_hi=box.u_hi)))
+    for key, rows in checks.items():
+        log(f"slew {key}", json.dumps(dict(checks=len(rows), worst=max(
+            rows, key=_check_err))))
+    out["checks"] = checks
+
+    args = lqr_problem(EPISODES, T_, nx, nu, torch.float32, seed=EPISODES,
+                       device=CARD)
+    out["K3 timing"] = k3_timing(args, reg)
+    out["K3 timing"]["max_abs_err"] = _max_errs(
+        riccati_cuda.batched_lqr_kkt_solve(*args, reg),
+        _plain_k3(args, reg))[0]
+    arrays, box = prof.problem(EPISODES, T_, nx, nu, torch.float32,
+                               device=CARD)
+    arrays = (*arrays, *prof.cold_start(*arrays))
+    bounds = (box.u_lo, box.u_hi)
+    kern = lambda: trajqp_fused_cuda.fused_trajqp_solve(*arrays, *bounds,
+                                                        **IP_BUDGET)
+    t = dict(B=EPISODES, ms=queued_events_ms(kern, 10),
+             plain_ms=events_ms(
+                 lambda: trajqp_fused_cuda.fused_trajqp_solve_reference(
+                     *arrays, *bounds, **IP_BUDGET), 3, warmup=1),
+             library_ms=None)
+    t["bound_ms"], t["bound_by"] = bound(
+        EPISODES * k4_bytes(T_, nx, nu),
+        EPISODES * k4_ops(T_, nx, nu, IP_BUDGET["max_iter"]))
+    t["max_abs_err"] = _max_errs(
+        kern(), trajqp_fused_cuda.fused_trajqp_solve_reference(
+            *arrays, *bounds, **IP_BUDGET))[0]
+    out["K4 timing"] = t
+    log("slew K3 timing", json.dumps(out["K3 timing"]))
+    log("slew K4 timing", json.dumps(t))
+    return out
+
+
+def slew_kernel_rows(slew):
+    """The kernels line's rows of K3 and K4 at (5, 3, 1): ms, plain,
+    library (K3: the dense KKT's torch.linalg.solve; K4: none) and bound
+    in float32 at B 64, the largest errors of their checks, and the
+    launches of the slew phase's solves and backwards."""
+    T_, nx, nu = SLEW_SHAPE
+    k3, k4 = slew["K3 timing"], slew["K4 timing"]
+    ch = slew["checks"]
+    k3_rows = ch["K3 slew systems"] + ch["K3 random"]
+    err = lambda rows, dtype: max(_check_err(r) for r in rows
+                                  if r["dtype"] == dtype)
+    shape = f"B={EPISODES} T={T_} nx={nx} nu={nu} float32"
+    return [
+        {"name": "riccati (K3) at the slew-augmented pendulum's shape",
+         "route": "cuda", "source": "diff_qp_mpc_tpu_torch/csrc/riccati.cu",
+         "replaces": "diff_qp_mpc_tpu/ops/riccati_pallas.py:219",
+         "launches": slew["launches"]["K3"],
+         "max_abs_err": k3["max_abs_err"],
+         "checks_max_rel_err_float32": err(k3_rows, "torch.float32"),
+         "checks_max_rel_err_float64": err(k3_rows, "torch.float64"),
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": k3["library_ms"], "shape": shape},
+        {"name": "trajqp_fused (K4) at the slew-augmented pendulum's shape",
+         "route": "cuda",
+         "source": "diff_qp_mpc_tpu_torch/csrc/trajqp_fused.cu",
+         "replaces": "diff_qp_mpc_tpu/ops/trajqp_fused_pallas.py:308",
+         "launches": slew["launches"]["K4"],
+         "max_abs_err": k4["max_abs_err"],
+         "checks_max_scaled_err_float32": err(ch["K4 random"],
+                                              "torch.float32"),
+         "checks_max_scaled_err_float64": err(ch["K4 random"],
+                                              "torch.float64"),
+         "slew_qps_kernel_vs_f64": err(ch["K4 slew QPs"], "torch.float32"),
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+         "library_ms": None, "shape": shape}]
+
 
 
 def k3_by_shape(k3_horizon, cp2_qps, cp2_runs, training, experts):
@@ -2199,62 +2715,53 @@ def main():
             or torch.backends.cudnn.allow_tf32:
         raise RuntimeError("TF32 is on: the port's float32 products must "
                            "run in full float32")
-    k1 = phase_k1()
-    k2 = phase_k2()
-    t_models = time.perf_counter()
-    k1_models = phase_k1_models()
-    log(f"K1 models phase: {time.perf_counter() - t_models:.1f} s")
-    t_models = time.perf_counter()
-    k2_models = phase_k2_models()
-    log(f"K2 models phase: {time.perf_counter() - t_models:.1f} s")
-    k3 = phase_k3()
-    k4 = phase_k4()
-    k5 = phase_k5()
-    phase_policy()
-    runs = phase_main_path()
-    t_models = time.perf_counter()
-    phase_model_policy()
-    model_runs = phase_model_main_path()
-    log(f"model paths phase: {time.perf_counter() - t_models:.1f} s")
-    t_roof = time.perf_counter()
-    roof = phase_roofline()
-    log(f"roofline phase: {time.perf_counter() - t_roof:.1f} s")
-    phase_k1_al()
-    t_train = time.perf_counter()
-    phase_train_grad()
-    training = phase_train()
-    log(f"training phases: {time.perf_counter() - t_train:.1f} s")
-    t_train = time.perf_counter()
-    phase_model_train_grad()
-    training["cp1-fused"] = phase_model_train(
-        "cp1-fused", CP1_META, CP1_TRAIN_PRETRAIN, CP1_TRAIN_DEQMPC)
-    training["quad-fused"] = phase_model_train(
-        "quad-fused", QUAD_META, QUAD_TRAIN_PRETRAIN, QUAD_TRAIN_DEQMPC)
-    log(f"model training phases: {time.perf_counter() - t_train:.1f} s")
+    k1 = timed("K1", phase_k1)
+    k2 = timed("K2", phase_k2)
+    k1_models = timed("K1 models", phase_k1_models)
+    k2_models = timed("K2 models", phase_k2_models)
+    k3 = timed("K3", phase_k3)
+    k4 = timed("K4", phase_k4)
+    k5 = timed("K5", phase_k5)
+    timed("policy", phase_policy)
+    runs = timed("main path", phase_main_path)
+    timed("model policy", phase_model_policy)
+    model_runs = timed("model main path", phase_model_main_path)
+    roof = timed("roofline", phase_roofline)
+    timed("K1 AL systems", phase_k1_al)
+    timed("train grad", phase_train_grad)
+    training = timed("train", phase_train)
+    timed("model train grad", phase_model_train_grad)
+    training["cp1-fused"] = timed(
+        "cp1 train", phase_model_train, "cp1-fused", CP1_META,
+        CP1_TRAIN_PRETRAIN, CP1_TRAIN_DEQMPC)
+    training["quad-fused"] = timed(
+        "quadrotor train", phase_model_train, "quad-fused", QUAD_META,
+        QUAD_TRAIN_PRETRAIN, QUAD_TRAIN_DEQMPC)
 
     # the terminal-LQR ip path at cp2's shape and the MPC expert
-    t_slice = time.perf_counter()
-    k3_horizon = phase_k3_horizon()
-    cp2_qps = phase_cp2_qps()
-    log(f"K3/K4 new shapes phase: {time.perf_counter() - t_slice:.1f} s")
-    t_phase = time.perf_counter()
-    phase_model_policy(CP2_IP_POLICY_PATHS)
-    cp2_runs = phase_cp2_ip_main_path()
-    log(f"cp2 ip paths phase: {time.perf_counter() - t_phase:.1f} s")
-    t_phase = time.perf_counter()
-    phase_model_train_grad(CP2_IP_POLICY_PATHS)
-    training["cp2-ip-fused"] = phase_model_train(
-        "cp2-ip-fused", CP2_IP_META, CP2_IP_TRAIN_PRETRAIN,
-        CP2_IP_TRAIN_DEQMPC)
-    log(f"cp2 ip training phase: {time.perf_counter() - t_phase:.1f} s")
-    t_phase = time.perf_counter()
-    experts = phase_experts()
-    log(f"expert phase: {time.perf_counter() - t_phase:.1f} s")
-    t_phase = time.perf_counter()
-    experts["dagger"] = phase_dagger()
-    log(f"DAgger phase: {time.perf_counter() - t_phase:.1f} s")
-    log(f"terminal-LQR and expert phases: "
-        f"{time.perf_counter() - t_slice:.1f} s")
+    k3_horizon = timed("K3 horizon", phase_k3_horizon)
+    cp2_qps = timed("cp2 QPs", phase_cp2_qps)
+    timed("cp2 ip policy", phase_model_policy, CP2_IP_POLICY_PATHS)
+    cp2_runs = timed("cp2 ip main path", phase_cp2_ip_main_path)
+    timed("cp2 ip train grad", phase_model_train_grad, CP2_IP_POLICY_PATHS)
+    training["cp2-ip-fused"] = timed(
+        "cp2 ip train", phase_model_train, "cp2-ip-fused", CP2_IP_META,
+        CP2_IP_TRAIN_PRETRAIN, CP2_IP_TRAIN_DEQMPC)
+    experts = timed("experts", phase_experts)
+    experts["dagger"] = timed("DAgger", phase_dagger)
+
+    # the OptNet QP layer, SL1QP and the slew-rate option
+    qp_layer = timed("QP layer", phase_qp_layer)
+    sudoku = timed("sudoku", phase_sudoku)
+    sl1qp = timed("SL1QP", phase_sl1qp)
+    slew = timed("slew", phase_slew)
+    log("phase seconds", json.dumps(PHASE_SECONDS))
+    log("solver layer", json.dumps(dict(
+        qp_layer_timing=qp_layer["timing"],
+        sudoku={k: sudoku[k] for k in ("ms_per_iteration", "loss0",
+                                       "lossN", "val_cell_accuracy")},
+        sl1qp_s_per_solve_with_grad={
+            k: sl1qp[k]["s_per_solve_with_grad"] for k, *_ in SL1QP_RUNS})))
     # the training phases' launches of each kernel, all paths
     train_launches = {k: sum(row["launches_total"][k]
                              for row in training.values())
@@ -2321,6 +2828,7 @@ def main():
         if kid == "K4":
             kernels[-1]["by_shape"] = k4_by_shape(cp2_qps, cp2_runs,
                                                   training)
+    kernels.extend(slew_kernel_rows(slew))
     quad = kernels[1]["by_model"]["quadrotor T5"]
     kernels.append({
         "name": "al_fused quadrotor (K2, one warp per element)",

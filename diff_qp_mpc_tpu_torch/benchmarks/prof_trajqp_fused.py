@@ -51,9 +51,10 @@ def problem_arrays(B, T, nx, nu):
     return C, c, A, Bm, f, x0
 
 
-def problem(B, T, nx, nu, dtype=torch.float32):
-    """(C, c, A, Bm, f, x0) as tensors on the card, and the box."""
-    return ([torch.tensor(np.ascontiguousarray(a), dtype=dtype, device="cuda")
+def problem(B, T, nx, nu, dtype=torch.float32, device="cuda"):
+    """(C, c, A, Bm, f, x0) as tensors on the card (or ``device``), and
+    the box."""
+    return ([torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
              for a in problem_arrays(B, T, nx, nu)],
             Bounds(u_lo=(-BOX,) * nu, u_hi=(BOX,) * nu))
 

@@ -118,6 +118,7 @@ int dispatch(const RiccatiArgs& a, int Bsz, int T, int nx, int nu,
              double reg, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (T == 5 && nx == 2 && nu == 1) return launch<5, 2, 1, F>(a, Bsz, reg, s);
+  if (T == 5 && nx == 3 && nu == 1) return launch<5, 3, 1, F>(a, Bsz, reg, s);
   if (T == 5 && nx == 3 && nu == 2) return launch<5, 3, 2, F>(a, Bsz, reg, s);
   if (T == 5 && nx == 4 && nu == 1) return launch<5, 4, 1, F>(a, Bsz, reg, s);
   if (T == 5 && nx == 6 && nu == 1) return launch<5, 6, 1, F>(a, Bsz, reg, s);
@@ -129,7 +130,7 @@ int dispatch(const RiccatiArgs& a, int Bsz, int T, int nx, int nu,
 // Cxx [B,T,nx,nx], Cxu [B,T,nx,nu], Cuu [B,T,nu,nu], gx [B,T,nx],
 // gu [B,T,nu], A [B,T-1,nx,nx], B [B,T-1,nx,nu], r [B,T-1,nx], dx0 [B,nx]
 // -> dx [B,T,nx], du [B,T,nu], lam [B,T,nx]; all contiguous. Built for
-// (T, nx, nu) = (5, 2, 1), (5, 3, 2), (5, 4, 1) and (5, 6, 1);
+// (T, nx, nu) = (5, 2, 1), (5, 3, 1), (5, 3, 2), (5, 4, 1) and (5, 6, 1);
 // cudaErrorInvalidValue otherwise (riccati_horizon.cu takes longer
 // horizons).
 // Returns a cudaError_t code.

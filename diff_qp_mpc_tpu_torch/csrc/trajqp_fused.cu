@@ -483,6 +483,9 @@ int dispatch(const TrajQPArgs& a, int Bsz, int T, int nx, int nu,
   if (T == 5 && nx == 2 && nu == 1)
     return launch<5, 2, 1, F>(a, Bsz, max_iter, reg, min_slack, u_lo, u_hi,
                               s);
+  if (T == 5 && nx == 3 && nu == 1)
+    return launch<5, 3, 1, F>(a, Bsz, max_iter, reg, min_slack, u_lo, u_hi,
+                              s);
   if (T == 5 && nx == 3 && nu == 2)
     return launch<5, 3, 2, F>(a, Bsz, max_iter, reg, min_slack, u_lo, u_hi,
                               s);
@@ -501,7 +504,7 @@ int dispatch(const TrajQPArgs& a, int Bsz, int T, int nx, int nu,
 // B [B,T-1,nx,nu], f [B,T-1,nx], x0 [B,nx], x_init [B,T,nx], u_init
 // [B,T,nu]; outputs x [B,T,nx], u [B,T,nu], lam [B,T,nx], z_hi, z_lo, s_hi,
 // s_lo [B,T,nu], res [B]. u_lo/u_hi hold nu host values. Built for
-// (T, nx, nu) = (5, 2, 1), (5, 3, 2), (5, 4, 1) and (5, 6, 1);
+// (T, nx, nu) = (5, 2, 1), (5, 3, 1), (5, 3, 2), (5, 4, 1) and (5, 6, 1);
 // cudaErrorInvalidValue otherwise.
 // Returns a cudaError_t code.
 #define TRAJQP_ENTRY(NAME, F)                                                 \

@@ -164,6 +164,48 @@ def linearize_trajectory(jac, x: Tensor, u: Tensor
             B.reshape(bsz, T - 1, nx, nu))
 
 
+class SlewAugmented(DynamicsModel):
+    """State augmentation carrying the previous control: x̃ = [x; u_prev]
+    (port of diff_qp_mpc_tpu.models.base.SlewAugmented).
+
+    The structured equivalent of the reference's SlewRateCost wrapper
+    (qpth/qp_wrapper.py:30-57): the previous control becomes part of the
+    state, step̃([x, u_prev], u) = [f(x, u), u], so the slew penalty
+    s·‖u − u_prev‖² is an ordinary stage quadratic with a (u_prev, u)
+    cross block, and the trajectory QP keeps the stage-separable structure
+    the Riccati kernels take. ``jac`` is built from the inner model's (no
+    forward-mode pass through the augmented step): A = blkdiag(A_inner, 0),
+    B = [B_inner; I].
+    """
+
+    def __init__(self, inner: DynamicsModel):
+        self.inner = inner
+        self.nx = inner.nx + inner.nu
+        self.nu = inner.nu
+        self.nq = inner.nq
+        self.dt = inner.dt
+
+    def step(self, x: Tensor, u: Tensor) -> Tensor:
+        return torch.cat([self.inner.step(x[..., :self.inner.nx], u), u],
+                         dim=-1)
+
+    def jac(self, x: Tensor, u: Tensor):
+        nx, nu = self.inner.nx, self.nu
+        x_next, (A_in, B_in) = self.inner.jac(x[..., :nx], u)
+        A = A_in.new_zeros(A_in.shape[:-2] + (nx + nu, nx + nu))
+        A[..., :nx, :nx] = A_in
+        eye = torch.eye(nu, dtype=B_in.dtype, device=B_in.device)
+        B = torch.cat([B_in, eye.expand(B_in.shape[:-2] + (nu, nu))], -2)
+        return torch.cat([x_next, u], dim=-1), (A, B)
+
+    # configuration-only objects, hashed and compared as the JAX package's
+    def __hash__(self):
+        return hash((type(self), self.inner))
+
+    def __eq__(self, other):
+        return type(self) is type(other) and hash(self) == hash(other)
+
+
 def angle_normalize(x: Tensor) -> Tensor:
     """Wrap to [-π, π). Python's ``%`` is a floored modulo, so this is
     ``torch.remainder`` (not ``fmod``, which truncates toward zero)."""

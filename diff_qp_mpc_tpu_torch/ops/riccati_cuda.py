@@ -29,7 +29,7 @@ from diff_qp_mpc_tpu_torch.utils import cuda_build
 Tensor = torch.Tensor
 
 #: (T, nx, nu) with an instantiation of the unrolled kernel
-BUILT = ((5, 2, 1), (5, 3, 2), (5, 4, 1), (5, 6, 1))
+BUILT = ((5, 2, 1), (5, 3, 1), (5, 3, 2), (5, 4, 1), (5, 6, 1))
 #: (nx, nu) with an instantiation of the horizon kernel (any T)
 HORIZON_BUILT = ((2, 1), (4, 1), (6, 1), (12, 4))
 #: launches of the unrolled kernel since the count was last set to 0

@@ -20,7 +20,7 @@ from diff_qp_mpc_tpu_torch.utils import cuda_build
 Tensor = torch.Tensor
 
 #: (T, nx, nu) with a kernel instantiation
-BUILT = ((5, 2, 1), (5, 3, 2), (5, 4, 1), (5, 6, 1))
+BUILT = ((5, 2, 1), (5, 3, 1), (5, 3, 2), (5, 4, 1), (5, 6, 1))
 #: kernel launches since the count was last set to 0
 launches = 0
 

@@ -12,6 +12,10 @@ autograd; the gradient is the final QP's implicit sensitivity
 (``trajqp.traj_qp_layer``) w.r.t. the cost and x0, passed straight through
 onto the returned value: w_value + (w_hat − w_hat.detach()), which is NaN
 wherever the final QP's w_hat is not finite, as in the JAX package.
+
+A slew-rate penalty s·‖u_t − u_{t−1}‖² is solved over the augmented state
+x̃ = [x, u_prev] (``models.base.SlewAugmented``), which keeps the cost
+stage-separable: the trajectory QP then runs at (T, nx + nu, nu).
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from diff_qp_mpc_tpu_torch.core.types import (
     LinDx,
     QuadCost,
 )
-from diff_qp_mpc_tpu_torch.models.base import DynamicsModel
+from diff_qp_mpc_tpu_torch.models.base import DynamicsModel, SlewAugmented
 from diff_qp_mpc_tpu_torch.ops import almerit
 from diff_qp_mpc_tpu_torch.ops.riccati import mv
 from diff_qp_mpc_tpu_torch.solvers import trajqp
@@ -113,6 +117,48 @@ def _rollout_candidates(dynamics, x0: Tensor, u_cand: Tensor) -> Tensor:
     return x.reshape(L, bsz, T, -1)
 
 
+def _augment_slew(dynamics, dcost: QuadCost, x0: Tensor, u_init: Tensor,
+                  x_init: Optional[Tensor], slew: float,
+                  prev_ctrl: Optional[Tensor]):
+    """The problem over x̃ = [x, u_prev]: the slew penalty s·‖u_t − u_{t−1}‖²
+    as a stage quadratic of [x, u_prev, u] (the reference's SlewRateCost /
+    slew_rate_penalty, qp_wrapper.py:30-57,442-457), none at t = 0 unless
+    ``prev_ctrl`` is given (u_prev then starts at it, else at 0). Returns
+    (SlewAugmented(dynamics), the augmented QuadCost, x̃0, x̃_init, whose
+    u_prev history is u_init shifted by one)."""
+    bsz, T, nu = u_init.shape
+    nx = x0.shape[-1]
+    na = nx + 2 * nu  # [x, u_prev, u]
+    xs, up, us = slice(0, nx), slice(nx, nx + nu), slice(nx + nu, na)
+    kw = dict(dtype=dcost.C.dtype, device=dcost.C.device)
+    C = torch.zeros(bsz, T, na, na, **kw)
+    C[:, :, xs, xs] = dcost.C[:, :, :nx, :nx]
+    C[:, :, xs, us] = dcost.C[:, :, :nx, nx:]
+    C[:, :, us, xs] = dcost.C[:, :, nx:, :nx]
+    C[:, :, us, us] = dcost.C[:, :, nx:, nx:]
+    s_t = torch.full((T,), slew, **kw)
+    if prev_ctrl is None:
+        s_t[0] = 0.0
+    sI = s_t[:, None, None] * torch.eye(nu, **kw)  # [T, nu, nu]
+    C[:, :, up, up] += sI
+    C[:, :, us, us] += sI
+    C[:, :, up, us] += -sI
+    C[:, :, us, up] += -sI
+    c = torch.zeros(bsz, T, na, **kw)
+    c[:, :, xs] = dcost.c[:, :, :nx]
+    c[:, :, us] = dcost.c[:, :, nx:]
+
+    u_prev0 = (torch.as_tensor(prev_ctrl, dtype=x0.dtype,
+                               device=x0.device).expand(bsz, nu)
+               if prev_ctrl is not None else x0.new_zeros(bsz, nu))
+    x0_a = torch.cat([x0, u_prev0], dim=-1)
+    x_init_a = None
+    if x_init is not None:
+        up_hist = torch.cat([u_prev0[:, None], u_init[:, :-1]], dim=1)
+        x_init_a = torch.cat([x_init, up_hist], dim=-1)
+    return SlewAugmented(dynamics), QuadCost(C=C, c=c), x0_a, x_init_a
+
+
 def solve(dynamics: Union[DynamicsModel, LinDx], cost: Cost, x0: Tensor,
           bounds: Bounds, u_init: Tensor, x_init: Optional[Tensor] = None,
           cfg: SQPConfig = SQPConfig(), differentiable: bool = True,
@@ -127,12 +173,12 @@ def solve(dynamics: Union[DynamicsModel, LinDx], cost: Cost, x0: Tensor,
     the JAX package's final-QP branch: True solves the final QP cold through
     the differentiable layer (gradients to the cost and x0); False
     warm-starts it from the best iterate, without a gradient. The
-    linearizations are detached.
+    linearizations are detached. ``slew_rate_penalty`` (with ``prev_ctrl``
+    the control before u_0) adds s·‖u_t − u_{t−1}‖² by state augmentation
+    (``_augment_slew``; the goal term is applied first and rides along in
+    the augmented x-block); affine (LinDx) dynamics ignore it, as in the
+    JAX package.
     """
-    if slew_rate_penalty is not None:
-        raise NotImplementedError(
-            "slew_rate_penalty needs SlewAugmented, which is not ported yet")
-    del prev_ctrl  # only read with slew_rate_penalty
     bsz, T, nu = u_init.shape
     nx = x0.shape[-1]
     dcost = _dense_cost(cost, bsz, T, nx + nu)
@@ -144,6 +190,14 @@ def solve(dynamics: Union[DynamicsModel, LinDx], cost: Cost, x0: Tensor,
                                                       device=C.device)
         c[:, -1, :nx] -= goal_weight * g
         dcost = QuadCost(C=C, c=c)
+    if slew_rate_penalty is not None and not isinstance(dynamics, LinDx):
+        dyn_a, dcost_a, x0_a, x_init_a = _augment_slew(
+            dynamics, dcost, x0, u_init, x_init, slew_rate_penalty,
+            prev_ctrl)
+        res = solve(dyn_a, dcost_a, x0_a, bounds, u_init, x_init_a, cfg,
+                    differentiable)
+        return SQPResult(x=res.x[..., :nx], u=res.u, cost=res.cost,
+                         alpha=res.alpha, qp_resid=res.qp_resid)
     with torch.no_grad():
         best_x, best_u, lin, alpha_last, resid_last = _iterate(
             dynamics, dcost, x0, bounds, u_init, x_init, cfg)

@@ -868,3 +868,111 @@ def test_k1_on_quadrotor_al_newton_systems(cuda):
         T_=5)
     assert {r["n"] for r in rows} == {16}
     assert len(rows) == 2 * len(kernel_layouts.K1_QUAD_AL_RHOS)
+
+
+# ------- the slew path (K3 and K4 at (5, 3, 1)), the QP layer, SL1QP ----
+def _slew_problem(B, dtype, device, seed=0):
+    """Pendulum tracking problems (x0, x_ref, u_ref, Cd, c), as
+    tests/test_torch_slew.py draws them."""
+    rng = np.random.RandomState(seed)
+    x0 = rng.uniform([-np.pi, -1.0], [np.pi, 1.0], (B, 2))
+    x_ref = x0[:, None] + np.cumsum(0.1 * rng.randn(B, 5, 2), axis=1)
+    x_ref[:, 0] = x0
+    u_ref = 0.5 * rng.randn(B, 5, 1)
+    Cd = np.broadcast_to([10.0, 1.0, 0.01], (B, 5, 3)).copy()
+    c = -Cd * np.concatenate([x_ref, u_ref], -1)
+    return [torch.tensor(a, dtype=dtype, device=device)
+            for a in (x0, x_ref, u_ref, Cd, c)]
+
+
+def _counts():
+    return (btsolve_cuda.launches, al_fused_cuda.launches,
+            riccati_cuda.launches, riccati_cuda.horizon_launches,
+            trajqp_fused_cuda.launches, sin_chain_cuda.launches)
+
+
+def _slew_solve(device, kernel, prev, requires_grad=False):
+    from diff_qp_mpc_tpu_torch.solvers import sqp_mpc, trajqp
+
+    x0, x_ref, u_ref, Cd, c = _slew_problem(16, torch.float64, device)
+    c.requires_grad_(requires_grad)
+    bounds = (Bounds(u_lo=(-3.0,), u_hi=(3.0,)) if kernel == "fused" else
+              Bounds(u_lo=torch.tensor([-3.0], dtype=torch.float64,
+                                       device=device),
+                     u_hi=torch.tensor([3.0], dtype=torch.float64,
+                                       device=device)))
+    prev_ctrl = (torch.full((16, 1), 0.5, dtype=torch.float64,
+                            device=device) if prev else None)
+    res = sqp_mpc.solve(
+        Pendulum(), DiagQuadCost(Cd=Cd, c=c), x0, bounds, u_ref, x_ref,
+        sqp_mpc.SQPConfig(qp_iter=2, qp=trajqp.TrajQPConfig(
+            kernel=kernel, max_iter=12, reg=1e-9)),
+        slew_rate_penalty=50.0, prev_ctrl=prev_ctrl)
+    return res, c
+
+
+@pytest.mark.parametrize("prev", [False, True])
+@pytest.mark.parametrize("kernel,index,per_solve", [
+    ("scan", 2, 3 * 12 * 2), ("fused", 4, 3)])
+def test_slew_solve_runs_its_kernel_at_5_3_1(cuda, kernel, index,
+                                             per_solve, prev):
+    """sqp_mpc.solve with a slew penalty on the card: exactly (qp_iter + 1)
+    × max_iter × 2 K3 launches (scan) or qp_iter + 1 K4 launches (fused)
+    at (5, 3, 1) and no other kernel; the backward one K3 launch; u within
+    1e-6 of the CPU's in float64 (the SQP tolerance)."""
+    before = _counts()
+    res, c = _slew_solve(cuda, kernel, prev, requires_grad=True)
+    after = _counts()
+    want = list(before)
+    want[index] += per_solve
+    assert after == tuple(want)
+    res.u.sum().backward()
+    assert riccati_cuda.launches == after[2] + 1
+    ref, _ = _slew_solve(torch.device("cpu"), kernel, prev)
+    assert float((res.u.detach().cpu() - ref.u).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("solver", ["dense", "prefactor"])
+def test_qp_layer_card_matches_cpu(cuda, solver):
+    """The OptNet layer on the card in float64 against the CPU: z within
+    1e-8 relative, the six gradients within 1e-6; no kernel of the
+    repository is launched (the layer has none)."""
+    from diff_qp_mpc_tpu_torch.benchmarks import prof_qp_sizes
+    from diff_qp_mpc_tpu_torch.solvers.qp import QPConfig, qp_solve
+
+    cfg = QPConfig(solver=solver)
+    outs = []
+    before = _counts()
+    for device in (cuda, torch.device("cpu")):
+        args = prof_qp_sizes.problem(8, 20, 20, 5, torch.float64, device)
+        sol = qp_solve(*args, cfg)
+        outs.append([sol.z] + list(prof_qp_sizes.forward_backward(
+            args, cfg)[1:]))
+    assert _counts() == before
+    for got, want in zip(*outs):
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got.cpu() - want).abs().max()) / scale <= 1e-6
+
+
+def test_sl1qp_launches_no_kernel(cuda):
+    """SL1QP (the elastic Riccati recursion, plain PyTorch) launches none of
+    K1-K5; its value on the card within 1e-6 of the CPU's in float64."""
+    from diff_qp_mpc_tpu_torch.models import Integrator
+    from diff_qp_mpc_tpu_torch.solvers import sl1qp_mpc
+
+    outs = []
+    before = _counts()
+    for device in (cuda, torch.device("cpu")):
+        kw = dict(dtype=torch.float64, device=device)
+        x0 = torch.tensor(np.random.RandomState(0).randn(4, 2), **kw)
+        Cd = torch.tensor([10.0, 10.0, 0.01], **kw).expand(4, 5, 3)
+        res = sl1qp_mpc.solve(
+            Integrator(nx=2, nu=1, dt=0.1),
+            DiagQuadCost(Cd=Cd, c=torch.zeros(4, 5, 3, **kw)), x0,
+            Bounds(u_lo=torch.tensor([-3.0], **kw),
+                   u_hi=torch.tensor([3.0], **kw)),
+            torch.zeros(4, 5, 1, **kw),
+            cfg=sl1qp_mpc.SL1QPConfig(qp_iter=4, mu=100.0))
+        outs.append(res.u.detach().cpu())
+    assert _counts() == before
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-6

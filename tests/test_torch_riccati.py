@@ -8,7 +8,13 @@ Tolerances: a direct linear solve, so float64 agrees to 1e-10 relative to
 the largest entry; float32 to 1e-4 (the recursion's rounding over five
 stages, cond(Quu) ≲ 1e2 on these inputs). The KKT residuals of the port's
 solution, computed by the JAX package's kkt_residual, are below 1e-9 in
-float64."""
+float64.
+
+The elastic form (``theta``, the SL1QP path's relaxed dynamics rows)
+against the JAX package's batched_lqr_kkt_solve_elastic at the same shapes
+and (3, 1) (the slew-augmented pendulum), Θ drawn in [0, 2], at the same
+tolerances (two more small linear solves a stage); with Θ = 0 it gives the
+hard recursion's bits."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -85,8 +91,42 @@ def test_kkt_residuals(nx, nu):
         assert float(jnp.abs(r).max()) <= 1e-9
 
 
-def test_elastic_theta_is_not_ported():
-    arrays = [torch.tensor(a) for a in lqr_problem(2, 1)]
-    with pytest.raises(NotImplementedError):
-        riccati.batched_lqr_kkt_solve(*arrays, REG,
-                                      theta=torch.zeros(B, T - 1, 2))
+def _theta(nx, seed):
+    return np.random.RandomState(seed).uniform(0.0, 2.0, (B, T - 1, nx))
+
+
+@pytest.mark.parametrize("nx,nu", [(2, 1), (3, 1), (3, 2), (4, 1)])
+@pytest.mark.parametrize("dtype,jdt", DTYPES, ids=["f64", "f32"])
+def test_elastic_matches_jax(nx, nu, dtype, jdt):
+    arrays = lqr_problem(nx, nu, seed=30 + nx)
+    theta = _theta(nx, 40 + nx)
+    ref = jax_riccati.batched_lqr_kkt_solve_elastic(
+        *(jnp.asarray(a, jdt) for a in arrays), REG, jnp.asarray(theta, jdt))
+    got = riccati.batched_lqr_kkt_solve_elastic(
+        *(torch.tensor(a, dtype=dtype) for a in arrays), REG,
+        torch.tensor(theta, dtype=dtype))
+    for name in ("dx", "du", "lam", "K", "k"):
+        _close(getattr(got, name), getattr(ref, name), TOL[dtype], name)
+
+
+@pytest.mark.parametrize("nx,nu", [(2, 1), (3, 1)])
+def test_elastic_with_zero_theta_is_the_hard_recursion(nx, nu):
+    arrays = [torch.tensor(a) for a in lqr_problem(nx, nu, seed=50 + nx)]
+    hard = riccati.batched_lqr_kkt_solve(*arrays, REG)
+    zero = riccati.batched_lqr_kkt_solve(*arrays, REG,
+                                         theta=torch.zeros(B, T - 1, nx))
+    for name, a, b in zip(hard._fields, hard, zero):
+        assert torch.equal(a, b), name
+
+
+def test_elastic_rows_are_relaxed():
+    """The solution satisfies the elastic rows: the dynamics residual of
+    row t is Θₜ λ[t+1], with λ the costate −(P dx + p)."""
+    arrays = [torch.tensor(a) for a in lqr_problem(3, 1, seed=60)]
+    theta = torch.tensor(_theta(3, 61))
+    sol = riccati.batched_lqr_kkt_solve(*arrays, 0.0, theta=theta)
+    A, Bm, r = arrays[5], arrays[6], arrays[7]
+    feas = sol.dx[:, 1:] - (riccati.mv(A, sol.dx[:, :-1])
+                            + riccati.mv(Bm, sol.du[:, :-1]) + r)
+    torch.testing.assert_close(feas, theta * sol.lam[:, 1:], rtol=1e-10,
+                               atol=1e-10)

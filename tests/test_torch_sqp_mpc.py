@@ -182,14 +182,6 @@ def test_affine_dynamics_match_jax():
                                    rtol=1e-6, atol=1e-6, err_msg=name)
 
 
-def test_slew_rate_penalty_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        sqp_mpc.solve(Pendulum(), DiagQuadCost(Cd=torch.ones(B, T, 3),
-                                               c=torch.zeros(B, T, 3)),
-                      torch.zeros(B, 2), Bounds((-3.0,), (3.0,)),
-                      torch.zeros(B, T, 1), slew_rate_penalty=0.1)
-
-
 def test_linearize_and_dense_cost_match_jax():
     rng = np.random.RandomState(1)
     x, u = rng.randn(B, T, 2), rng.randn(B, T, 1)
