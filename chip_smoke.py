@@ -181,6 +181,20 @@ Phases, each of which raises on failure (there is no CPU fallback):
      vs CPU within SLEW_TOL; the slew energy below SLEW_ENERGY_RATIO × the
      unpenalized solve's; K3 and K4 at (5, 3, 1) against their plain
      versions on the solves' own systems and on random problems, timed.
+ 20. the RL experts (learning/rl.py), in this order: (a) both committed
+     CGAC actors rolled out over RL_ROLLOUTS trajectories up to their env's
+     step limit, gated on RL_ACTORS' least upright share, their float64
+     actions over RL_CHECK_STEPS steps card vs CPU within RL_TOL, the
+     pendulum's pickle written under RL_DIR; (b) SAC at SACConfig's
+     defaults (the warmup, then RL_SAC_BLOCKS blocks of 100 iterations × 8
+     updates) and CGAC at CGACConfig's (the warmup, one block), ms per
+     block and per update, SAC's buffer and statistics after the warmup
+     exact, one float64 update card vs CPU each; (c) PPO at PPOConfig's
+     defaults for RL_PPO_ITERS iterations and one float64 update card vs
+     CPU; (d) `datagen --expert sac`, cut, writing a pickle that
+     learning.data reads, no kernel launched; (e) DEQ-MPC training on (a)'s
+     pickle with the main path's meta flags, cut to RL_TRAIN_PRETRAIN +
+     RL_TRAIN_DEQMPC steps, exactly 6 K2 and 6 K1 launches a DEQ-MPC step.
 Every phase prints its seconds ("phase <name>: <s> s") and the run ends
 with their table.
 Bounds: the larger of the bytes over the HBM rate and the operations over
@@ -539,6 +553,44 @@ SLEW_LAUNCHES = {"scan": ("K3", (SLEW_QP_ITER + 1) * IP_BUDGET["max_iter"]
                  "fused": ("K4", SLEW_QP_ITER + 1)}
 SLEW_TOL, SLEW_ENERGY_RATIO = 1e-6, 0.2
 SLEW_SHAPE = (T, NX + NU, NU)  # (5, 3, 1)
+# the RL experts (learning/rl.py). The committed CGAC actors rolled out
+# over RL_ROLLOUTS trajectories up to their env's step limit, from the
+# port's seeded initial states, float32, each gated on a least share of
+# final states near upright: the pendulum on tests/test_expert_data.py's
+# criterion for the committed pickle (|θ| < 0.1 on more than 0.95); the
+# 1-link cartpole's committed checkpoint is not the actor that wrote its
+# committed pickle (the JAX package's own rollout of it from the pickle's
+# initial states, PRNGKey(0), reads 0.400 against the pickle's 1.000), so
+# it is gated on that reading less two binomial standard deviations at
+# 300 trajectories (0.343), the pickle's 0.9 printed beside it
+RL_ROLLOUTS = 300
+RL_ACTORS = (("pendulum", "data/expert_traj_cgac-Pendulum-v0_new.pkl"
+              ".cgac_ckpt.msgpack", 0.1, 0.95),
+             ("cartpole1link", "data/expert_traj_cgac-Cartpole1l-v0_new.pkl"
+              ".cgac_ckpt.msgpack", 0.15, 0.343))
+RL_PICKLE_CRITERION = {"pendulum": 0.95, "cartpole1link": 0.9}
+# float64 card vs CPU: the actors' actions over the first RL_CHECK_STEPS
+# closed-loop steps, and one SAC / CGAC update and one PPO update (its 32
+# minibatch steps) from the same state and draws, every tensor within
+# RL_TOL of its largest entry (the CPU tests hold the same updates to the
+# JAX package's within 1e-9 and read ≤ 4e-11; the card's matrix products
+# sum in another order)
+RL_CHECK_STEPS, RL_TOL = 20, 1e-9
+# SAC at SACConfig's defaults: the warmup (62 env steps of 16 envs), then
+# RL_SAC_BLOCKS blocks of 100 iterations × 8 updates; CGAC at CGACConfig's:
+# the warmup (4 env steps of 256 envs), then one block (400 updates); PPO
+# at PPOConfig's for RL_PPO_ITERS iterations
+RL_SAC_BLOCKS, RL_PPO_ITERS = 2, 2
+# `datagen --expert sac`, cut: one block of SAC training, 16 trajectories
+RL_DATAGEN_ARGV = ["--env", "pendulum", "--expert", "sac", "--sac_iters",
+                   "100", "--num_traj", "16"]
+# DEQ-MPC training on the CGAC pickle this phase writes, with the main
+# path's meta flags (fused, T 5, deq_iter 6, bsz 256), cut to
+# RL_TRAIN_PRETRAIN pretraining and RL_TRAIN_DEQMPC DEQ-MPC steps
+RL_TRAIN_PRETRAIN, RL_TRAIN_DEQMPC = 10, 3
+LAUNCHES_PER_TRAIN_STEP["rl-cgac"] = LAUNCHES_PER_TRAIN_STEP["fused"]
+TRACED_TRAIN_STEPS["rl-cgac"] = 1
+RL_DIR = os.path.join("build", "chip_smoke_rl")
 # the device of this slice's phases
 CARD = "cuda"
 
@@ -1660,14 +1712,15 @@ def phase_model_train_grad(names=MODEL_POLICY_PATHS):
     return rows
 
 
-def phase_model_train(path, meta_path, pretrain, deqmpc):
+def phase_model_train(path, meta_path, pretrain, deqmpc, data=None):
     """Training through the train entry point with a checkpoint's flags
-    (its meta.json, fused), cut to ``pretrain`` + ``deqmpc`` steps;
-    launches checked exactly at every step (train_run)."""
+    (its meta.json, fused) on its data (or ``data``), cut to ``pretrain`` +
+    ``deqmpc`` steps; launches checked exactly at every step
+    (train_run)."""
     with open(meta_path) as f:
         meta = json.load(f)
     argv = meta_argv(meta_path) + [
-        "--data", meta["data"], "--fused", "--logdir", TRAIN_LOGDIR,
+        "--data", data or meta["data"], "--fused", "--logdir", TRAIN_LOGDIR,
         "--save", "--iters", str(pretrain + deqmpc),
         "--pretrain_iters", str(pretrain), "--ckpt_every", "10",
         "--name", path]
@@ -2565,6 +2618,259 @@ def slew_kernel_rows(slew):
          "library_ms": None, "shape": shape}]
 
 
+# -------------------------------------------------------- the RL experts --
+def _upright_share(env, trajs, radius):
+    """The share of trajectories whose last state is within ``radius`` of
+    upright: the pendulum's θ, or the cartpole's pole angle from π."""
+    from diff_qp_mpc_tpu_torch.models import angle_normalize
+
+    finals = torch.tensor(np.array([t[-1][0] for t in trajs]),
+                          dtype=torch.float64)
+    err = (angle_normalize(finals[:, 0]) if env.nq == 1
+           else angle_normalize(finals[:, 1] - np.pi))
+    return float((err.abs() < radius).double().mean())
+
+
+def _actor_actions_f64(env, path, init, device):
+    """The CGAC actor's float64 actions over RL_CHECK_STEPS closed-loop
+    steps from ``init`` on ``device`` [steps, B, nu], on the CPU."""
+    from diff_qp_mpc_tpu_torch.envs import EnvState
+    from diff_qp_mpc_tpu_torch.learning import rl
+
+    actor, m, v = rl.load_cgac_actor(path, device=device, dtype=torch.float64)
+    act = rl.actor_act_fn(env, actor, m, v)
+    state, us = EnvState.make(init.to(device)), []
+    for _ in range(RL_CHECK_STEPS):
+        us.append(act(state.x))
+        state, _, _ = env.step(state, us[-1])
+    return torch.stack(us).cpu()
+
+
+def rl_actors():
+    """The committed CGAC actors on the card: RL_ROLLOUTS rollouts each,
+    gated on RL_ACTORS' least upright share; float64 actions card vs CPU;
+    the pendulum's pickle written under RL_DIR. Returns the rows and the
+    pickle's path."""
+    from diff_qp_mpc_tpu_torch.envs import make_env
+    from diff_qp_mpc_tpu_torch.learning import rl
+    from diff_qp_mpc_tpu_torch.learning.data import save_expert_pickle
+
+    rows, pickle_path = {}, None
+    for env_name, path, radius, least in RL_ACTORS:
+        env = make_env(env_name)
+        actor, m, v = rl.load_cgac_actor(path, device=CARD)
+        sync()
+        t0 = time.perf_counter()
+        trajs = rl.sac_expert_rollouts(env, rl.actor_act_fn(env, actor, m, v),
+                                       RL_ROLLOUTS, device=CARD)
+        seconds = time.perf_counter() - t0
+        steps = max(len(t) for t in trajs)
+        init = env.reset(torch.Generator().manual_seed(0), RL_ROLLOUTS,
+                         dtype=torch.float64).x
+        err = _scaled_err(_actor_actions_f64(env, path, init, CARD),
+                          _actor_actions_f64(env, path, init, "cpu"))
+        row = dict(env=env_name, ckpt=path, rollouts=RL_ROLLOUTS,
+                   steps=steps, seconds=seconds,
+                   ms_per_step=1e3 * seconds / steps,
+                   mean_len=float(np.mean([len(t) for t in trajs])),
+                   upright_share=_upright_share(env, trajs, radius),
+                   radius=radius, least_share=least,
+                   pickle_criterion=RL_PICKLE_CRITERION[env_name],
+                   actions_f64_card_vs_cpu=err, tol=RL_TOL)
+        log("rl actor", json.dumps(row))
+        rows[env_name] = row
+        if not (row["upright_share"] > least and err <= RL_TOL):
+            raise RuntimeError(f"RL actor {env_name}: {row}")
+        if env_name == "pendulum":
+            pickle_path = os.path.join(
+                RL_DIR, f"expert_traj_cgac-{env.spec_id}_new.pkl")
+            save_expert_pickle(pickle_path, trajs)
+    return rows, pickle_path
+
+
+def _update_card_vs_cpu(algo_cls, cfg):
+    """One grad_update in float64 on the card and on the CPU from the same
+    state (seeded, warmed up on the CPU) and draws: the largest error over
+    the losses, the networks' parameters and log α, each over its largest
+    entry."""
+    from diff_qp_mpc_tpu_torch.envs import make_env
+    from diff_qp_mpc_tpu_torch.learning import rl
+
+    env, f64 = make_env("pendulum"), torch.float64
+    cpu = algo_cls(env, cfg, dtype=f64, device="cpu")
+    card = algo_cls(env, cfg, dtype=f64, device=CARD)
+    draws = rl.Draws(1, "cpu")
+    st = cpu.init_state(1, draws)
+    cpu.warmup(st, draws)
+    st_card = rl.state_to(st, CARD)
+    B, nu = cfg.batch_size, env.nu
+    idx = draws.randint(cpu.batch_high(st), B)
+    eps = (draws.normal((B, nu), f64), draws.normal((B, nu), f64))
+    got = card.grad_update(st_card, idx.to(CARD), *(e.to(CARD) for e in eps))
+    want = cpu.grad_update(st, idx, *eps)
+    pairs = list(zip(got, want)) + [(st_card.log_alpha, st.log_alpha)]
+    for name in ("actor", "q", "q_targ"):
+        pairs += list(zip(getattr(st_card, name).parameters(),
+                          getattr(st, name).parameters()))
+    return max(_scaled_err(g, w, 1e-30) for g, w in pairs)
+
+
+def _train_blocks(algo, n_blocks):
+    """The trainer's state from seed 0 on the card, its warmup, then
+    ``n_blocks`` blocks, each timed on the host clock after a sync."""
+    from diff_qp_mpc_tpu_torch.learning import rl
+
+    draws = rl.Draws(0, CARD)
+    st = algo.init_state(0, draws)
+    sync()
+    t0 = time.perf_counter()
+    algo.warmup(st, draws)
+    sync()
+    row = dict(warmup_s=time.perf_counter() - t0,
+               warmup_env_steps=algo.warmup_steps(), ms_per_block=[])
+    after_warmup = dict(
+        filled=getattr(st, "filled", None), size=getattr(st, "size", None),
+        ptr=getattr(st, "ptr", None),
+        obs_mean=st.obs_mean.tolist(), obs_var=st.obs_var.tolist(),
+        obs_count=float(st.obs_count))
+    cfg = algo.cfg
+    for _ in range(n_blocks):
+        t0 = time.perf_counter()
+        mean_r, q_loss, a_loss = algo.train_block(st, draws)
+        sync()
+        row["ms_per_block"].append(1e3 * (time.perf_counter() - t0))
+        if not all(bool(torch.isfinite(v).all())
+                   for v in (mean_r, q_loss, a_loss)):
+            raise RuntimeError(f"non-finite RL losses: {q_loss}, {a_loss}")
+    updates = cfg.block * cfg.updates_per_iter
+    row.update(updates_per_block=updates,
+               ms_per_update=[ms / updates for ms in row["ms_per_block"]],
+               q_loss_last=float(q_loss[-1]), a_loss_last=float(a_loss[-1]),
+               step_r_last=float(mean_r[-1]),
+               alpha=float(torch.exp(st.log_alpha.detach())),
+               after_warmup=after_warmup)
+    return row
+
+
+def rl_sac_cgac():
+    """SAC and CGAC on the card at their default configurations (see
+    RL_SAC_BLOCKS), ms per block and per update; SAC's buffer and
+    statistics after the warmup exactly as its configuration gives them;
+    one float64 update card vs CPU each."""
+    from diff_qp_mpc_tpu_torch.envs import make_env
+    from diff_qp_mpc_tpu_torch.learning import rl
+
+    env = make_env("pendulum")
+    out = {}
+    for name, cls, cfg, blocks in (
+            ("sac", rl.SAC, rl.SACConfig(), RL_SAC_BLOCKS),
+            ("cgac", rl.CGAC, rl.CGACConfig(), 1)):
+        row = _train_blocks(cls(env, cfg, device=CARD), blocks)
+        row["update_f64_card_vs_cpu"] = _update_card_vs_cpu(cls, cfg)
+        row["tol"] = RL_TOL
+        log(f"rl {name}", json.dumps(row))
+        out[name] = row
+        w = row["after_warmup"]
+        if name == "sac":
+            n = max(1, cfg.warmup_steps // cfg.n_envs) * cfg.n_envs
+            exact = (w["size"] == w["ptr"] == n
+                     and w["obs_mean"] == [0.0] * env.nx
+                     and w["obs_var"] == [1.0] * env.nx
+                     and w["obs_count"] == float(np.float32(1e-4)))
+        else:
+            exact = w["filled"] == min(cfg.warmup_steps, cfg.window)
+        if not (exact and row["update_f64_card_vs_cpu"] <= RL_TOL):
+            raise RuntimeError(f"RL {name}: {row}")
+    return out
+
+
+def rl_ppo():
+    """PPO on the card at PPOConfig's defaults for RL_PPO_ITERS iterations
+    (ms each), and one float64 update (its epochs × minibatches steps)
+    card vs CPU on the same CPU rollout and permutations."""
+    import copy
+
+    from diff_qp_mpc_tpu_torch.envs import EnvState, make_env
+    from diff_qp_mpc_tpu_torch.learning import rl
+    from diff_qp_mpc_tpu_torch.learning.optim import Adam
+
+    env, cfg = make_env("pendulum"), rl.PPOConfig()
+    ppo = rl.PPO(env, cfg, device=CARD)
+    draws = rl.Draws(0, CARD)
+    net, opt = ppo.init(0)
+    env_state = EnvState.make(draws.fresh(env, (1, cfg.n_envs),
+                                          torch.float32)[0])
+    ms, losses = [], []
+    for _ in range(RL_PPO_ITERS):
+        sync()
+        t0 = time.perf_counter()
+        env_state, loss, mean_r = ppo.iteration(net, opt, env_state, draws)
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+
+    f64 = torch.float64
+    cpu = rl.PPO(env, cfg, dtype=f64, device="cpu")
+    card = rl.PPO(env, cfg, dtype=f64, device=CARD)
+    d = rl.Draws(1, "cpu")
+    net_c, opt_c = cpu.init(1)
+    L, n = cfg.rollout_len, cfg.n_envs
+    es = EnvState.make(d.fresh(env, (1, n), f64)[0])
+    _, traj, last_v = cpu.collect(net_c, es, d.normal((L, n, env.nu), f64),
+                                  d.fresh(env, (L, n), f64))
+    advs, returns = cpu.gae(traj, last_v)
+    perms = torch.stack([d.permutation(L * n) for _ in range(cfg.epochs)])
+    net_g = copy.deepcopy(net_c).to(CARD)
+    opt_g = Adam(dict(net_g.named_parameters()), cfg.lr)
+    to = lambda a: a.to(CARD)
+    loss_g = card.update(net_g, opt_g, rl.Transition(*map(to, traj)),
+                         to(advs), to(returns), to(perms))
+    loss_c = cpu.update(net_c, opt_c, traj, advs, returns, perms)
+    err = max(_scaled_err(g, w, 1e-30) for g, w in [(loss_g, loss_c)] + list(
+        zip(net_g.parameters(), net_c.parameters())))
+    row = dict(ms_per_iteration=ms, loss=losses, n_envs=n, rollout_len=L,
+               update_steps=cfg.epochs * cfg.minibatches,
+               update_f64_card_vs_cpu=err, tol=RL_TOL)
+    log("rl ppo", json.dumps(row))
+    if not (np.isfinite(losses).all() and err <= RL_TOL):
+        raise RuntimeError(f"RL PPO: {row}")
+    return row
+
+
+def rl_datagen():
+    """``datagen --expert sac`` on the card, cut (RL_DATAGEN_ARGV): a
+    pickle that learning.data reads, and no kernel launched."""
+    from diff_qp_mpc_tpu_torch.learning import data, datagen
+
+    out = os.path.join(RL_DIR, "expert_traj_sac-Pendulum-v0_new.pkl")
+    reset_launches()
+    t0 = time.perf_counter()
+    trajs = datagen.main(RL_DATAGEN_ARGV
+                         + ["--out", out, "--device", CARD])
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    loaded = data.load_expert_pickle(out)
+    row = dict(argv=RL_DATAGEN_ARGV, seconds=seconds, trajectories=len(trajs),
+               steps=int(loaded["state"].shape[0]), launches=counts)
+    log("rl datagen", json.dumps(row))
+    if not (len(trajs) == 16 and loaded["state"].shape[1:] == (2,)
+            and np.isfinite(loaded["state"]).all() and not any(
+                counts.values())):
+        raise RuntimeError(f"RL datagen: {row}")
+    return row
+
+
+def phase_rl():
+    """The RL experts (see the module docstring, phase 20)."""
+    os.makedirs(RL_DIR, exist_ok=True)
+    actors, pickle_path = rl_actors()
+    out = dict(actors=actors, **rl_sac_cgac(), ppo=rl_ppo(),
+               datagen=rl_datagen())
+    out["train"] = phase_model_train("rl-cgac", TRAIN_META,
+                                     RL_TRAIN_PRETRAIN, RL_TRAIN_DEQMPC,
+                                     data=pickle_path)
+    return out
+
 
 def k3_by_shape(k3_horizon, cp2_qps, cp2_runs, training, experts):
     """The kernels line's K3 rows per new (T, nx, nu): the kernel that
@@ -2755,7 +3061,21 @@ def main():
     sudoku = timed("sudoku", phase_sudoku)
     sl1qp = timed("SL1QP", phase_sl1qp)
     slew = timed("slew", phase_slew)
+
+    # the RL experts, their datasets, and DEQ-MPC training on one
+    rl = timed("RL", phase_rl)
     log("phase seconds", json.dumps(PHASE_SECONDS))
+    log("rl summary", json.dumps(dict(
+        sac_ms_per_update=rl["sac"]["ms_per_update"],
+        sac_ms_per_block=rl["sac"]["ms_per_block"],
+        cgac_ms_per_update=rl["cgac"]["ms_per_update"],
+        cgac_ms_per_block=rl["cgac"]["ms_per_block"],
+        ppo_ms_per_iteration=rl["ppo"]["ms_per_iteration"],
+        actors={k: v["upright_share"] for k, v in rl["actors"].items()},
+        datagen_s=rl["datagen"]["seconds"],
+        train_launches_per_deqmpc_step=rl["train"][
+            "launches_per_deqmpc_step"],
+        train_ms_per_step_median=rl["train"]["ms_per_step_median"])))
     log("solver layer", json.dumps(dict(
         qp_layer_timing=qp_layer["timing"],
         sudoku={k: sudoku[k] for k in ("ms_per_iteration", "loss0",
@@ -2789,6 +3109,7 @@ def main():
             "replaces": replaces,
             "launches": runs[path]["launches"][kid],
             "launches_training": train_launches[kid],
+            "launches_rl_training": rl["train"]["launches_total"][kid],
             "max_abs_err": r.get("max_abs_err_xu", r.get("max_abs_err")),
             "tolerance": r["tol"][0] if kid == "K2" else r["tol"],
             "ms": r["ms"],

@@ -7,7 +7,7 @@ step counter) lives in an ``EnvState`` and randomness comes from an explicit
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,3 +102,19 @@ class Env:
         reward = self._reward(x, u)
         return (EnvState(x=x, num_successes=num_successes, steps=steps),
                 reward, done)
+
+    def reset_where(self, state: EnvState, mask: Tensor,
+                    generator: Optional[torch.Generator] = None,
+                    fresh: Optional[Tensor] = None) -> EnvState:
+        """The batch elements where ``mask`` is True started anew (the
+        auto-reset of batched data collection): a fresh batch of initial
+        states is drawn from ``generator`` (or given as ``fresh``, [bsz,
+        nx]) and picked per element, with its counters at 0."""
+        if fresh is None:
+            fresh = self.reset(generator, state.x.shape[0],
+                               dtype=state.x.dtype, device=state.x.device).x
+        zero = torch.zeros_like(state.steps)
+        return EnvState(
+            x=torch.where(mask[:, None], fresh.to(state.x), state.x),
+            num_successes=torch.where(mask, zero, state.num_successes),
+            steps=torch.where(mask, zero, state.steps))

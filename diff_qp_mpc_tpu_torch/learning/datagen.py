@@ -8,7 +8,9 @@ planners' horizons), applies its first action, and shifts the plan one
 stage as the next step's warm start. Output is the reference pickle format
 (a list of trajectories, each a list of (state, action) float32 numpy
 pairs), written by ``data.save_expert_pickle`` to
-``data/expert_traj_mpc-<spec_id>_new.pkl`` unless ``--out`` names a path.
+``data/expert_traj_<expert>-<spec_id>_new.pkl`` unless ``--out`` names a
+path. ``--expert ppo|sac`` trains an RL expert instead (``learning.rl``,
+float32, ``--ppo_iters`` / ``--sac_iters``) and rolls out its mean action.
 
 The expert computes in float64 by default, as the JAX package's expert
 does under x64 (its ``--platform cpu`` route); ``--dtype float32`` is the
@@ -31,6 +33,7 @@ import torch
 
 from diff_qp_mpc_tpu_torch.core.types import Bounds, DiagQuadCost, QuadCost
 from diff_qp_mpc_tpu_torch.envs import EnvState, make_env
+from diff_qp_mpc_tpu_torch.learning import rl
 from diff_qp_mpc_tpu_torch.learning.data import save_expert_pickle
 from diff_qp_mpc_tpu_torch.solvers import sqp_mpc
 from diff_qp_mpc_tpu_torch.solvers.lqr import terminal_value_cost
@@ -219,8 +222,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "streak (goal-holding tails)")
     p.add_argument("--expert", type=str, default="mpc",
                    choices=["mpc", "ppo", "sac"],
-                   help="mpc: the receding-horizon SQP expert; ppo/sac "
-                        "need learning/rl.py, not ported")
+                   help="mpc: receding-horizon SQP expert; ppo/sac: train an"
+                        " RL expert first (learning.rl), then roll it out")
+    p.add_argument("--ppo_iters", type=int, default=500)
+    p.add_argument("--sac_iters", type=int, default=40000)
     p.add_argument("--success_filter", action="store_true",
                    help="roll out twice the batch and keep the "
                         "trajectories that reach the goal")
@@ -241,13 +246,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None, on_step=None):
-    """Generate and write an expert dataset; returns the trajectories.
-    ``on_step`` is passed to ``mpc_expert_rollouts``."""
+    """Generate and write an expert dataset (the MPC expert's, or an RL
+    expert's trained by ``learning.rl`` and rolled out); returns the
+    trajectories. ``on_step`` is passed to ``mpc_expert_rollouts``."""
     args = build_parser().parse_args(argv)
-    if args.expert != "mpc":
-        raise NotImplementedError(
-            f"--expert {args.expert} trains an RL expert with learning/rl.py"
-            ", which is not ported yet")
     device = resolve_device(args.device)
     dtype = getattr(torch, args.dtype)
     kwargs = {}
@@ -258,17 +260,30 @@ def main(argv=None, on_step=None):
     env = make_env(args.env, **kwargs)
     if args.no_success_term:
         env.terminate_on_success = False
-    init = None
-    if args.capture:
-        box = (np.array([float(v) for v in args.capture_box.split(",")])
-               if args.capture_box is not None else None)
-        n_init = 2 * args.num_traj if args.success_filter else args.num_traj
-        init = capture_init_states(env, n_init, args.seed, box)
-    trajs = mpc_expert_rollouts(env, args.num_traj, args.T, args.max_steps,
-                                args.seed, args.qp_iter,
-                                success_filter=args.success_filter,
-                                init_states=init, dtype=dtype, device=device,
-                                on_step=on_step)
+    if args.expert == "ppo":
+        net = rl.train_ppo(env, iters=args.ppo_iters, seed=args.seed,
+                           device=device)
+        trajs = rl.ppo_expert_rollouts(env, net, args.num_traj,
+                                       args.max_steps, args.seed,
+                                       device=device)
+    elif args.expert == "sac":
+        _, act = rl.train_sac(env, rl.SACConfig(), iters=args.sac_iters,
+                              seed=args.seed, device=device)
+        trajs = rl.sac_expert_rollouts(env, act, args.num_traj,
+                                       args.max_steps, args.seed,
+                                       device=device)
+    else:
+        init = None
+        if args.capture:
+            box = (np.array([float(v) for v in args.capture_box.split(",")])
+                   if args.capture_box is not None else None)
+            n_init = (2 * args.num_traj if args.success_filter
+                      else args.num_traj)
+            init = capture_init_states(env, n_init, args.seed, box)
+        trajs = mpc_expert_rollouts(
+            env, args.num_traj, args.T, args.max_steps, args.seed,
+            args.qp_iter, success_filter=args.success_filter,
+            init_states=init, dtype=dtype, device=device, on_step=on_step)
     suffix = "-capture" if args.capture else ""
     out = args.out or os.path.join(
         "data", f"expert_traj_{args.expert}-{env.spec_id}{suffix}_new.pkl")

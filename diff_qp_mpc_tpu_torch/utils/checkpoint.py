@@ -7,8 +7,9 @@ extension types 1 (ndarray: msgpack of (shape, dtype name, C-order bytes))
 and 3 (numpy scalar, the same encoding). It returns nested dicts and lists
 with numpy leaves, as ``flax.serialization.msgpack_restore`` does.
 ``dumps`` encodes such a tree as ``flax.serialization.msgpack_serialize``
-does, byte for byte. ``params_from_flax`` maps a DEQ-MPC policy's flax
-parameter tree onto the port's ``state_dict`` and ``params_to_flax`` back;
+does, byte for byte. ``params_from_flax`` maps a flax parameter tree (by
+default a DEQ-MPC policy's) onto the port's ``state_dict`` and
+``params_to_flax`` back;
 ``save_checkpoint`` writes the trainer's checkpoint and its meta.json.
 """
 from __future__ import annotations
@@ -248,12 +249,16 @@ _DEQ_MODULES: Tuple[Tuple[str, str], ...] = (
 )
 
 
-def params_from_flax(tree: Dict) -> Dict[str, torch.Tensor]:
-    """DEQ-MPC policy parameters: flax tree (the dict holding
-    ``DEQLayer_0``) -> the port policy's ``state_dict``. Dense kernels are
-    [in, out] and are transposed; LayerNorm scale becomes weight."""
+def params_from_flax(tree: Dict,
+                     modules: Tuple[Tuple[str, str], ...] = _DEQ_MODULES
+                     ) -> Dict[str, torch.Tensor]:
+    """Parameters of a flax tree -> the port module's ``state_dict``, by
+    ``modules``' (flax module path, port module path) pairs; by default a
+    DEQ-MPC policy's (the tree is the dict holding ``DEQLayer_0``). Dense
+    kernels are [in, out] and are transposed; LayerNorm scale becomes
+    weight."""
     state = {}
-    for flax_path, name in _DEQ_MODULES:
+    for flax_path, name in modules:
         node = tree
         for key in flax_path.split("/"):
             node = node[key]
@@ -266,12 +271,15 @@ def params_from_flax(tree: Dict) -> Dict[str, torch.Tensor]:
     return state
 
 
-def params_to_flax(state: Dict[str, torch.Tensor]) -> Dict:
-    """The inverse of ``params_from_flax``: the port policy's
-    ``state_dict`` -> the flax tree holding ``DEQLayer_0``, numpy leaves of
-    the state's dtype, Dense kernels [in, out]."""
+def params_to_flax(state: Dict[str, torch.Tensor],
+                   modules: Tuple[Tuple[str, str], ...] = _DEQ_MODULES
+                   ) -> Dict:
+    """The inverse of ``params_from_flax``: the port module's
+    ``state_dict`` -> the flax tree (by default the one holding
+    ``DEQLayer_0``), numpy leaves of the state's dtype, Dense kernels [in,
+    out]."""
     tree: Dict = {}
-    for flax_path, name in _DEQ_MODULES:
+    for flax_path, name in modules:
         node = tree
         for key in flax_path.split("/"):
             node = node.setdefault(key, {})

@@ -17,7 +17,10 @@ their costs agree to 3.4e-16 relative (measured on the CPU). The pickles
 store float32, whose rounding is inside the tolerance too.
 ``save_expert_pickle`` round-trips through the JAX package's
 ``load_expert_pickle``, and ``select_relabel_states`` draws the JAX
-package's subsample from the same RandomState, exactly."""
+package's subsample from the same RandomState, exactly. The entry point's
+RL experts (``--expert sac``) run on the CPU when asked."""
+import pickle
+
 import numpy as np
 import pytest
 import torch
@@ -119,9 +122,28 @@ def test_select_relabel_states_matches_jax(n, num):
 
 
 def test_expert_refuses_rl_experts_and_runs_on_the_cpu_when_asked(tmp_path):
-    with pytest.raises(NotImplementedError, match="learning/rl.py"):
-        datagen.main(["--env", "pendulum", "--expert", "sac", "--device",
-                      "cpu"])
+    """The RL experts no longer raise: ``--expert sac`` trains SAC at a tiny
+    iteration count (``--sac_iters 1``: the warmup and one block of 100
+    iterations) and rolls its mean action out into a pickle of the
+    reference layout, which the JAX package's loader reads. Then the MPC
+    expert on the CPU, and the card required without ``--device cpu``."""
+    out = str(tmp_path / "sac.pkl")
+    trajs = datagen.main(["--env", "pendulum", "--expert", "sac",
+                          "--sac_iters", "1", "--num_traj", "3",
+                          "--max_steps", "5", "--device", "cpu", "--out",
+                          out])
+    with open(out, "rb") as f:
+        raw = pickle.load(f)
+    assert isinstance(raw, list) and len(raw) == len(trajs) == 3
+    for traj in raw:
+        assert len(traj) == 5
+        for state, action in traj:
+            assert state.dtype == action.dtype == np.float32
+            assert state.shape == (2,) and action.shape == (1,)
+            assert np.abs(action).max() <= 3.0
+    ref = jax_data.load_expert_pickle(out)
+    np.testing.assert_array_equal(np.asarray(ref["state"]),
+                                  data.load_expert_pickle(out)["state"])
     out = str(tmp_path / "p.pkl")
     trajs = datagen.main(["--env", "pendulum", "--stabilization",
                           "--num_traj", "2", "--max_steps", "2", "--device",
