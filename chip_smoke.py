@@ -195,6 +195,25 @@ Phases, each of which raises on failure (there is no CPU fallback):
      learning.data reads, no kernel launched; (e) DEQ-MPC training on (a)'s
      pickle with the main path's meta flags, cut to RL_TRAIN_PRETRAIN +
      RL_TRAIN_DEQMPC steps, exactly 6 K2 and 6 K1 launches a DEQ-MPC step.
+ 21. the rest of the DEQ network family at the main path's full width (its
+     meta flags: pendulum, fused, T 5, deq_iter 6, hdim 128, B 256), in
+     this order: (a) DEQ-MPC with the conv cell (--layer_type conv)
+     through the train entry point, cut to DEQ_TRAIN_PRETRAIN +
+     DEQ_TRAIN_DEQMPC steps, exactly 6 K2 and 6 K1 launches a DEQ-MPC step
+     and none a pretraining step; its checkpoint closed-loop through the
+     evaluate entry point, 64 episodes × DEQ_LOOP_STEPS steps, exactly 6
+     K2 a step, success printed and not gated; its float64 forward (as
+     phase 15) and training gradient (within GRAD_TOL, B 8) card vs CPU;
+     (b) NNMPCPolicy on the fused tracker, B 256: exactly 1 K2 a forward
+     and 1 K1 in its backward, ms per call, float64 actions and gradient
+     card vs CPU within GRAD_TOL (B 8); (c) DEQPolicy, hdim 128, B 256: no
+     kernel, ms per call, Anderson's residual history, float64 forward and
+     gradient card vs CPU within DEQ_NET_TOL; (d) the BC baseline (no
+     --deq: NNPolicy, policy_out_type 2) through the train entry point for
+     DEQ_BC_STEPS steps and its checkpoint closed-loop for DEQ_LOOP_STEPS
+     steps, no kernel launched, the float64 BC loss and gradient card vs
+     CPU within DEQ_NET_TOL. Their K1/K2 launches go to the kernels line
+     under launches_deq_family.
 Every phase prints its seconds ("phase <name>: <s> s") and the run ends
 with their table.
 Bounds: the larger of the bytes over the HBM rate and the operations over
@@ -591,6 +610,18 @@ RL_TRAIN_PRETRAIN, RL_TRAIN_DEQMPC = 10, 3
 LAUNCHES_PER_TRAIN_STEP["rl-cgac"] = LAUNCHES_PER_TRAIN_STEP["fused"]
 TRACED_TRAIN_STEPS["rl-cgac"] = 1
 RL_DIR = os.path.join("build", "chip_smoke_rl")
+# the rest of the DEQ network family (phase 21): the conv DEQ-MPC training
+# cut to DEQ_TRAIN_PRETRAIN + DEQ_TRAIN_DEQMPC steps and the BC baseline's
+# to DEQ_BC_STEPS, their closed loops to DEQ_LOOP_STEPS steps,
+# NNMPCPolicy's and DEQPolicy's DEQ_CALLS calls at B DEQ_B; DEQ_NET_TOL
+# holds the float64 checks with no solve inside (DEQPolicy's Anderson
+# iteration aside) card vs CPU
+DEQ_TRAIN_PRETRAIN, DEQ_TRAIN_DEQMPC, DEQ_LOOP_STEPS = 5, 3, 10
+DEQ_B, DEQ_CALLS, DEQ_BC_STEPS, DEQ_NET_TOL = 256, 3, 20, 1e-9
+LAUNCHES_PER_TRAIN_STEP["conv-fused"] = LAUNCHES_PER_TRAIN_STEP["fused"]
+LAUNCHES_PER_TRAIN_STEP["bc"] = {}
+TRACED_TRAIN_STEPS["conv-fused"] = TRACED_TRAIN_STEPS["bc"] = 1
+GRAD_TOLS["conv-fused"] = GRAD_TOL
 # the device of this slice's phases
 CARD = "cuda"
 
@@ -1096,7 +1127,7 @@ def make_policy_from(args, env, ckpt):
     from diff_qp_mpc_tpu_torch.utils.checkpoint import load_policy_params
 
     policy = make_policy(args, env)
-    policy.load_state_dict(load_policy_params(ckpt))
+    policy.load_state_dict(load_policy_params(ckpt, policy.flax_modules()))
     return policy
 
 
@@ -1614,12 +1645,13 @@ def policy_spread(seeds=POLICY_SPREAD_SEEDS, B=8):
     return out
 
 
-def phase_model_policy(names=MODEL_POLICY_PATHS):
+def phase_model_policy(names=MODEL_POLICY_PATHS, cases=None):
     """One float64 policy forward on the card against the CPU on the paths
-    ``names``, row by row: within POLICY_ULP_FACTOR times the CPU's own
-    largest change under one ulp of the state (or POLICY_TOL if larger) on
-    every row that change moves by at most POLICY_JUMP (at least half)."""
-    for name, args, env, factory in _model_policies(names):
+    ``names`` (or on ``cases``, as _model_policies gives them), row by row:
+    within POLICY_ULP_FACTOR times the CPU's own largest change under one
+    ulp of the state (or POLICY_TOL if larger) on every row that change
+    moves by at most POLICY_JUMP (at least half)."""
+    for name, args, env, factory in cases or _model_policies(names):
         x = env._sample_init(torch.Generator().manual_seed(0), 8)
         cpu = factory().to(dtype=torch.float64)
         ref = _last_iterate(cpu, x)
@@ -1673,14 +1705,14 @@ def phase_model_main_path():
     return runs
 
 
-def phase_model_train_grad(names=MODEL_POLICY_PATHS):
+def phase_model_train_grad(names=MODEL_POLICY_PATHS, cases=None):
     """One DEQ-MPC loss and gradient, float64, B GRAD_B, on the card against
     the CPU: cp1 fused (T 5, seeded weights, a batch of its expert data)
-    and the integrator's checkpoint on the scan path."""
+    and the integrator's checkpoint on the scan path (or ``cases``)."""
     from diff_qp_mpc_tpu_torch.learning import data, train
 
     rows = {}
-    for name, args, env, factory in _model_policies(names):
+    for name, args, env, factory in cases or _model_policies(names):
         if name not in GRAD_TOLS:
             continue
         dataset = data.load_expert_pickle(
@@ -1712,18 +1744,19 @@ def phase_model_train_grad(names=MODEL_POLICY_PATHS):
     return rows
 
 
-def phase_model_train(path, meta_path, pretrain, deqmpc, data=None):
+def phase_model_train(path, meta_path, pretrain, deqmpc, data=None,
+                      extra=(), ckpt_every=10):
     """Training through the train entry point with a checkpoint's flags
-    (its meta.json, fused) on its data (or ``data``), cut to ``pretrain`` +
-    ``deqmpc`` steps; launches checked exactly at every step
-    (train_run)."""
+    (its meta.json, fused, then ``extra``) on its data (or ``data``), cut
+    to ``pretrain`` + ``deqmpc`` steps; launches checked exactly at every
+    step (train_run)."""
     with open(meta_path) as f:
         meta = json.load(f)
     argv = meta_argv(meta_path) + [
         "--data", data or meta["data"], "--fused", "--logdir", TRAIN_LOGDIR,
         "--save", "--iters", str(pretrain + deqmpc),
-        "--pretrain_iters", str(pretrain), "--ckpt_every", "10",
-        "--name", path]
+        "--pretrain_iters", str(pretrain), "--ckpt_every", str(ckpt_every),
+        "--name", path, *extra]
     t0 = time.perf_counter()
     traced = TRACED_TRAIN_STEPS[path]
     records, trace = train_run(path, argv, traced)
@@ -2872,6 +2905,246 @@ def phase_rl():
     return out
 
 
+# ------------------------------------------ the rest of the DEQ family --
+def _flat_grad(loss, module):
+    return torch.cat([g.reshape(-1) for g in torch.autograd.grad(
+        loss, list(module.parameters()))]).double().cpu()
+
+
+def _pendulum_batch(B):
+    """A window batch of the main path's expert data, numpy."""
+    from diff_qp_mpc_tpu_torch.learning import data
+
+    return data.sample_window_batch(data.load_expert_pickle(DATA), B, T,
+                                    np.random.RandomState(0),
+                                    use_native=False)
+
+
+def _seeded(make):
+    """A factory of ``make()``'s module with the weights of seed 0 (flax's
+    initial distributions)."""
+    torch.manual_seed(0)
+    state = make().state_dict()
+
+    def factory():
+        module = make()
+        module.load_state_dict(state)
+        return module
+
+    return factory
+
+
+def deq_conv():
+    """(a) DEQ-MPC with the conv cell through the train entry point, its
+    checkpoint closed-loop through the evaluate entry point, and the
+    float64 forward and training gradient card vs CPU."""
+    from diff_qp_mpc_tpu_torch.envs import make_env
+    from diff_qp_mpc_tpu_torch.learning import evaluate
+
+    steps = DEQ_TRAIN_PRETRAIN + DEQ_TRAIN_DEQMPC
+    train_row = phase_model_train(
+        "conv-fused", TRAIN_META, DEQ_TRAIN_PRETRAIN, DEQ_TRAIN_DEQMPC,
+        data=DATA, extra=["--layer_type", "conv"], ckpt_every=steps - 1)
+    ckpt = os.path.join(TRAIN_LOGDIR, "conv-fused", "ckpt.msgpack")
+    loop = closed_loops(
+        [("conv-fused", ["--ckpt", ckpt, "--fused", "--episodes",
+                         str(EPISODES), "--max_steps", str(DEQ_LOOP_STEPS)],
+          "K2", LAUNCHES_PER_STEP["fused"][1], None)],
+        "deq conv main_path")["conv-fused"]
+    args = evaluate.parse_args(["--ckpt", ckpt, "--fused", "--data", DATA])
+    env = make_env(args.env)
+    if args.layer_type != "conv":
+        raise RuntimeError(f"the conv checkpoint's meta: {args}")
+    state = make_policy_from(args, env, ckpt).state_dict()
+
+    def factory():
+        from diff_qp_mpc_tpu_torch.learning.train import make_policy
+
+        policy = make_policy(args, env)
+        policy.load_state_dict(state)
+        return policy
+
+    cases = [("conv-fused", args, env, factory)]
+    phase_model_policy(cases=cases)
+    grad = phase_model_train_grad(cases=cases)["conv-fused"]
+    return dict(train=train_row, closed_loop=loop, grad=grad)
+
+
+def deq_nnmpc():
+    """(b) NNMPCPolicy on the main path's fused tracker at B DEQ_B: the
+    launch counts set to 0 before each call and read after its forward
+    and its backward (the BC loss on a batch of expert data), exactly 1 K2
+    and then 1 K1; ms per call; float64 actions and gradient card vs CPU
+    at B GRAD_B."""
+    from diff_qp_mpc_tpu_torch.envs import make_env
+    from diff_qp_mpc_tpu_torch.learning import losses, train
+    from diff_qp_mpc_tpu_torch.learning.policies import NNMPCPolicy
+
+    args = train.build_parser().parse_args(meta_argv() + ["--fused"])
+    env = make_env(args.env)
+    tracking = train.make_policy(args, env).tracking
+    factory = _seeded(lambda: NNMPCPolicy(env.nx, env.nu, env.nq, args.T,
+                                          args.hdim, tracking))
+
+    def loss_of(policy, batch):
+        s, a = policy(batch["state"][:, 0])
+        return losses.compute_loss_bc(2, batch["state"], batch["action"],
+                                      batch["mask"], s, a)[0], a
+
+    policy = factory().to(CARD)
+    batch = train.to_batch(_pendulum_batch(DEQ_B), CARD, torch.float32)
+    want = {k: 0 for k in kernel_wrappers()}
+    totals, ms = dict(want), []
+    for _ in range(DEQ_CALLS):
+        sync()
+        t0 = time.perf_counter()
+        reset_launches()
+        loss, _ = loss_of(policy, batch)
+        fwd = read_launches()
+        _flat_grad(loss, policy)
+        back = read_launches()
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if fwd != dict(want, K2=1) or back != dict(want, K2=1, K1=1):
+            raise RuntimeError(f"NNMPCPolicy launches: forward {fwd}, "
+                               f"with its backward {back}")
+        totals = {k: totals[k] + back[k] for k in totals}
+    small = _pendulum_batch(GRAD_B)
+    out = {}
+    for device in ("cpu", CARD):
+        p = factory().to(device=device, dtype=torch.float64)
+        loss, acts = loss_of(p, train.to_batch(small, device, torch.float64))
+        out[device] = (acts.detach().double().cpu(), _flat_grad(loss, p))
+    row = dict(B=DEQ_B, calls=DEQ_CALLS, ms_per_call=ms,
+               launches_total=totals,
+               actions_rel_err_f64=_rel_err(out[CARD][0], out["cpu"][0]),
+               grad_rel_err_f64=_rel_err(out[CARD][1], out["cpu"][1]),
+               tol=GRAD_TOL)
+    log("deq nnmpc", json.dumps(row))
+    if not max(row["actions_rel_err_f64"],
+               row["grad_rel_err_f64"]) <= GRAD_TOL:
+        raise RuntimeError(f"NNMPCPolicy on the card disagrees with the "
+                           f"CPU: {row}")
+    return row
+
+
+def deq_policy():
+    """(c) DEQPolicy at B DEQ_B, hdim 128: no kernel launched over its
+    forward and backward, ms per call, Anderson's residual history on the
+    card; float64 forward and gradient card vs CPU within DEQ_NET_TOL."""
+    from diff_qp_mpc_tpu_torch.learning import deq, losses
+    from diff_qp_mpc_tpu_torch.learning.train import to_batch
+
+    factory = _seeded(lambda: deq.DEQPolicy(nx=NX, T=T, hdim=128))
+    batch = _pendulum_batch(DEQ_B)
+
+    def loss_of(policy, b):
+        out = policy(b["state"][:, 0])
+        return losses.iterate_loss(1, b["state"], b["action"], b["mask"],
+                                   out, None), out
+
+    policy = factory().to(CARD)
+    card_batch = to_batch(batch, CARD, torch.float32)
+    ms = []
+    reset_launches()
+    for _ in range(DEQ_CALLS):
+        sync()
+        t0 = time.perf_counter()
+        loss, _ = loss_of(policy, card_batch)
+        _flat_grad(loss, policy)
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    counts = read_launches()
+    x = card_batch["state"][:, 0]
+    with torch.no_grad():
+        xinp = policy.inp_ln(policy.inp(x))
+        _, res_hist = deq.anderson(lambda z: policy.cell(xinp, z),
+                                   policy.init_z(x),
+                                   max_iter=policy.fwd_iter)
+    out = {}
+    for device in ("cpu", CARD):
+        p = factory().to(device=device, dtype=torch.float64)
+        loss, fwd = loss_of(p, to_batch(batch, device, torch.float64))
+        out[device] = (fwd.detach().cpu(), _flat_grad(loss, p))
+    row = dict(B=DEQ_B, hdim=128, calls=DEQ_CALLS, ms_per_call=ms,
+               launches=counts, anderson_residuals_f32=res_hist.tolist(),
+               forward_rel_err_f64=_rel_err(out[CARD][0], out["cpu"][0]),
+               grad_rel_err_f64=_rel_err(out[CARD][1], out["cpu"][1]),
+               tol=DEQ_NET_TOL)
+    log("deq policy", json.dumps(row))
+    if any(counts.values()) or not max(
+            row["forward_rel_err_f64"],
+            row["grad_rel_err_f64"]) <= DEQ_NET_TOL:
+        raise RuntimeError(f"DEQPolicy: {row}")
+    return row
+
+
+def deq_bc():
+    """(d) the BC baseline through the train entry point (no --deq), no
+    kernel launched at any step; its checkpoint closed-loop through the
+    evaluate entry point, no kernel launched; the float64 BC loss and
+    gradient card vs CPU within DEQ_NET_TOL."""
+    from diff_qp_mpc_tpu_torch.envs import make_env
+    from diff_qp_mpc_tpu_torch.learning import evaluate, train
+
+    argv = [a for a in meta_argv() if a not in ("--deq", "--qp_solve",
+                                                 "--pretrain")] + [
+        "--data", DATA, "--logdir", TRAIN_LOGDIR, "--save", "--iters",
+        str(DEQ_BC_STEPS), "--ckpt_every", str(DEQ_BC_STEPS - 1),
+        "--name", "bc"]
+    records, trace = train_run("bc", argv, TRACED_TRAIN_STEPS["bc"])
+    ckpt = os.path.join(TRAIN_LOGDIR, "bc", "ckpt.msgpack")
+    reset_launches()
+    loop = evaluate.main(["--ckpt", ckpt, "--episodes", str(EPISODES),
+                          "--max_steps", str(DEQ_LOOP_STEPS)])
+    loop["launches"] = read_launches()
+    args = evaluate.parse_args(["--ckpt", ckpt])
+    env = make_env(args.env)
+    batch = _pendulum_batch(GRAD_B)
+    out = {}
+    for device in ("cpu", CARD):
+        p = make_policy_from(args, env, ckpt).to(device=device,
+                                                 dtype=torch.float64)
+        loss, _, _ = train.compute_loss(p, args, train.to_batch(
+            batch, device, torch.float64), False, torch.Generator())
+        out[device] = (loss.detach().cpu().reshape(1), _flat_grad(loss, p))
+    row = dict(steps=len(records), modes=sorted({r["mode"] for r in records}),
+               ms_per_step_median=float(np.median(
+                   [r["ms"] for r in records[1:-1]])),
+               loss_first=records[0]["loss"], loss_last=records[-1]["loss"],
+               launches_total={k: sum(r["launches"][k] for r in records)
+                               for k in records[0]["launches"]},
+               closed_loop=loop,
+               loss_rel_err_f64=_rel_err(out[CARD][0], out["cpu"][0]),
+               grad_rel_err_f64=_rel_err(out[CARD][1], out["cpu"][1]),
+               tol=DEQ_NET_TOL, **trace)
+    log("deq bc", json.dumps(row))
+    if not (row["modes"] == ["bc"] and args.deq is False
+            and not any(loop["launches"].values())
+            and np.isfinite(loop["mean_reward"])
+            and max(row["loss_rel_err_f64"],
+                    row["grad_rel_err_f64"]) <= DEQ_NET_TOL):
+        raise RuntimeError(f"BC baseline: {row}")
+    return row
+
+
+def phase_deq_family():
+    """The rest of the DEQ network family (see the module docstring, phase
+    21). Returns the rows and the K1/K2 launches of the runs that make
+    them (the conv training and closed loop, NNMPCPolicy's calls)."""
+    out = dict(conv=deq_conv(), nnmpc=deq_nnmpc(), deq_policy=deq_policy(),
+               bc=deq_bc())
+    by_run = {"conv-fused training": out["conv"]["train"]["launches_total"],
+              "conv-fused closed loop": out["conv"]["closed_loop"][
+                  "launches"],
+              "NNMPCPolicy calls": out["nnmpc"]["launches_total"]}
+    out["launches_total"] = {k: sum(r[k] for r in by_run.values())
+                             for k in kernel_wrappers()}
+    out["launches_by_run"] = {run: {k: v for k, v in counts.items() if v}
+                              for run, counts in by_run.items()}
+    return out
+
+
 def k3_by_shape(k3_horizon, cp2_qps, cp2_runs, training, experts):
     """The kernels line's K3 rows per new (T, nx, nu): the kernel that
     serves it and its source, float32 ms at B 64 with plain, library (the
@@ -3064,7 +3337,22 @@ def main():
 
     # the RL experts, their datasets, and DEQ-MPC training on one
     rl = timed("RL", phase_rl)
+    # the conv cell, NNMPCPolicy, DEQPolicy and the BC baseline
+    deq = timed("DEQ family", phase_deq_family)
     log("phase seconds", json.dumps(PHASE_SECONDS))
+    log("deq family summary", json.dumps(dict(
+        conv_train_launches_per_deqmpc_step=deq["conv"]["train"][
+            "launches_per_deqmpc_step"],
+        conv_train_ms_per_step_median=deq["conv"]["train"][
+            "ms_per_step_median"],
+        conv_closed_loop={k: deq["conv"]["closed_loop"][k] for k in (
+            "success_rate", "ms_per_step", "launches_per_step")},
+        nnmpc_ms_per_call=deq["nnmpc"]["ms_per_call"],
+        deq_policy_ms_per_call=deq["deq_policy"]["ms_per_call"],
+        deq_policy_anderson_residuals=deq["deq_policy"][
+            "anderson_residuals_f32"],
+        bc_ms_per_step_median=deq["bc"]["ms_per_step_median"],
+        launches_by_run=deq["launches_by_run"])))
     log("rl summary", json.dumps(dict(
         sac_ms_per_update=rl["sac"]["ms_per_update"],
         sac_ms_per_block=rl["sac"]["ms_per_block"],
@@ -3110,6 +3398,7 @@ def main():
             "launches": runs[path]["launches"][kid],
             "launches_training": train_launches[kid],
             "launches_rl_training": rl["train"]["launches_total"][kid],
+            "launches_deq_family": deq["launches_total"][kid],
             "max_abs_err": r.get("max_abs_err_xu", r.get("max_abs_err")),
             "tolerance": r["tol"][0] if kid == "K2" else r["tol"],
             "ms": r["ms"],

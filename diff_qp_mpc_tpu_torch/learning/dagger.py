@@ -83,7 +83,8 @@ def main(argv=None, on_expert_step=None):
     env_kwargs = {"stabilization": True} if args.stabilization else {}
     env = make_env(args.env, **env_kwargs)
     policy = make_policy(args, env)
-    policy.load_state_dict(load_policy_params(args.ckpt))
+    policy.load_state_dict(load_policy_params(args.ckpt,
+                                              policy.flax_modules()))
     policy.to(device=device, dtype=dtype)
 
     states = collect_policy_states(env, policy, episodes=args.episodes,

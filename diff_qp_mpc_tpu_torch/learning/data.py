@@ -1,5 +1,5 @@
-"""Expert-trajectory data pipeline (port of diff_qp_mpc_tpu.learning.data,
-without its reference-checkpoint adapter).
+"""Expert-trajectory data pipeline and the reference-checkpoint adapter
+(port of diff_qp_mpc_tpu.learning.data).
 
 Reads and writes the reference's pickled datasets (``data/expert_traj_<type>-
 <spec_id>_new.pkl``: a list of trajectories, each a list of (state, action)
@@ -8,6 +8,8 @@ start indices into the concatenated data; windows crossing an episode end
 are masked from the crossing on (cumulative product of the per-step masks),
 and windows running past the data end are zero-padded. Sampling is numpy
 on the host; the batch is moved to the device by the caller.
+``load_reference_torch_policy`` reads the reference's own DEQ-MPC policy
+checkpoints (a torch state dict) into the port's DEQMPCPolicy.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import pickle
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from diff_qp_mpc_tpu_torch import runtime
 
@@ -121,3 +124,31 @@ def unwrap_window_angles(states: Array, mode: str) -> Array:
         s[:, t, cols] = np.where(jump, cur - sign(cur, prev) * 2 * np.pi, cur)
         prev = s[:, t, cols]
     return s
+
+
+# the reference DEQMPCPolicy's mlp DEQLayer (model.inp_layer: Linear +
+# LayerNorm; the weight-tied cell fcdeq1, lndeq1, fcdeq2, lndeq2 on x +
+# fcdeq2(z1), lndeq3 outermost; model.out_layer.0) -> the port's names
+_REFERENCE_KEYS = (
+    ("model.inp_layer.0", "layer.inp"),
+    ("model.inp_layer.1", "layer.inp_ln"),
+    ("model.fcdeq1", "layer.cell.fc1"),
+    ("model.lndeq1", "layer.cell.ln_z1"),
+    ("model.fcdeq2", "layer.cell.fc2"),
+    ("model.lndeq2", "layer.cell.ln_inner"),
+    ("model.lndeq3", "layer.cell.ln_out"),
+    ("model.out_layer.0", "layer.out"),
+)
+
+
+def load_reference_torch_policy(path: str) -> Dict[str, torch.Tensor]:
+    """The reference's DEQ-MPC policy checkpoint (``torch.save`` of its
+    ``state_dict``) -> the ``state_dict`` of the port's DEQMPCPolicy with
+    the same (T, hdim, out_type 1, mlp cell), float32. Both packages keep
+    torch's [out, in] Linear weights, so nothing is transposed; the JAX
+    package's adapter maps the same keys onto its flax tree, where lndeq3
+    (the outer LayerNorm) is LayerNorm_1 and lndeq2 LayerNorm_2."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {f"{name}.{part}": sd[f"{key}.{part}"].detach().to(
+                torch.float32).clone()
+            for key, name in _REFERENCE_KEYS for part in ("weight", "bias")}

@@ -1,9 +1,11 @@
-"""Closed-loop evaluation of a trained DEQ-MPC policy (port of
+"""Closed-loop evaluation of a trained policy (port of
 diff_qp_mpc_tpu.learning.evaluate).
 
 Rolls the policy closed-loop in the environment, applying its first planned
-action each step (receding horizon), and reports success rate, mean reward,
-episode length and final goal error.
+action each step (receding horizon): the last DEQ-MPC iterate's, or without
+``--deq`` the behaviour-cloning NNPolicy's (a state-only out_type cannot
+act, and raises). Reports success rate, mean reward, episode length and
+final goal error.
 
 Usage:
     python -m diff_qp_mpc_tpu_torch.learning.evaluate --env pendulum --deq \\
@@ -41,11 +43,13 @@ def evaluate_policy(env, policy, episodes: int = 64, max_steps: int = 200,
                     noise_mean: float = 0.0, seed: int = 0,
                     device: Optional[torch.device] = None,
                     dtype=torch.float32,
-                    x_init: Optional[torch.Tensor] = None):
+                    x_init: Optional[torch.Tensor] = None,
+                    deq: bool = True):
     """Batched closed-loop rollout of ``episodes`` episodes on ``device``
     (default cuda). Initial states and observation noise come from a
     ``torch.Generator`` seeded by ``seed``; ``x_init`` [episodes, nx]
-    replaces the drawn initial states."""
+    replaces the drawn initial states. ``deq`` False: the policy is an
+    NNPolicy, acting on its first planned control."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     if x_init is None:
@@ -63,8 +67,7 @@ def evaluate_policy(env, policy, episodes: int = 64, max_steps: int = 200,
     for t in range(max_steps):
         obs = noise_mod.corrupt_observation(
             gen, state.x[:, None, :], noise_type, noise_std, noise_mean)[:, 0]
-        iterates, _ = policy(obs, qp_solve=True)
-        state, reward, done = env.step(state, iterates[-1].actions[:, 0])
+        state, reward, done = env.step(state, _act(policy, obs, deq))
         steps_run += 1
         r = reward.double().cpu().numpy()
         # a diverging episode can emit a NaN reward on its last live step
@@ -92,6 +95,16 @@ def evaluate_policy(env, policy, episodes: int = 64, max_steps: int = 200,
         "steps_run": steps_run,
         "ms_per_step": 1e3 * seconds / max(steps_run, 1),
     }
+
+
+def _act(policy, obs, deq: bool):
+    if deq:
+        iterates, _ = policy(obs, qp_solve=True)
+        return iterates[-1].actions[:, 0]
+    _, actions = policy(obs)
+    if actions is None:
+        raise ValueError("state-only policy cannot act closed-loop")
+    return actions[:, 0]
 
 
 def parse_args(argv=None):
@@ -135,13 +148,14 @@ def main(argv=None):
     env_kwargs = {"stabilization": True} if args.stabilization else {}
     env = make_env(args.env, **env_kwargs)
     policy = make_policy(args, env)
-    policy.load_state_dict(load_policy_params(args.ckpt))
+    policy.load_state_dict(load_policy_params(args.ckpt,
+                                              policy.flax_modules()))
     policy.to(device=device, dtype=dtype)
     metrics = evaluate_policy(
         env, policy, episodes=args.episodes, max_steps=args.max_steps,
         noise_type=args.noise_type, noise_std=args.noise_std,
         noise_mean=args.noise_mean, seed=args.seed, device=device,
-        dtype=dtype)
+        dtype=dtype, deq=args.deq)
     print(json.dumps(metrics))
     return metrics
 

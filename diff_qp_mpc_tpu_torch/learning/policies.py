@@ -1,5 +1,6 @@
 """DEQ-MPC policy: an equilibrium network interleaved with the tracking MPC
-(port of diff_qp_mpc_tpu.learning.policies; AL and ip tracking solvers).
+(port of diff_qp_mpc_tpu.learning.policies; AL and ip tracking solvers),
+and the feedforward baseline NNMPCPolicy.
 
 The DEQ cell proposes a reference trajectory, the tracking MPC projects it
 onto the dynamics, and the solution feeds the next equilibrium iteration.
@@ -19,7 +20,12 @@ from diff_qp_mpc_tpu_torch.core.types import (
     DiagQuadCost,
     QuadCost,
 )
-from diff_qp_mpc_tpu_torch.learning.deq import DEQLayer
+from diff_qp_mpc_tpu_torch.learning.deq import (
+    DEQLayer,
+    FFDNetwork,
+    Modules,
+    prefixed,
+)
 from diff_qp_mpc_tpu_torch.models.base import DynamicsModel
 from diff_qp_mpc_tpu_torch.solvers import al_mpc, sqp_mpc
 
@@ -147,6 +153,9 @@ class DEQMPCPolicy(nn.Module):
     ws_mode "proposal" seeds each tracking solve from the fresh DEQ
     proposal; "solution" seeds only the first, later ones from the previous
     solution (and the cost's u_ref is the previous solution's actions).
+    The layer may be the mlp or the conv cell; its out_type must be 1 or 2,
+    a state reference for the tracking MPC (the JAX package's policy fails
+    on 0, 3 and 4).
     """
 
     def __init__(self, nx: int, nu: int, nq: int, T: int, hdim: int,
@@ -154,6 +163,10 @@ class DEQMPCPolicy(nn.Module):
                  out_type: int = 2, layer_type: str = "mlp",
                  ws_mode: str = "proposal"):
         super().__init__()
+        if out_type not in (1, 2):
+            raise ValueError(
+                f"DEQMPCPolicy out_type {out_type}: the tracking MPC takes "
+                f"a state reference, out_type 1 or 2")
         if ws_mode not in ("proposal", "solution"):
             raise ValueError(f"ws_mode must be 'proposal' or 'solution', "
                              f"got {ws_mode!r}")
@@ -164,6 +177,9 @@ class DEQMPCPolicy(nn.Module):
         self.ws_mode = ws_mode
         self.layer = DEQLayer(nx=nx, nu=nu, nq=nq, T=T, hdim=hdim, dt=dt,
                               out_type=out_type, layer_type=layer_type)
+
+    def flax_modules(self) -> Modules:
+        return prefixed(("DEQLayer_0", "layer"), self.layer.flax_modules())
 
     def forward(self, x: Tensor, qp_solve: bool = True,
                 lastqp_solve: bool = False
@@ -211,3 +227,29 @@ class DEQMPCPolicy(nn.Module):
         dyn_res = torch.linalg.vector_norm(
             (xr[:, 1:] - x_next).reshape(bsz, -1), dim=-1).mean()
         return iterates, dyn_res
+
+
+class NNMPCPolicy(nn.Module):
+    """Feedforward net + tracking MPC: FFDNetwork's positions with zero
+    velocities are the reference of one tracking solve from fresh solver
+    state; forward returns its (states, actions)."""
+
+    def __init__(self, nx: int, nu: int, nq: int, T: int, hdim: int,
+                 tracking: TrackingMPC):
+        super().__init__()
+        self.nx, self.nu, self.T = nx, nu, T
+        self.tracking = tracking
+        self.net = FFDNetwork(nx=nx, nq=nq, T=T, hdim=hdim)
+
+    def flax_modules(self) -> Modules:
+        return prefixed(("FFDNetwork_0", "net"), self.net.flax_modules())
+
+    def forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
+        bsz = x.shape[0]
+        pos_ref = self.net(x)
+        x_ref = torch.cat([pos_ref, pos_ref.new_zeros(
+            bsz, self.T, self.nx - pos_ref.shape[-1])], dim=-1)
+        al_state = self.tracking.init_state(bsz, x.dtype, x.device)
+        u0 = x.new_zeros(bsz, self.T, self.nu)
+        states, actions, _, _ = self.tracking.solve(x, x_ref, u0, al_state)
+        return states, actions

@@ -2,16 +2,19 @@
 diff_qp_mpc_tpu.learning.train).
 
 Same flags as the JAX trainer, with ``--device`` (default cuda; ``cpu`` only
-when asked) in place of ``--platform``. A training step: observation noise,
+when asked) in place of ``--platform``. ``--deq`` trains the DEQ-MPC policy
+(``--layer_type`` mlp or conv); without it, the behaviour-cloning baseline
+``NNPolicy`` (``--policy_out_type``). A training step: observation noise,
 input noise, the loss by phase (the raw DEQ proposals while pretraining,
-the MPC-projected iterates after), the gradient through the tracking
-solves' implicit backwards, its global norm, a skip of the whole update on
-a non-finite norm, then optax's ``clip_by_global_norm`` and ``adam`` (with
-optax's cosine schedule under ``--lr_decay``), written out by hand. Batches
-come from ``np.random.RandomState(seed)`` in the JAX trainer's order;
-metrics go to ``<logdir>/<name>/metrics.jsonl`` and checkpoints to
-``ckpt.msgpack`` / ``ckpt_best.msgpack`` beside it, in the JAX trainer's
-layout (``utils.checkpoint``).
+the MPC-projected iterates after; the BC loss without ``--deq``), the
+gradient through the tracking solves' implicit backwards, its global norm,
+a skip of the whole update on a non-finite norm, then optax's
+``clip_by_global_norm`` and ``adam`` (with optax's cosine schedule under
+``--lr_decay``), written out by hand. Batches come from
+``np.random.RandomState(seed)`` in the JAX trainer's order; metrics go to
+``<logdir>/<name>/metrics.jsonl`` and checkpoints to ``ckpt.msgpack`` /
+``ckpt_best.msgpack`` beside it, in the JAX trainer's layout
+(``utils.checkpoint``).
 
 Usage:
     python -m diff_qp_mpc_tpu_torch.learning.train --env pendulum --deq \\
@@ -39,6 +42,7 @@ from diff_qp_mpc_tpu_torch.learning.optim import (
     cosine_decay,
     global_norm,
 )
+from diff_qp_mpc_tpu_torch.learning.deq import NNPolicy
 from diff_qp_mpc_tpu_torch.learning.policies import DEQMPCPolicy, TrackingMPC
 from diff_qp_mpc_tpu_torch.solvers import al_mpc
 from diff_qp_mpc_tpu_torch.solvers.lqr import terminal_value_cost
@@ -140,14 +144,17 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def make_policy(args, env) -> DEQMPCPolicy:
-    """The DEQ-MPC policy the flags describe."""
+def make_policy(args, env):
+    """The policy the flags describe: the DEQ-MPC policy under --deq, else
+    the behaviour-cloning NNPolicy."""
     solver_type = getattr(args, "solver_type", "al")
     if solver_type not in ("al", "ip"):
         raise ValueError(f"--solver_type must be 'al' or 'ip', got "
                          f"{solver_type!r}")
     if not args.deq:
-        raise NotImplementedError("only the DEQ-MPC policy (--deq) is ported")
+        return NNPolicy(nx=env.nx, nu=env.nu, nq=env.nq, T=args.T,
+                        hdim=args.hdim, dt=env.dt,
+                        out_type=args.policy_out_type)
     R = np.asarray(env.Rlqr, dtype=float)
     if getattr(args, "tracking_r", None) is not None:
         R = np.full_like(R, args.tracking_r)
@@ -191,11 +198,13 @@ def make_policy(args, env) -> DEQMPCPolicy:
 # ---------------------------------------------------------------------------
 
 
-def compute_loss(policy: DEQMPCPolicy, args, batch: Dict[str, Tensor],
-                 qp_solve: bool, generator: torch.Generator):
+def compute_loss(policy, args, batch: Dict[str, Tensor], qp_solve: bool,
+                 generator: torch.Generator):
     """(loss, loss_end, dyn_res) of one batch: observation noise on the
     states, input noise on x0, then the DEQ loss on the raw proposals
-    (pretraining) or the DEQ-MPC loss on the projected iterates."""
+    (pretraining) or the DEQ-MPC loss on the projected iterates; without
+    --deq the BC loss of NNPolicy's outputs (zeros where the out_type has
+    none) and a zero dyn_res."""
     gt_states = noise_mod.corrupt_observation(
         generator, batch["state"], args.data_noise_type,
         args.data_noise_std, args.data_noise_mean)
@@ -204,6 +213,13 @@ def compute_loss(policy: DEQMPCPolicy, args, batch: Dict[str, Tensor],
     if args.input_noise_std > 0:
         x0 = x0 + args.input_noise_std * torch.randn(
             x0.shape, generator=generator, dtype=x0.dtype).to(x0.device)
+    if not args.deq:
+        states, actions = policy(x0)
+        loss, loss_end = losses_mod.compute_loss_bc(
+            args.policy_out_type, gt_states, gt_actions, gt_mask,
+            torch.zeros_like(gt_states) if states is None else states,
+            torch.zeros_like(gt_actions) if actions is None else actions)
+        return loss, loss_end, torch.zeros_like(loss)
     iterates, dyn_res = policy(x0, qp_solve=qp_solve,
                                lastqp_solve=args.lastqp_solve)
     if qp_solve:
@@ -216,7 +232,7 @@ def compute_loss(policy: DEQMPCPolicy, args, batch: Dict[str, Tensor],
     return loss, loss_end, dyn_res
 
 
-def make_train_step(policy: DEQMPCPolicy, optimizer: Adam, args,
+def make_train_step(policy, optimizer: Adam, args,
                     generator: torch.Generator):
     """step(batch, qp_solve) -> (loss, loss_end, dyn_res, grad_norm), the
     parameters and ``optimizer`` updated in place. On a non-finite gradient
@@ -254,7 +270,7 @@ def to_batch(batch: Dict[str, np.ndarray], device, dtype
 class _Training(NamedTuple):
     env: Any
     dataset: Dict[str, np.ndarray]
-    policy: DEQMPCPolicy
+    policy: Any  # DEQMPCPolicy or NNPolicy
     optimizer: Adam
     step: Callable  # make_train_step's
     rng: np.random.RandomState  # the batches'
@@ -268,9 +284,6 @@ def _setup(args) -> _Training:
     checkpoint under ``--load``. One batch is drawn and dropped, as the JAX
     trainer draws one to initialize its parameters, so that the batches
     that follow are the JAX trainer's."""
-    if not args.deq:
-        raise NotImplementedError("only the DEQ-MPC policy (--deq) is "
-                                  "ported")
     device = resolve_device(args.device)
     dtype = torch.float64 if args.x64 else torch.float32
     env = make_env(args.env, **({"stabilization": True}
@@ -287,7 +300,7 @@ def _setup(args) -> _Training:
     if args.load:
         path = args.ckpt or os.path.join(args.logdir, run_name(args),
                                          "ckpt.msgpack")
-        state, opt_state = load_checkpoint(path)
+        state, opt_state = load_checkpoint(path, policy.flax_modules())
         policy.load_state_dict(state)
         optimizer.load_state_dict(opt_state)
         print(f"resumed params+optimizer from {path}")
@@ -332,7 +345,7 @@ def main(argv=None, on_step: Optional[Callable[[dict], None]] = None):
         losses.append(loss)
         losses_end.append(float(loss_end))
         dyn_resids.append(float(dyn_res))
-        mode = "deqmpc" if qp_solve else "deq"
+        mode = ("deqmpc" if qp_solve else "deq") if args.deq else "bc"
         if on_step is not None:
             on_step(dict(iter=i, mode=mode, loss=loss,
                          loss_end=losses_end[-1], dyn_res=dyn_resids[-1],
@@ -351,9 +364,11 @@ def main(argv=None, on_step: Optional[Callable[[dict], None]] = None):
             writer.scalar("stats/step_time_ms", np.mean(times) * 1e3, i)
             if args.save:
                 meta = vars(args)
+                modules = run.policy.flax_modules()
                 save_checkpoint(os.path.join(logdir, "ckpt.msgpack"),
                                 run.policy.state_dict(),
-                                run.optimizer.state_dict(), meta=meta)
+                                run.optimizer.state_dict(), meta=meta,
+                                modules=modules)
                 # keep the best window's parameters; skip the pretrain ->
                 # DEQ-MPC boundary window, whose average still mixes the
                 # (much smaller) pretrain losses
@@ -365,7 +380,8 @@ def main(argv=None, on_step: Optional[Callable[[dict], None]] = None):
                     save_checkpoint(os.path.join(logdir,
                                                  "ckpt_best.msgpack"),
                                     run.policy.state_dict(),
-                                    run.optimizer.state_dict(), meta=meta)
+                                    run.optimizer.state_dict(), meta=meta,
+                                    modules=modules)
             losses, losses_end, dyn_resids, times = [], [], [], []
     writer.close()
     return run.policy

@@ -8,8 +8,8 @@ and 3 (numpy scalar, the same encoding). It returns nested dicts and lists
 with numpy leaves, as ``flax.serialization.msgpack_restore`` does.
 ``dumps`` encodes such a tree as ``flax.serialization.msgpack_serialize``
 does, byte for byte. ``params_from_flax`` maps a flax parameter tree (by
-default a DEQ-MPC policy's) onto the port's ``state_dict`` and
-``params_to_flax`` back;
+default a DEQ-MPC policy's, else by a network's ``flax_modules()``) onto
+the port's ``state_dict`` and ``params_to_flax`` back;
 ``save_checkpoint`` writes the trainer's checkpoint and its meta.json.
 """
 from __future__ import annotations
@@ -21,6 +21,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from diff_qp_mpc_tpu_torch.learning.deq import MLP_LAYER_MODULES, prefixed
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -234,36 +236,32 @@ def load_msgpack(path: str) -> Any:
     return tree
 
 
-# flax module path in a DEQ-MPC policy's tree -> port module path. In flax's
-# DEQCell the outer LayerNorm is constructed before the inner one (on
-# x + fc2(z₁)), so it is LayerNorm_1 and the inner one LayerNorm_2.
-_DEQ_MODULES: Tuple[Tuple[str, str], ...] = (
-    ("DEQLayer_0/Dense_0", "layer.inp"),
-    ("DEQLayer_0/LayerNorm_0", "layer.inp_ln"),
-    ("DEQLayer_0/DEQCell_0/Dense_0", "layer.cell.fc1"),
-    ("DEQLayer_0/DEQCell_0/LayerNorm_0", "layer.cell.ln_z1"),
-    ("DEQLayer_0/DEQCell_0/Dense_1", "layer.cell.fc2"),
-    ("DEQLayer_0/DEQCell_0/LayerNorm_1", "layer.cell.ln_out"),
-    ("DEQLayer_0/DEQCell_0/LayerNorm_2", "layer.cell.ln_inner"),
-    ("DEQLayer_0/Dense_1", "layer.out"),
-)
+# a DEQ-MPC policy's tree with the mlp cell (the dict holding DEQLayer_0)
+_DEQ_MODULES = prefixed(("DEQLayer_0", "layer"), MLP_LAYER_MODULES)
 
 
 def params_from_flax(tree: Dict,
                      modules: Tuple[Tuple[str, str], ...] = _DEQ_MODULES
                      ) -> Dict[str, torch.Tensor]:
     """Parameters of a flax tree -> the port module's ``state_dict``, by
-    ``modules``' (flax module path, port module path) pairs; by default a
-    DEQ-MPC policy's (the tree is the dict holding ``DEQLayer_0``). Dense
-    kernels are [in, out] and are transposed; LayerNorm scale becomes
-    weight."""
+    ``modules``' (flax path, port path) pairs; by default a DEQ-MPC
+    policy's with the mlp cell (the tree is the dict holding
+    ``DEQLayer_0``; each network's ``flax_modules()`` gives its own). Dense
+    kernels [in, out] are transposed to Linear weights [out, in], Conv
+    kernels [width, in, out] to Conv1d weights [out, in, width]; LayerNorm
+    and GroupNorm scales become weights; a path that names a parameter
+    itself (the conv layer's ``time_emb``) is copied as it is."""
     state = {}
     for flax_path, name in modules:
         node = tree
         for key in flax_path.split("/"):
             node = node[key]
+        if not isinstance(node, dict):
+            state[name] = torch.tensor(np.asarray(node))
+            continue
         if "kernel" in node:
-            weight = np.asarray(node["kernel"]).T
+            k = np.asarray(node["kernel"])
+            weight = k.T if k.ndim == 2 else k.transpose(2, 1, 0)
         else:
             weight = np.asarray(node["scale"])
         state[f"{name}.weight"] = torch.tensor(np.ascontiguousarray(weight))
@@ -276,16 +274,22 @@ def params_to_flax(state: Dict[str, torch.Tensor],
                    ) -> Dict:
     """The inverse of ``params_from_flax``: the port module's
     ``state_dict`` -> the flax tree (by default the one holding
-    ``DEQLayer_0``), numpy leaves of the state's dtype, Dense kernels [in,
-    out]."""
+    ``DEQLayer_0``), numpy leaves of the state's dtype."""
     tree: Dict = {}
     for flax_path, name in modules:
+        *parents, last = flax_path.split("/")
         node = tree
-        for key in flax_path.split("/"):
+        for key in parents:
             node = node.setdefault(key, {})
+        if name in state:  # a parameter itself
+            node[last] = state[name].detach().cpu().numpy()
+            continue
+        node = node.setdefault(last, {})
         weight = state[f"{name}.weight"].detach().cpu().numpy()
-        if "Dense" in flax_path.rsplit("/", 1)[-1]:
+        if last.startswith("Dense"):
             node["kernel"] = np.ascontiguousarray(weight.T)
+        elif last.startswith("Conv"):
+            node["kernel"] = np.ascontiguousarray(weight.transpose(2, 1, 0))
         else:
             node["scale"] = weight
         node["bias"] = state[f"{name}.bias"].detach().cpu().numpy()
@@ -294,14 +298,18 @@ def params_to_flax(state: Dict[str, torch.Tensor],
 
 def save_checkpoint(path: str, state: Dict[str, torch.Tensor],
                     opt_state: Optional[Dict] = None,
-                    meta: Optional[Dict] = None) -> None:
-    """Write a DEQ-MPC policy checkpoint as the JAX trainer lays it out:
+                    meta: Optional[Dict] = None,
+                    modules: Tuple[Tuple[str, str], ...] = _DEQ_MODULES
+                    ) -> None:
+    """Write a policy checkpoint as the JAX trainer lays it out:
     {"params": {"params": <flax tree>}, "opt_state": ...}, so that
-    ``load_policy_params`` and flax's ``msgpack_restore`` both read it. The
-    optimizer state is the port's own (``learning.train.Adam``). ``meta``
-    goes to ``<path>.meta.json`` as the JAX trainer writes it."""
+    ``load_policy_params`` and flax's ``msgpack_restore`` both read it;
+    ``modules`` is the policy's ``flax_modules()`` (default: the mlp
+    DEQ-MPC policy's). The optimizer state is the port's own
+    (``learning.optim.Adam``). ``meta`` goes to ``<path>.meta.json`` as the
+    JAX trainer writes it."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    payload = {"params": {"params": params_to_flax(state)}}
+    payload = {"params": {"params": params_to_flax(state, modules)}}
     if opt_state is not None:
         payload["opt_state"] = opt_state
     _check_size(payload)
@@ -312,15 +320,20 @@ def save_checkpoint(path: str, state: Dict[str, torch.Tensor],
             json.dump(meta, f, indent=2, default=str)
 
 
-def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor],
-                                        Optional[Dict]]:
+def load_checkpoint(path: str,
+                    modules: Tuple[Tuple[str, str], ...] = _DEQ_MODULES
+                    ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict]]:
     """(policy ``state_dict``, the port's optimizer state or None) of a
-    checkpoint written by ``save_checkpoint``."""
+    checkpoint written by ``save_checkpoint`` with the same ``modules``."""
     tree = load_msgpack(path)
-    return params_from_flax(tree["params"]["params"]), tree.get("opt_state")
+    return (params_from_flax(tree["params"]["params"], modules),
+            tree.get("opt_state"))
 
 
-def load_policy_params(path: str) -> Dict[str, torch.Tensor]:
-    """``state_dict`` of a DEQ-MPC policy checkpoint written by the JAX
-    trainer ({"params": {"params": {...}}, "opt_state": ...})."""
-    return params_from_flax(load_msgpack(path)["params"]["params"])
+def load_policy_params(path: str,
+                       modules: Tuple[Tuple[str, str], ...] = _DEQ_MODULES
+                       ) -> Dict[str, torch.Tensor]:
+    """``state_dict`` of a policy checkpoint written by the JAX trainer
+    ({"params": {"params": {...}}, "opt_state": ...}); ``modules`` as in
+    ``save_checkpoint``."""
+    return params_from_flax(load_msgpack(path)["params"]["params"], modules)

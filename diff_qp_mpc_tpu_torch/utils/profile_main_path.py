@@ -64,7 +64,8 @@ def profile_path(name: str, steps: int, warmup: int, episodes: int,
     device = torch.device("cuda")
     env = make_env(args.env)
     policy = make_policy(args, env)
-    policy.load_state_dict(load_policy_params(args.ckpt))
+    policy.load_state_dict(load_policy_params(args.ckpt,
+                                              policy.flax_modules()))
     policy.to(device)
     state = env.reset(torch.Generator().manual_seed(seed), episodes,
                       device=device)

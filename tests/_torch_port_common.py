@@ -1,9 +1,11 @@
 """Shared pieces of the PyTorch-port parity tests (tests/test_torch_*.py):
 both packages built from the same flags, a committed pendulum checkpoint
 loaded into each (the AL one unless a test names the ip one), and numpy <->
-tensor helpers. JAX runs on the CPU (x64 on,
-tests/conftest.py); the port's tensors lie on the CPU, so its kernel
-wrappers take their plain PyTorch versions."""
+tensor helpers, and ways to keep the JAX side's tracing down (a
+checkpoint template by shape, a jitted model for the terminal LQR cost).
+JAX runs on the CPU (x64 on, tests/conftest.py); the port's tensors lie on
+the CPU, so its kernel wrappers take their plain PyTorch versions."""
+import contextlib
 import dataclasses
 
 import jax
@@ -89,7 +91,94 @@ def jax_params(pol, dtype=jnp.float64, ckpt=CKPT):
     """A committed checkpoint's parameters for the flax policy."""
     from diff_qp_mpc_tpu.utils.checkpoint import load_checkpoint
 
-    x = jnp.zeros((2, 2), jnp.float32)
-    template = pol.init(jax.random.PRNGKey(0), x, qp_solve=False)
-    params = load_checkpoint(ckpt, {"params": template})["params"]
+    params = load_checkpoint(ckpt, {"params": jax_template(pol, 2)})[
+        "params"]
     return jax.tree.map(lambda a: a.astype(dtype), params)
+
+
+class JittedJaxModel:
+    """A JAX package dynamics model whose batched step runs jitted, for the
+    JAX side of a test: eager JAX re-traces a model's dynamics (the
+    cartpoles' Lagrangian derivatives) at every call, tens of seconds a call
+    on the CPU. The same computation; every other attribute is the
+    model's."""
+
+    def __init__(self, model):
+        self._model = model
+        self._step = jax.jit(model.__call__)
+
+    def __call__(self, x, u):
+        return self._step(x, u)
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+
+@contextlib.contextmanager
+def jitted_jax_terminal_cost():
+    """Within the block, the JAX package's ``lqr.terminal_value_cost``
+    linearizes a JittedJaxModel of its model at the goal (the JAX trainer's
+    make_policy and the JAX expert import it from there when called)."""
+    from diff_qp_mpc_tpu.solvers import lqr
+
+    orig = lqr.terminal_value_cost
+    lqr.terminal_value_cost = (
+        lambda model, *a, **kw: orig(JittedJaxModel(model), *a, **kw))
+    try:
+        yield
+    finally:
+        lqr.terminal_value_cost = orig
+
+
+@contextlib.contextmanager
+def one_blas_thread():
+    """Within the block, SciPy's OpenBLAS, which JAX's CPU LAPACK kernels
+    call (batched LU and solves), on one thread. Its threads spin while
+    they wait: with the suite's workers on every core, the sudoku example's
+    float64 step ran ~20 times slower than alone. Block on JAX's results
+    inside the block: its dispatch is asynchronous."""
+    from threadpoolctl import threadpool_limits
+
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
+
+
+def jax_template(pol, nx):
+    """The shapes of a flax DEQ-MPC policy's parameters, as
+    load_checkpoint's template (traced, not run: flax's eager init compiles
+    every op on its own)."""
+    return jax.eval_shape(lambda: pol.init(
+        jax.random.PRNGKey(0), jnp.zeros((2, nx), jnp.float32),
+        qp_solve=False))
+
+
+def rel_err(got, want):
+    """max |got − want| over max |want|, in float64."""
+    want = np.asarray(want, np.float64)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    return float(np.abs(npy(got).astype(np.float64) - want).max()) / scale
+
+
+def load_flax(module, params, dtype):
+    """``module`` cast to ``dtype``, then given a flax tree's weights by its
+    ``flax_modules()`` (cast first: flax's float64 initial draws are not
+    all float32 numbers)."""
+    from diff_qp_mpc_tpu_torch.utils.checkpoint import params_from_flax
+
+    module.to(dtype).load_state_dict(params_from_flax(
+        jax.tree.map(np.asarray, params)["params"], module.flax_modules()))
+    return module
+
+
+def assert_flax_grads(module, jgrads, tol):
+    """Every parameter's .grad of the port module within ``tol`` (relative
+    to its largest entry) of a flax gradient tree, mapped by name."""
+    from diff_qp_mpc_tpu_torch.utils.checkpoint import params_from_flax
+
+    ref = params_from_flax(jax.tree.map(np.asarray, jgrads)["params"],
+                           module.flax_modules())
+    named = dict(module.named_parameters())
+    assert set(ref) == set(named)
+    for name, p in named.items():
+        err = rel_err(p.grad, ref[name])
+        assert err <= tol, (name, err)

@@ -209,10 +209,12 @@ def _jax_model_solution(name, jdt):
             **MODEL_BUDGET)
         return np.asarray(w), np.asarray(res)
     st = dq.ALState.init(MODEL_B, p["T"], p["nx"], nu, dtype=jdt)
-    x, u, _, stats = jax_al.solve(
-        jmod, dq.DiagQuadCost(Cd=j(p["Cd"], jdt), c=j(p["c"], jdt)), x0,
+    # one trace: eager JAX re-traces the cartpole's dynamics at every call
+    x, u, _, stats = jax.jit(lambda Cd, c, x0_: jax_al.solve(
+        jmod, dq.DiagQuadCost(Cd=Cd, c=c), x0_,
         dq.Bounds(u_lo=box[0], u_hi=box[1]), st,
-        jax_al.ALConfig(kernel="scan", **MODEL_BUDGET))
+        jax_al.ALConfig(kernel="scan", **MODEL_BUDGET)))(
+            j(p["Cd"], jdt), j(p["c"], jdt), x0)
     return (np.concatenate([np.asarray(x), np.asarray(u)], -1),
             np.asarray(stats.dyn_res))
 

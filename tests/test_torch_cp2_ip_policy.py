@@ -32,7 +32,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_common import j, npy, t
+from _torch_port_common import (
+    j,
+    jax_template,
+    jitted_jax_terminal_cost,
+    npy,
+    t,
+)
 
 CKPT = "logs/deqmpc_cp2_ip_term_v1/ckpt_best.msgpack"
 DATA = "data/expert_traj_mpc-Cartpole2l-v0-stabilize_new.pkl"
@@ -77,12 +83,11 @@ def _jax_run():
     from diff_qp_mpc_tpu_torch.utils.checkpoint import params_from_flax
 
     args = jax_train.build_parser().parse_args(_argv(fused=False))
-    jpol = jax_train.make_policy(args, make_env("cartpole2link",
-                                                stabilization=True))
-    template = jpol.init(jax.random.PRNGKey(0), jnp.zeros((2, 6)),
-                         qp_solve=False)
+    with jitted_jax_terminal_cost():
+        jpol = jax_train.make_policy(args, make_env("cartpole2link",
+                                                    stabilization=True))
     params = jax.tree.map(lambda a: a.astype(jnp.float64), load_checkpoint(
-        CKPT, {"params": template})["params"])
+        CKPT, {"params": jax_template(jpol, 6)})["params"])
     gt_s, gt_a, mask = _window()
 
     def jloss(prm):

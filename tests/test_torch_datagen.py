@@ -18,13 +18,17 @@ store float32, whose rounding is inside the tolerance too.
 ``save_expert_pickle`` round-trips through the JAX package's
 ``load_expert_pickle``, and ``select_relabel_states`` draws the JAX
 package's subsample from the same RandomState, exactly. The entry point's
-RL experts (``--expert sac``) run on the CPU when asked."""
+RL experts (``--expert sac``) run on the CPU when asked. The JAX expert's
+env step and its terminal cost's model run jitted here (the same
+computation; eager JAX re-traces cp2's dynamics at every call)."""
 import pickle
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from _torch_port_common import jitted_jax_terminal_cost
 from diff_qp_mpc_tpu.envs import make_env as jax_make_env
 from diff_qp_mpc_tpu.learning import dagger as jax_dagger
 from diff_qp_mpc_tpu.learning import data as jax_data
@@ -51,6 +55,7 @@ def _init_states(env, n, seed):
 def test_expert_rollouts_match_jax(name, spec):
     env = make_env(name, stabilization=True)
     jenv = jax_make_env(name, stabilization=True)
+    jenv.step = jax.jit(jenv.step)  # eager JAX re-traces cp2 every step
     assert env.spec_id == jenv.spec_id == spec
     assert datagen.EXPERT_PLANNER == jax_datagen.EXPERT_PLANNER
     init = _init_states(env, 4, seed=3)
@@ -59,8 +64,9 @@ def test_expert_rollouts_match_jax(name, spec):
                                        device="cpu")
     # CPU tensors take the plain version: no kernel is counted
     assert (riccati_cuda.launches, riccati_cuda.horizon_launches) == before
-    ref = jax_datagen.mpc_expert_rollouts(jenv, 4, max_steps=5,
-                                          init_states=init)
+    with jitted_jax_terminal_cost():
+        ref = jax_datagen.mpc_expert_rollouts(jenv, 4, max_steps=5,
+                                              init_states=init)
     assert len(ours) == len(ref) == 4
     assert [len(a) for a in ours] == [len(b) for b in ref] == [5] * 4
     stack = lambda trajs, i: np.stack([p[i] for t in trajs for p in t])

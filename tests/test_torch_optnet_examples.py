@@ -8,14 +8,16 @@ max_iter 18); the OptNet layer demo's at bsz 64, nz 4, nineq 6, neq 0.
 Tolerances: float64 1e-8 relative to the largest entry (the same IPM and
 backward; read ≤ 6.3e-16); sudoku in float32, the example's dtype, 1e-3
 (18 IPM iterations of a 360×360 KKT system in float32 in two
-implementations; read ≤ 2.6e-7)."""
+implementations; read ≤ 2.6e-7). The JAX loss and gradient run jitted,
+one trace each, as the examples' training steps are, and the sudoku's
+with its LAPACK on one thread."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_port_common import npy
+from _torch_port_common import npy, one_blas_thread
 from diff_qp_mpc_tpu.solvers import qp as jax_qp
 from diff_qp_mpc_tpu_torch.examples import optnet_qp_layer, sudoku_optnet
 
@@ -35,7 +37,8 @@ def test_optnet_layer_step_matches_jax():
         z = jax_qp.qp_layer(Q, jnp.asarray(npy(x_in)) @ W.T, G, h, A, b, cfg)
         return jnp.mean((z - jnp.asarray(npy(z_target))) ** 2)
 
-    loss_ref, g_ref = jax.value_and_grad(jax_loss)(jnp.asarray(npy(W0)))
+    loss_ref, g_ref = jax.jit(jax.value_and_grad(jax_loss))(
+        jnp.asarray(npy(W0)))
     W = W0.clone().requires_grad_(True)
     loss = optnet_qp_layer.loss_fn(W, qp, x_in, z_target)
     loss.backward()
@@ -75,8 +78,10 @@ def test_sudoku_step_matches_jax(dtype, jdt, tol):
             jnp.broadcast_to(b_, (bsz,) + b_.shape), cfg)
         return jnp.mean((z - jnp.asarray(Z, jdt)) ** 2)
 
-    loss_ref, (gA, gb) = jax.value_and_grad(jax_loss)(
-        (jnp.asarray(A_p, jdt), jnp.asarray(b_p, jdt)))
+    with one_blas_thread():
+        loss_ref, (gA, gb) = jax.block_until_ready(
+            jax.jit(jax.value_and_grad(jax_loss))(
+                (jnp.asarray(A_p, jdt), jnp.asarray(b_p, jdt))))
     params = [torch.tensor(a, dtype=dtype, requires_grad=True)
               for a in (A_p, b_p)]
     G, h = (torch.tensor(a, dtype=dtype) for a in (G1, h1))

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from _torch_port_common import j, npy, t
+from _torch_port_common import j, jax_template, npy, t
 
 CKPT = "logs/deqmpc_quadrotor_fused_v8/ckpt_best.msgpack"
 
@@ -74,17 +74,15 @@ def _jax_run():
 
     gt_s, gt_a, mask = _window()
     jpol = _jax_policy(_policy_argv(128, 2, fused=False))
-    template = jpol.init(jax.random.PRNGKey(0), jnp.zeros((2, 12)),
-                         qp_solve=False)
     params = jax.tree.map(lambda a: a.astype(jnp.float64), load_checkpoint(
-        CKPT, {"params": template})["params"])
+        CKPT, {"params": jax_template(jpol, 12)})["params"])
 
     def jloss(prm):
         its, _ = jpol.apply(prm, j(gt_s[:, 0]), qp_solve=True)
         return jax_losses.compute_loss_deqmpc(1, j(gt_s), j(gt_a), j(mask),
                                               its)[0], its
 
-    (jl, jits), jg = jax.value_and_grad(jloss, has_aux=True)(params)
+    (jl, jits), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
     iterates = [(np.asarray(it.states), np.asarray(it.actions))
                 for it in jits]
     return iterates, float(jl), params_from_flax(jg["params"])

@@ -18,7 +18,8 @@ env's reset draw (seed 1) where the port's backends disagree. Each port
 backend is held to the JAX package's same backend in float64 to 1e-9 (read:
 ≤ 2.4e-12), and the riccati-vs-dense gap to JAX's own gap (0.281 of 8.77 on
 u: the ℓ1 penalty is inexact there, the slacks ≈ 0.01, and the dense
-expansion's problem has another minimizer, in both packages)."""
+expansion's problem has another minimizer, in both packages). The JAX
+package's cp2 solves run jitted, with their LAPACK on one thread."""
 import functools
 
 import jax
@@ -27,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_common import npy
+from _torch_port_common import npy, one_blas_thread
 from diff_qp_mpc_tpu.core.types import Bounds as JaxBounds
 from diff_qp_mpc_tpu.core.types import DiagQuadCost as JaxDiagQuadCost
 from diff_qp_mpc_tpu.core.types import QuadCost as JaxQuadCost
@@ -171,15 +172,20 @@ def _cp2_problem():
 @functools.lru_cache(maxsize=None)
 def _cp2_jax(backend):
     env, cost, x0, bounds = _cp2_problem()
-    res = jax_sl1qp.solve(
-        jax_make_env("cartpole2link", stabilization=True).model,
-        JaxQuadCost(C=jnp.asarray(npy(cost.C)), c=jnp.asarray(npy(cost.c))),
-        jnp.asarray(npy(x0)),
-        JaxBounds(u_lo=jnp.array([-250.0]), u_hi=jnp.array([250.0])),
-        jnp.zeros((len(CP2_ROWS), 5, 1)),
-        cfg=jax_sl1qp.SL1QPConfig(backend=backend, **CP2_CFG),
-        differentiable=False)
-    return {f: np.asarray(getattr(res, f)) for f in FIELDS}
+    model = jax_make_env("cartpole2link", stabilization=True).model
+    cfg = jax_sl1qp.SL1QPConfig(backend=backend, **CP2_CFG)
+
+    @jax.jit  # one trace: eager JAX re-traces cp2's dynamics at every call
+    def solve(C, c, x0_):
+        return jax_sl1qp.solve(
+            model, JaxQuadCost(C=C, c=c), x0_,
+            JaxBounds(u_lo=jnp.array([-250.0]), u_hi=jnp.array([250.0])),
+            jnp.zeros((len(CP2_ROWS), 5, 1)), cfg=cfg, differentiable=False)
+
+    with one_blas_thread():
+        res = solve(jnp.asarray(npy(cost.C)), jnp.asarray(npy(cost.c)),
+                    jnp.asarray(npy(x0)))
+        return {f: np.asarray(getattr(res, f)) for f in FIELDS}
 
 
 def _cp2_port(backend):
