@@ -78,21 +78,23 @@ Phases, each of which raises on failure (there is no CPU fallback):
      the run's last steps, and the implicit-gradient guard's drops in each
      step.
  13. K1 at the shapes the new models' paths give it, (n, T) = (5, 5),
-     (5, 10), (7, 5), (7, 10) and (16, 5), B 8 (the float64 gradient
-     check's), 64 (a closed loop's) and 256 (training's), float32 and
-     float64, each layout against its plain version within K1_TOL and
-     timed; and K1 in float32 on cp1's own AL Newton systems (T 10, B 256,
+     (5, 10), (7, 5), (7, 10), (16, 5), (4, 5) and (6, 5), B 8 (the
+     float64 gradient check's), 64 (a closed loop's) and 256 (training's),
+     float32 and float64, each layout against its plain version within
+     K1_TOL and timed (the plain version and the dense library solve at B
+     64 too); and K1 in float32 on cp1's own AL Newton systems (T 10, B 256,
      ρ 1 … 1e6) and the quadrotor's (T 5, B 128, ρ 1 … 1e4) against
      float64, within K1_AL_RATIO of the plain float32 version's error, as
      phase 10 holds the pendulum's;
- 14. K2 on the integrator, the cartpoles and the quadrotor
-     (benchmarks/k2_models.py): every (model, T, dtype) it is built for
-     against its plain version on seeded tracking problems of the model's
-     env, B 64 and 256 (the quadrotor's hover problems at its checkpoint's
-     budget: B 64, 128 and 65, the edge of its two-element blocks);
-     float32: each element within 1e-2 but for at most SHARE_LIMIT of
-     them (the quadrotor: of the plain version's float64 result, but for
-     at most F32_SHARE_VS_F64); float64: every element within 3e-6, those
+ 14. K2 on the integrator, the cartpoles, the quadrotor and the CosSin
+     models (benchmarks/k2_models.py): every (model, T, dtype) it is built
+     for against its plain version on seeded tracking problems of the
+     model's env (the CosSin models': their own draw), B 64 and 256 (the
+     quadrotor's hover problems at its checkpoint's budget: B 64, 128 and
+     65, the edge of its two-element blocks); float32: each element within
+     1e-2 but for at most SHARE_LIMIT of them (the CosSin models: their own
+     share_limit; the quadrotor: of the plain version's float64 result, but
+     for at most F32_SHARE_VS_F64); float64: every element within 3e-6, those
      beyond 1e-6 printed beside the plain version's own change on them
      under one ulp of the inputs; every group width bit-identical to G 1
      (the quadrotor's kernel has one: a warp per element, its blocks in
@@ -214,6 +216,29 @@ Phases, each of which raises on failure (there is no CPU fallback):
      steps, no kernel launched, the float64 BC loss and gradient card vs
      CPU within DEQ_NET_TOL. Their K1/K2 launches go to the kernels line
      under launches_deq_family.
+ 22. every model on every solver path (``coverage``), in this order:
+     (a) DEQ-MPC training with the quadrotor checkpoint's meta flags (B 128,
+     T 5, hdim 128, deq_iter 6, qp_iter 2) on the ip fused path, cut to
+     QUAD_IP_PRETRAIN + QUAD_IP_DEQMPC steps: exactly 18 launches of K4 on
+     its warp layout (csrc/trajqp_fused_warp.cu, K4w) and 6 of K3's horizon
+     kernel (K3h, the backward) a DEQ-MPC step, none a pretraining step, ms
+     a step and the busy share over a traced step; (b) its checkpoint
+     closed-loop through the evaluate entry point, 64 episodes ×
+     QUAD_IP_LOOP_STEPS steps, exactly 18 K4w a step, success printed; (c)
+     K4w at (5, 12, 4) and (5, 16, 4) against its plain version within
+     K4W_TOL, B 64, both dtypes, on random box QPs and on the quadrotor's
+     own ip and slew QPs, timed with its plain version, bound and shared
+     memory; beside the thread layout at (5, 6, 1), B 64 and 256; K4 at
+     the cartpoles' slew shapes (5, 5, 1) and (5, 7, 1) within K4_TOL; (d)
+     the slew option on cp1, cp2 and the quadrotor, scan and fused, float64,
+     B 64: exactly 72 K3h or 3 K4 / K4w a solve and one K3h in its
+     backward, u card vs CPU within SLEW_TOL; K3h at (5, 12, 4), (5, 5, 1),
+     (5, 7, 1) and (5, 16, 4) against its plain version and timed beside
+     the dense KKT's torch.linalg.solve; (e) both CosSin models through
+     solve_fused (1 K2, 1 K1 backward) and the AL scan path (8 K1, 1 K1
+     backward), float64 card vs CPU. Their K2 (every G against G 1, timed)
+     and K1 at n 4 and 6 run in phases 14 and 13. The kernels line gets a
+     row per new K3h and K4 shape.
 Every phase prints its seconds ("phase <name>: <s> s") and the run ends
 with their table.
 Bounds: the larger of the bytes over the HBM rate and the operations over
@@ -459,8 +484,11 @@ GRAD_TOLS = {"cp1-fused-T5": GRAD_TOL, "integrator-scan": GRAD_TOL,
              "quad-fused": QUAD_GRAD_TOL, "cp2-ip-fused": GRAD_TOL}
 # K1 at the new models' (n, T): cp1 (n 5) at T 5 (the float64 gradient
 # check, B 8) and T 10 (its scan closed loop, B 64, and the backward of its
-# fused training, B 256), cp2 (n 7) at T 5 and 10 (card tests only)
-K1_MODEL_SHAPES = ((5, 5), (5, 10), (7, 5), (7, 10), (16, 5))
+# fused training, B 256), cp2 (n 7) at T 5 and 10 (card tests only), the
+# quadrotor (n 16), and the CosSin models (n 4 and 6, phase 22's backwards
+# and scan solves)
+K1_MODEL_SHAPES = ((5, 5), (5, 10), (7, 5), (7, 10), (16, 5), (4, 5),
+                   (6, 5))
 K1_MODEL_BATCHES = (GRAD_B, EPISODES, 256)
 # the runs that launch K1 at each shape, (n, T): [(run, kind)]
 K1_SHAPE_RUNS = {(5, 10): [("cp1-scan", "closed loop"),
@@ -622,6 +650,41 @@ LAUNCHES_PER_TRAIN_STEP["conv-fused"] = LAUNCHES_PER_TRAIN_STEP["fused"]
 LAUNCHES_PER_TRAIN_STEP["bc"] = {}
 TRACED_TRAIN_STEPS["conv-fused"] = TRACED_TRAIN_STEPS["bc"] = 1
 GRAD_TOLS["conv-fused"] = GRAD_TOL
+# every model on every solver path (phase 22, ``coverage``). (a) training
+# with the quadrotor checkpoint's meta flags (B 128, T 5, hdim 128,
+# deq_iter 6, qp_iter 2) on the ip fused path, cut to QUAD_IP_PRETRAIN +
+# QUAD_IP_DEQMPC steps: per DEQ-MPC step deq_iter 6 × (qp_iter 2 + the
+# final QP) launches of K4 on the warp layout (K4w) and one implicit
+# backward a tracking solve on K3's horizon kernel (K3h, which serves
+# (5, 12, 4)); (b) its checkpoint closed-loop, 64 episodes ×
+# QUAD_IP_LOOP_STEPS steps, 18 K4w a step, success printed and not gated
+# (seeded weights trained for 3 steps)
+QUAD_IP_PRETRAIN, QUAD_IP_DEQMPC, QUAD_IP_LOOP_STEPS = 5, 3, 10
+LAUNCHES_PER_TRAIN_STEP["quad-ip-fused"] = {"K4w": 6 * 3, "K3h": 6}
+TRACED_TRAIN_STEPS["quad-ip-fused"] = 1
+# (c) K4 on the warp layout against its plain version at the quadrotor's
+# shapes, B 64: float64 within 1e-9 and float32 within 5e-3 of each
+# output's largest entry or 1, as K4's profiler cases hold float32 (its sums
+# over the warp run in another order, so it agrees to rounding, not bit for
+# bit); and timed beside the thread layout at (5, 6, 1), B 64 and 256
+K4W_TOL = {torch.float32: 5e-3, torch.float64: 1e-9}
+K4W_SHAPES = ((5, 12, 4), (5, 16, 4))
+K4W_VS_THREAD = ((5, 6, 1), (EPISODES, 256))
+# (d) the slew option on the other models at the ip checkpoint's budget
+# (SLEW_QP_ITER, IP_BUDGET, SLEW_PENALTY, B 64) on their k2_models tracking
+# problems, float64: the augmented QP at (5, nx + nu, nu) on K3's horizon
+# kernel (scan: (qp_iter + 1) × max_iter × 2 a solve) or K4 (fused:
+# qp_iter + 1, the quadrotor's on the warp layout), one K3h in the backward;
+# u card vs CPU within SLEW_TOL
+COVERAGE_SLEW_MODELS = ("cartpole1l", "cartpole2l", "quadrotor")
+# (e) the CosSin models (no env; k2_models' problems, B 64, float64) through
+# solve_fused (one K2, one K1 in its backward) and the scan AL path
+# (al_iter 2 × n_newton 4 K1, one K1 in its backward), u and the gradient
+# of Σu² w.r.t. c card vs CPU within K2_TOL's float64 xu tolerance and
+# GRAD_TOL; K2 against its plain version at B 64 and 256 and K1 at n 4 and
+# 6 run in phases 14 and 13
+COVERAGE_COSSIN = ("pendulum_cossin", "cartpole_cossin")
+COVERAGE_BUDGET_S = 90.0
 # the device of this slice's phases
 CARD = "cuda"
 
@@ -1163,7 +1226,8 @@ def phase_policy():
 def kernel_wrappers():
     """Each kernel's wrapper module and the name of its launch count: K3's
     wrapper counts its unrolled kernel in ``launches`` and its horizon
-    kernel (K3h) in ``horizon_launches``."""
+    kernel (K3h) in ``horizon_launches``, K4's its thread layout in
+    ``launches`` and its warp layout (K4w) in ``warp_launches``."""
     from diff_qp_mpc_tpu_torch.ops import (
         al_fused_cuda,
         btsolve_cuda,
@@ -1177,6 +1241,7 @@ def kernel_wrappers():
             "K3": (riccati_cuda, "launches"),
             "K3h": (riccati_cuda, "horizon_launches"),
             "K4": (trajqp_fused_cuda, "launches"),
+            "K4w": (trajqp_fused_cuda, "warp_launches"),
             "K5": (sin_chain_cuda, "launches")}
 
 
@@ -1278,8 +1343,10 @@ def phase_k1_models():
         for r in rows[n, T_]:
             log("K1 model shapes", json.dumps(r))
         rows["library", n, T_] = k1_library_ms(EPISODES, n, T_)
+        rows["plain", n, T_] = k1_plain_ms(EPISODES, n, T_)
         log("K1 model shapes library", json.dumps(dict(
-            B=EPISODES, n=n, T=T_, library_ms=rows["library", n, T_])))
+            B=EPISODES, n=n, T=T_, library_ms=rows["library", n, T_],
+            plain_ms=rows["plain", n, T_])))
     rows["cp1 AL systems"] = kernel_layouts.k1_al_systems(
         B=256, model_name="cartpole1l", T_=10)
     for r in rows["cp1 AL systems"]:
@@ -1306,6 +1373,15 @@ def k1_library_ms(B, n, T_):
         bf, torch.linalg.cholesky(H)), 50)
 
 
+def k1_plain_ms(B, n, T_):
+    """ms of K1's plain version on the card at (B, n, T_), float32."""
+    from diff_qp_mpc_tpu_torch.ops import btsolve
+
+    D, O, b = random_bt_spd(B, T_, n, torch.float32, seed=B)
+    return events_ms(lambda: btsolve.batched_factor_solve(
+        D, O, b, AL_BUDGET["reg"]), 3, warmup=1)
+
+
 def k1_by_shape(k1_models, model_runs, training):
     """The kernels line's K1 rows per new (n, T): float32 ms (the layout
     the rule picks), bound and the largest relative error per dtype at B
@@ -1316,6 +1392,7 @@ def k1_by_shape(k1_models, model_runs, training):
         r = next(r for r in rows if r["B"] == EPISODES)
         lay = r["chosen_layout"]
         entry = dict(B=EPISODES, layout=lay, ms=r["ms"][lay],
+                     plain_ms=k1_models["plain", n, T_],
                      library_ms=k1_models["library", n, T_],
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      launches=0, **{k: max(x[k] for x in rows)
@@ -2009,12 +2086,13 @@ def _ulp_nudged(args, i, up):
     return out
 
 
-def k4_check(args, kw, ratio=False):
+def k4_check(args, kw, ratio=False, tols=K4_TOL):
     """K4 on the QP ``args`` (C … u_init, then the box if positional) with
     the keywords ``kw`` against its plain version, on all eight outputs:
-    float64 within K4_TOL; float32 within K4_TOL, or with ``ratio`` (the
-    checkpoint's own QPs) against the float64 solution, per output, within
-    F32_VS_F64_RATIO of the plain float32 version's error or K4_TOL. The
+    float64 within ``tols`` (K4_TOL by default); float32 within it, or with
+    ``ratio`` (the checkpoint's own QPs) against the float64 solution, per
+    output, within F32_VS_F64_RATIO of the plain float32 version's error or
+    ``tols``. The
     plain version's error there is its rounding envelope: the largest over
     the QP and its four one-ulp nudges of c and x0 (float32 rounding of the
     residual total alone, with P's entries at 2.5e5, moves it by 1-3% from
@@ -2029,10 +2107,10 @@ def k4_check(args, kw, ratio=False):
     torch.cuda.synchronize()
     errs = k4_errors(out, plain)
     row = dict(B=args[0].shape[0], dtype=str(dtype), scaled_err=errs,
-               tol=K4_TOL[dtype])
+               tol=tols[dtype])
     finite = all(bool(torch.isfinite(o).all()) for o in out)
     if dtype == torch.float64 or not ratio:
-        ok = finite and max(errs.values()) <= K4_TOL[dtype]
+        ok = finite and max(errs.values()) <= tols[dtype]
     else:
         a64 = [a.double() if isinstance(a, torch.Tensor) else a
                for a in args]
@@ -2046,13 +2124,13 @@ def k4_check(args, kw, ratio=False):
                                    *_ulp_nudged(args, i, up), **kw)], ref)
                 p_err = {f: max(p_err[f], e[f]) for f in K4_FIELDS}
         row.update(kernel_vs_f64=k_err, plain_vs_f64=p_err)
-        ok = finite and all(k_err[f] <= max(K4_TOL[dtype],
+        ok = finite and all(k_err[f] <= max(tols[dtype],
                                             F32_VS_F64_RATIO * p_err[f])
                             for f in K4_FIELDS)
         out64 = trajqp_fused_cuda.fused_trajqp_solve(*a64, **kw)
         row["float64_scaled_err"] = k4_errors(out64, ref)
         ok = ok and max(row["float64_scaled_err"].values()) \
-            <= K4_TOL[torch.float64]
+            <= tols[torch.float64]
     if not ok:
         raise RuntimeError(f"K4 disagrees with its plain version: {row}")
     return row
@@ -3145,6 +3223,346 @@ def phase_deq_family():
     return out
 
 
+# ------------------------------------ every model on every solver path --
+def coverage_quad_ip():
+    """(a) DEQ-MPC training with the quadrotor checkpoint's meta flags on
+    the ip fused path (K4w forward, K3h backward), cut; (b) its checkpoint
+    closed-loop through the evaluate entry point (18 K4w a step)."""
+    train = phase_model_train("quad-ip-fused", QUAD_META, QUAD_IP_PRETRAIN,
+                              QUAD_IP_DEQMPC, extra=["--solver_type", "ip"])
+    ckpt = os.path.join(TRAIN_LOGDIR, "quad-ip-fused", "ckpt.msgpack")
+    loop = closed_loops(
+        [("quad-ip-fused", ["--ckpt", ckpt, "--fused", "--episodes",
+                            str(EPISODES), "--max_steps",
+                            str(QUAD_IP_LOOP_STEPS)], "K4w", 6 * 3, None)],
+        "coverage main_path")["quad-ip-fused"]
+    return dict(train=train, closed_loop=loop)
+
+
+def _model_sqp(name, kernel, dtype, slew, device=None, requires_grad=False):
+    """sqp_mpc.solve on ``name``'s k2_models tracking problems (B 64, T 5) at
+    the ip checkpoint's budget (SLEW_QP_ITER QPs), with the slew penalty
+    (prev_ctrl the first warm-start control: the quadrotor's hover
+    thrust) or without; returns the result and (c, x0)."""
+    from diff_qp_mpc_tpu_torch.benchmarks import k2_models
+    from diff_qp_mpc_tpu_torch.core.types import Bounds, DiagQuadCost
+    from diff_qp_mpc_tpu_torch.solvers import sqp_mpc, trajqp
+
+    device = device or CARD
+    model, Cd, c, x0, lo, hi, xi, ui = k2_models.problem(
+        name, EPISODES, T, dtype, seed=7, device=device)
+    c.requires_grad_(requires_grad)
+    x0.requires_grad_(requires_grad)
+    bounds = (Bounds(u_lo=lo, u_hi=hi) if kernel == "fused" else
+              Bounds(*(torch.tensor(b, dtype=dtype, device=device)
+                       for b in (lo, hi))))
+    cfg = sqp_mpc.SQPConfig(qp_iter=SLEW_QP_ITER, qp=trajqp.TrajQPConfig(
+        kernel=kernel, **IP_BUDGET))
+    res = sqp_mpc.solve(model, DiagQuadCost(Cd=Cd, c=c), x0, bounds, ui, xi,
+                        cfg, slew_rate_penalty=SLEW_PENALTY if slew else None,
+                        prev_ctrl=ui[:, 0].clone() if slew else None)
+    return res, (c, x0)
+
+
+def _k4_random(B, shape, dtype):
+    """The K4 profiler's random box QPs at ``shape``, cold-started, and
+    the keywords of a solve at the ip budget."""
+    from diff_qp_mpc_tpu_torch.benchmarks import prof_trajqp_fused as prof
+
+    arrays, box = prof.problem(B, *shape, dtype, device=CARD)
+    return ((*arrays, *prof.cold_start(*arrays)),
+            dict(IP_BUDGET, u_lo=box.u_lo, u_hi=box.u_hi))
+
+
+def _k4_timing(shape, B, layout=None):
+    """Float32 ms per launch of K4 at ``shape`` (queued events, as the
+    other K4 rows), the plain version's, and the bound, at B."""
+    from diff_qp_mpc_tpu_torch.ops import trajqp_fused_cuda
+
+    args, kw = _k4_random(B, shape, torch.float32)
+    kern = lambda: trajqp_fused_cuda._launch(
+        *args, kw["u_lo"], kw["u_hi"], kw["max_iter"], kw["reg"],
+        kw["min_slack"], layout=layout)
+    row = dict(B=B, shape=shape, layout=layout or trajqp_fused_cuda.
+               layout_for(*shape), ms=queued_events_ms(kern, 10),
+               library_ms=None)
+    row["bound_ms"], row["bound_by"] = bound(
+        B * k4_bytes(*shape), B * k4_ops(*shape, IP_BUDGET["max_iter"]))
+    return row
+
+
+def coverage_k4():
+    """(c) K4 on the warp layout at the quadrotor's shapes against its plain
+    version, B 64, both dtypes: on the profiler's random QPs and on the
+    quadrotor's own QPs (recorded from its ip and slew solves on the card in
+    float32, checked in both dtypes); timed with its plain version and
+    bound; its shared memory; and at (5, 6, 1) beside the thread layout at
+    B 64 and 256 (the wrapper keeps the thread layout there). K4 on the
+    thread layout at the cartpoles' slew shapes (5, 5, 1) and (5, 7, 1)
+    against its plain version, timed."""
+    from diff_qp_mpc_tpu_torch.ops import trajqp_fused_cuda
+
+    out = {}
+    with recording(trajqp_fused_cuda, "fused_trajqp_solve") as ip_calls:
+        with torch.no_grad():
+            _model_sqp("quadrotor", "fused", torch.float32, slew=False)
+    with recording(trajqp_fused_cuda, "fused_trajqp_solve") as slew_calls:
+        with torch.no_grad():
+            _model_sqp("quadrotor", "fused", torch.float32, slew=True)
+    own = {(5, 12, 4): ip_calls, (5, 16, 4): slew_calls}
+    for shape in K4W_SHAPES + ((5, 5, 1), (5, 7, 1)):
+        warp = shape in K4W_SHAPES
+        tols = K4W_TOL if warp else K4_TOL
+        checks = []
+        for dtype in (torch.float32, torch.float64):
+            args, kw = _k4_random(EPISODES, shape, dtype)
+            checks.append(dict(k4_check(args, kw, tols=tols), qps="random"))
+            for call, kw in own.get(shape, []):
+                args = [a.to(dtype) if isinstance(a, torch.Tensor) else a
+                        for a in call]
+                checks.append(dict(k4_check(args, kw, tols=tols),
+                                   qps="quadrotor"))
+        row = _k4_timing(shape, EPISODES)
+        args, kw = _k4_random(EPISODES, shape, torch.float32)
+        row["plain_ms"] = events_ms(
+            lambda: trajqp_fused_cuda.fused_trajqp_solve_reference(
+                *args, **kw), 2, warmup=1)
+        row["max_abs_err"] = _max_errs(
+            trajqp_fused_cuda.fused_trajqp_solve(*args, **kw),
+            trajqp_fused_cuda.fused_trajqp_solve_reference(*args, **kw))[0]
+        row["checks"] = checks
+        for dtype in ("torch.float32", "torch.float64"):
+            row[f"max_scaled_err_{dtype[6:]}"] = max(
+                max(c["scaled_err"].values()) for c in checks
+                if c["dtype"] == dtype)
+        if warp:
+            row["shared_memory"] = trajqp_fused_cuda.warp_smem(
+                torch.float32, *shape, CARD)
+        log("coverage K4", json.dumps({k: v for k, v in row.items()
+                                       if k != "checks"}))
+        out[shape] = row
+    shape, batches = K4W_VS_THREAD
+    out["warp vs thread"] = [dict(thread=_k4_timing(shape, B, "thread")["ms"],
+                                  warp=_k4_timing(shape, B, "warp")["ms"],
+                                  thread_again=_k4_timing(shape, B,
+                                                          "thread")["ms"],
+                                  B=B, shape=shape) for B in batches]
+    log("coverage K4 warp vs thread", json.dumps(out["warp vs thread"]))
+    return out
+
+
+def coverage_slew():
+    """(d) The slew option on cp1, cp2 and the quadrotor, float64, scan and
+    fused, counts set to 0 before each solve and its backward: exactly the
+    expected launches and no other kernel; u card vs CPU within SLEW_TOL.
+    Then K3's horizon kernel at the slew shapes and the quadrotor's ip
+    shape (5, 12, 4), against its plain version (both dtypes, float32 by
+    the ratio rule) and timed with the dense KKT's torch.linalg.solve."""
+    from diff_qp_mpc_tpu_torch.benchmarks import k2_models
+    from diff_qp_mpc_tpu_torch.ops import riccati_cuda, trajqp_fused_cuda
+
+    out = dict(runs=[], launches={})
+    for name in COVERAGE_SLEW_MODELS:
+        model = k2_models.model(name)
+        shape = (T, model.nx + model.nu, model.nu)
+        k3 = "K3" if riccati_cuda.kernel_for(*shape) == "riccati" else "K3h"
+        k4 = ("K4" if trajqp_fused_cuda.layout_for(*shape) == "thread"
+              else "K4w")
+        for kernel, kid, per_solve in (
+                ("scan", k3, (SLEW_QP_ITER + 1) * IP_BUDGET["max_iter"] * 2),
+                ("fused", k4, SLEW_QP_ITER + 1)):
+            reset_launches()
+            t0 = time.perf_counter()
+            res, _ = _model_sqp(name, kernel, torch.float64, slew=True,
+                                requires_grad=True)
+            sync()
+            ms = 1e3 * (time.perf_counter() - t0)
+            fwd = read_launches()
+            reset_launches()
+            (res.u ** 2).sum().backward()
+            bwd = read_launches()
+            ref, _ = _model_sqp(name, kernel, torch.float64, slew=True,
+                                device="cpu")
+            row = dict(model=name, shape=shape, kernel=kernel,
+                       ms_per_solve=ms, launches=fwd, backward_launches=bwd,
+                       u_card_vs_cpu=float((res.u.detach().cpu()
+                                            - ref.u).abs().max()))
+            log("coverage slew", json.dumps(row))
+            out["runs"].append(row)
+            for counts in (fwd, bwd):
+                for k, v in counts.items():
+                    if v:
+                        key = f"{k} {shape}"
+                        out["launches"][key] = out["launches"].get(key, 0) + v
+            others = {k: v for k, v in fwd.items() if k != kid and v}
+            bad_bwd = {k: v for k, v in bwd.items()
+                       if v != (1 if k == k3 else 0)}
+            if (fwd[kid] != per_solve or others or bad_bwd
+                    or not row["u_card_vs_cpu"] <= SLEW_TOL):
+                raise RuntimeError(f"coverage slew: {row}, expected "
+                                   f"{per_solve} {kid} launches and one "
+                                   f"{k3} in the backward")
+    reg = IP_BUDGET["reg"]
+    out["K3h"] = {}
+    for shape in ((5, 12, 4), (5, 5, 1), (5, 7, 1), (5, 16, 4)):
+        checks = [k3_check(lqr_problem(B, *shape, dtype, seed=B + 5,
+                                       device=CARD), reg, ratio=True)
+                  for dtype in (torch.float32, torch.float64)
+                  for B in (EPISODES, 256)]
+        args = lqr_problem(EPISODES, *shape, torch.float32, seed=EPISODES,
+                           device=CARD)
+        row = dict(k3_timing(args, reg), checks=checks)
+        row["max_abs_err"] = _max_errs(
+            riccati_cuda.batched_lqr_kkt_solve(*args, reg),
+            _plain_k3(args, reg))[0]
+        for dtype in ("torch.float32", "torch.float64"):
+            row[f"max_rel_err_{dtype[6:]}"] = max(
+                _check_err(c) for c in checks if c["dtype"] == dtype)
+        log("coverage K3h", json.dumps({k: v for k, v in row.items()
+                                        if k != "checks"}))
+        out["K3h"][shape] = row
+    return out
+
+
+def coverage_cossin():
+    """(e) The CosSin models through solve_fused (K2, its backward one K1)
+    and the scan AL path (K1), float64, B 64, counts set to 0 before each
+    forward and backward and read after: exact launches, no other kernel;
+    u and the gradient of Σu² w.r.t. c card vs CPU."""
+    from diff_qp_mpc_tpu_torch.benchmarks import k2_models
+    from diff_qp_mpc_tpu_torch.core.types import (
+        ALState,
+        Bounds,
+        DiagQuadCost,
+    )
+    from diff_qp_mpc_tpu_torch.solvers import al_mpc
+
+    cfg = al_mpc.ALConfig()
+
+    def run(name, path, device):
+        model, Cd, c, x0, lo, hi, xi, ui = k2_models.problem(
+            name, EPISODES, T, torch.float64, seed=11, device=device)
+        c.requires_grad_(True)
+        cost = DiagQuadCost(Cd=Cd, c=c)
+        if path == "fused":
+            u = al_mpc.solve_fused(model, cost, x0, Bounds(u_lo=lo, u_hi=hi),
+                                   cfg, x_init=xi, u_init=ui)[1]
+        else:
+            st = ALState.init(EPISODES, T, model.nx, model.nu,
+                              hist_len=cfg.al_iter + 1, dtype=torch.float64,
+                              device=device)
+            box = Bounds(*(torch.tensor(b, dtype=torch.float64,
+                                        device=device) for b in (lo, hi)))
+            u = al_mpc.solve(model, cost, x0, box, st, cfg, x_init=xi,
+                             u_init=ui)[1]
+        return u, c
+
+    out = dict(runs=[], launches={})
+    for name in COVERAGE_COSSIN:
+        for path, fwd_want in (("fused", {"K2": 1}),
+                               ("scan", {"K1": cfg.al_iter * cfg.n_newton})):
+            reset_launches()
+            u, c = run(name, path, CARD)
+            fwd = read_launches()
+            reset_launches()
+            (u ** 2).sum().backward()
+            bwd = read_launches()
+            u_cpu, c_cpu = run(name, path, "cpu")
+            (u_cpu ** 2).sum().backward()
+            row = dict(model=name, path=path, launches=fwd,
+                       backward_launches=bwd,
+                       u_card_vs_cpu=float((u.detach().cpu()
+                                            - u_cpu.detach()).abs().max()),
+                       grad_card_vs_cpu=_scaled_err(c.grad, c_cpu.grad))
+            log("coverage cossin", json.dumps(row))
+            out["runs"].append(row)
+            for k, v in list(fwd.items()) + list(bwd.items()):
+                if v:
+                    key = f"{k} {name}"
+                    out["launches"][key] = out["launches"].get(key, 0) + v
+            want = {k: fwd_want.get(k, 0) for k in fwd}
+            want_bwd = {k: int(k == "K1") for k in bwd}
+            if (fwd != want or bwd != want_bwd
+                    or not row["u_card_vs_cpu"] <= K2_TOL[torch.float64][0]
+                    or not row["grad_card_vs_cpu"] <= GRAD_TOL):
+                raise RuntimeError(f"coverage cossin: {row}, expected "
+                                   f"{fwd_want} and one K1 backward")
+    return out
+
+
+def phase_coverage():
+    """Phase 22: the quadrotor's ip fused path at full width, K4 on the
+    warp layout, the slew option on the other models, the CosSin models
+    (see the module docstring); within COVERAGE_BUDGET_S."""
+    t0 = time.perf_counter()
+    out = dict(quad_ip=coverage_quad_ip(), k4=coverage_k4(),
+               slew=coverage_slew(), cossin=coverage_cossin())
+    out["seconds"] = time.perf_counter() - t0
+    tr, loop = out["quad_ip"]["train"], out["quad_ip"]["closed_loop"]
+    log("coverage summary", json.dumps(dict(
+        quad_ip_train_launches_per_deqmpc_step=tr["launches_per_deqmpc_step"],
+        quad_ip_train_ms_per_step_median=tr["ms_per_step_median"],
+        quad_ip_train_busy_share=tr["device_busy_share"],
+        quad_ip_closed_loop={k: loop[k] for k in (
+            "success_rate", "ms_per_step", "launches_per_step")},
+        slew_launches=out["slew"]["launches"],
+        cossin_launches=out["cossin"]["launches"],
+        seconds=out["seconds"], budget=COVERAGE_BUDGET_S)))
+    return out
+
+
+def coverage_kernel_rows(cov):
+    """The kernels line's rows of this phase's shapes: K4 on the warp
+    layout at (5, 12, 4) and (5, 16, 4), K4 at (5, 5, 1) and (5, 7, 1), and
+    K3's horizon kernel at T 5 where the unrolled kernel lacks the shape:
+    float32 ms at B 64 with plain, library and bound, the largest errors of
+    their checks, and the launches of the runs that take them."""
+    tr = cov["quad_ip"]["train"]["launches_total"]
+    loop = cov["quad_ip"]["closed_loop"]["launches"]
+    slew = cov["slew"]["launches"]
+    rows = []
+    for shape, row in cov["k4"].items():
+        if not isinstance(shape, tuple):
+            continue
+        warp = shape in K4W_SHAPES
+        kid = "K4w" if warp else "K4"
+        by_run = {"coverage slew": slew.get(f"{kid} {shape}", 0)}
+        if shape == (5, 12, 4):
+            by_run = {"quad-ip-fused training": tr["K4w"],
+                      "quad-ip-fused closed loop": loop["K4w"]}
+        rows.append(dict(
+            name=f"trajqp_fused (K4) {shape}" + (
+                ", one warp per element" if warp else ""),
+            route="cuda",
+            source="diff_qp_mpc_tpu_torch/csrc/" + (
+                "trajqp_fused_warp.cu" if warp else "trajqp_fused.cu"),
+            replaces="diff_qp_mpc_tpu/ops/trajqp_fused_pallas.py:308",
+            launches=sum(by_run.values()), launches_by_run=by_run,
+            **{k: row[k] for k in (
+                "max_abs_err", "max_scaled_err_float32",
+                "max_scaled_err_float64", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")},
+            tolerance={str(d)[6:]: t for d, t in (
+                K4W_TOL if warp else K4_TOL).items()},
+            **({"shared_memory": row["shared_memory"]} if warp else {}),
+            shape=f"B={EPISODES} T={shape[0]} nx={shape[1]} nu={shape[2]} "
+                  "float32"))
+    for shape, row in cov["slew"]["K3h"].items():
+        by_run = ({"quad-ip-fused training": tr["K3h"]} if shape == (5, 12, 4)
+                  else {"coverage slew": slew.get(f"K3h {shape}", 0)})
+        rows.append(dict(
+            name=f"riccati_horizon (K3) {shape}", route="cuda",
+            source="diff_qp_mpc_tpu_torch/csrc/riccati_horizon.cu",
+            replaces="diff_qp_mpc_tpu/ops/riccati_pallas.py:219",
+            launches=sum(by_run.values()), launches_by_run=by_run,
+            **{k: row[k] for k in (
+                "max_abs_err", "max_rel_err_float32", "max_rel_err_float64",
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            shape=f"B={EPISODES} T={shape[0]} nx={shape[1]} nu={shape[2]} "
+                  "float32"))
+    return rows
+
+
 def k3_by_shape(k3_horizon, cp2_qps, cp2_runs, training, experts):
     """The kernels line's K3 rows per new (T, nx, nu): the kernel that
     serves it and its source, float32 ms at B 64 with plain, library (the
@@ -3280,7 +3698,7 @@ def main():
     t0 = time.perf_counter()
     logs = cuda_build.build(["btsolve", *al_fused_cuda.LIBRARIES, "riccati",
                              "riccati_horizon", "trajqp_fused",
-                             "sin_chain"])
+                             "trajqp_fused_warp", "sin_chain"])
     log(f"build: {time.perf_counter() - t0:.1f} s")
     log("build seconds by source", json.dumps(cuda_build.build_seconds))
     for name, text in logs.items():
@@ -3339,6 +3757,9 @@ def main():
     rl = timed("RL", phase_rl)
     # the conv cell, NNMPCPolicy, DEQPolicy and the BC baseline
     deq = timed("DEQ family", phase_deq_family)
+    # every model on every solver path: the quadrotor's ip path, K4 on the
+    # warp layout, the slew shapes, the CosSin models
+    cov = timed("coverage", phase_coverage)
     log("phase seconds", json.dumps(PHASE_SECONDS))
     log("deq family summary", json.dumps(dict(
         conv_train_launches_per_deqmpc_step=deq["conv"]["train"][
@@ -3439,6 +3860,16 @@ def main():
             kernels[-1]["by_shape"] = k4_by_shape(cp2_qps, cp2_runs,
                                                   training)
     kernels.extend(slew_kernel_rows(slew))
+    kernels.extend(coverage_kernel_rows(cov))
+    # the CosSin models' K1 (n 4, n 6) and K2 launches in phase 22
+    cossin = cov["cossin"]["launches"]
+    for name, n in (("pendulum_cossin", 4), ("cartpole_cossin", 6)):
+        k1 = kernels[0]["by_shape"][f"n{n} T{T}"]
+        k1["launches_coverage"] = cossin.get(f"K1 {name}", 0)
+        k1["launches"] += k1["launches_coverage"]
+        k2 = kernels[1]["by_model"][f"{name} T{T}"]
+        k2["launches_coverage"] = cossin.get(f"K2 {name}", 0)
+        k2["launches"] += k2["launches_coverage"]
     quad = kernels[1]["by_model"]["quadrotor T5"]
     kernels.append({
         "name": "al_fused quadrotor (K2, one warp per element)",

@@ -126,6 +126,14 @@ class _Counted:
 
     cos = sin
 
+    def atan2(self, other):
+        """One transcendental evaluation, as a sin (its fast path is
+        longer than a sin's, so the bound stays a lower bound)."""
+        return self.sin()
+
+    def clip(self, lo, hi):  # two compares and selects
+        return _Counted()
+
     def sign(self):  # a compare and a select
         return _Counted()
 
@@ -138,9 +146,10 @@ def _counted(fn):
 
 
 def functor_counts(model) -> Tuple[int, int, int, int]:
-    """(step, Jacobian, step sins, Jacobian sins) of K2's RK4 functor of a
-    cartpole or the quadrotor (``csrc/al_fused_cartpole*``,
-    ``al_fused_quadrotor.cu``), counted by running its plain
+    """(step, Jacobian, step sins, Jacobian sins) of K2's functor of a
+    cartpole, a CosSin model or the quadrotor (``csrc/al_fused_cartpole*``,
+    ``al_fused_cossin.cu``, ``al_fused_quadrotor.cu``), counted by running
+    its plain
     version, ``model.step_parts``, which does the functor's operations one
     for one, on counting numbers: the step on values, the Jacobian as one
     pass on duals per input column (``models.dual``; a dual times a
@@ -173,17 +182,21 @@ def _k2_model_counts(model: str) -> Tuple[int, int, int, int]:
     from diff_qp_mpc_tpu_torch.models import (
         Cartpole1L,
         Cartpole2L,
+        CartpoleCosSin,
+        PendulumCosSin,
         RexQuadrotor,
     )
 
     return functor_counts({"cartpole1l": Cartpole1L,
                            "cartpole2l": Cartpole2L,
-                           "quadrotor": RexQuadrotor}[model]())
+                           "quadrotor": RexQuadrotor,
+                           "pendulum_cossin": PendulumCosSin,
+                           "cartpole_cossin": CartpoleCosSin}[model]())
 
 
 #: the models K2 is built for, by the name ``ops.al_fused_cuda`` gives them
 K2_MODELS = ("pendulum", "integrator", "cartpole1l", "cartpole2l",
-             "quadrotor")
+             "quadrotor", "pendulum_cossin", "cartpole_cossin")
 
 
 def k2_ops(T_, nx, nu, al_iter, n_newton, n_ls, model="pendulum"):

@@ -1,5 +1,5 @@
-"""K2 on the models beyond the pendulum (the integrator, the cartpoles and
-the quadrotor), on the card.
+"""K2 on the models beyond the pendulum (the integrator, the cartpoles, the
+quadrotor and the two CosSin models), on the card.
 
     python -m diff_qp_mpc_tpu_torch.benchmarks.k2_models \\
         [--out build/k2_models.json]
@@ -42,6 +42,7 @@ from diff_qp_mpc_tpu_torch.benchmarks.flops import (
 )
 from diff_qp_mpc_tpu_torch.benchmarks.timing import device_kernel_ms, events_ms
 from diff_qp_mpc_tpu_torch.envs import make_env
+from diff_qp_mpc_tpu_torch.models import CartpoleCosSin, PendulumCosSin
 from diff_qp_mpc_tpu_torch.ops import al_fused_cuda
 from diff_qp_mpc_tpu_torch.utils import cuda_build
 
@@ -50,11 +51,14 @@ BUDGET = dict(al_iter=2, n_newton=4, n_ls=20, rho_factor=10.0, rho_max=1e6,
               reg=1e-7)
 #: per model: the env (name, kwargs) whose model, initial states and box the
 #: problems take, and the tracking cost's control weight R (None: the env's
-#: Rlqr), as the committed checkpoints of these envs use them
+#: Rlqr), as the committed checkpoints of these envs use them; the CosSin
+#: models have no env (None): see ``problem``
 ENVS = {"integrator": ("integrator", {}, None),
         "cartpole1l": ("cartpole1link", {"stabilization": True}, None),
         "cartpole2l": ("cartpole2link", {"stabilization": True}, 0.01),
-        "quadrotor": ("rexquadrotor", {}, None)}
+        "quadrotor": ("rexquadrotor", {}, None),
+        "pendulum_cossin": (None, {}, None),
+        "cartpole_cossin": (None, {}, None)}
 #: the budget per model where it is not BUDGET's: the quadrotor checkpoint's
 #: rho_max (deqmpc_quadrotor_fused_v8's meta.json: 1e4, al_reg null)
 BUDGETS = {"quadrotor": dict(BUDGET, rho_max=1e4)}
@@ -83,6 +87,17 @@ TOL = {torch.float32: 1e-2, torch.float64: 3e-6}
 #: the share of elements outside TOL, and the median element error: a
 #: tenth of TOL in float32, 1e-8 in float64
 SHARE_LIMIT = {torch.float32: 0.01, torch.float64: 0.0}
+#: the share limit per model where it is not SHARE_LIMIT's. The CosSin
+#: models' float32 solves jump more often: against its own float64 result
+#: the plain float32 version moves up to 1/64 of the pendulum's elements
+#: and 2/64 of the cartpole's beyond 1e-2 (the largest share over 9 seeds
+#: at B 64 and 256, T 5 and 10, ``--plain``; PERF.md, Findings). Two float32
+#: implementations may each jump on as many elements, and on different
+#: ones, so each is held to twice that share against the other.
+SHARE_LIMITS = {"pendulum_cossin": {torch.float32: 2 / 64,
+                                    torch.float64: 0.0},
+                "cartpole_cossin": {torch.float32: 4 / 64,
+                                    torch.float64: 0.0}}
 MEDIAN_LIMIT = {torch.float32: 1e-3, torch.float64: 1e-8}
 #: the float64 tolerance the checks report against; elements beyond it
 #: are listed with the plain version's own one-ulp change on them
@@ -108,6 +123,11 @@ def batches(name):
     return MODEL_BATCHES.get(name, BATCHES)
 
 
+def share_limit(name, dtype):
+    """The share of ``name``'s elements that may lie outside TOL."""
+    return SHARE_LIMITS.get(name, SHARE_LIMIT)[dtype]
+
+
 def problem(name, B, T, dtype, seed, device="cuda"):
     """Tracking problems like the policy's for model ``name``: x0 drawn as
     its env draws initial states (the cartpoles around upright, the
@@ -117,9 +137,13 @@ def problem(name, B, T, dtype, seed, device="cuda"):
     u_init 0; a model with a hover thrust (the quadrotor) takes the hover
     reference instead, the origin at hover thrust, with u_init the hover
     thrust and x_init its rollout from x0 (as the JAX package's
-    tests/test_al_fused.py builds them). Returns the fused_al_solve
-    arguments (model, Cd, c, x0, u_lo, u_hi, x_init, u_init)."""
+    tests/test_al_fused.py builds them). A model without an env (the CosSin
+    ones, ``cossin_problem``) takes its own draw. Returns the
+    fused_al_solve arguments (model, Cd, c, x0, u_lo, u_hi, x_init,
+    u_init)."""
     env_name, kwargs, r = ENVS[name]
+    if env_name is None:
+        return cossin_problem(name, B, T, dtype, seed, device)
     env = make_env(env_name, **kwargs)
     model, nx, nu = env.model, env.nx, env.nu
     x0 = env._sample_init(torch.Generator().manual_seed(seed), B).numpy()
@@ -143,6 +167,44 @@ def problem(name, B, T, dtype, seed, device="cuda"):
     box = (tuple(float(v) for v in env.action_space.low),
            tuple(float(v) for v in env.action_space.high))
     return (model, to(Cd), to(c), to(x0), *box, to(x_init), to(u_init))
+
+
+def model(name):
+    """The model ``name`` names (its env's, or the CosSin model's
+    defaults)."""
+    env_name, kwargs, _ = ENVS[name]
+    if env_name is None:
+        return _COSSIN[name]()
+    return make_env(env_name, **kwargs).model
+
+
+_COSSIN = {"pendulum_cossin": PendulumCosSin,
+           "cartpole_cossin": CartpoleCosSin}
+#: the CosSin problems' box, state and control weights
+COSSIN_BOX, COSSIN_Q, COSSIN_R = 3.0, 10.0, 0.01
+
+
+def cossin_problem(name, B, T, dtype, seed, device="cuda"):
+    """``problem`` for a CosSin model (no env): θ and every other state
+    coordinate drawn uniformly in ±0.5 around upright at rest (cos θ 1,
+    sin θ 0), Cd = (COSSIN_Q on the states, COSSIN_R on u), the box
+    ±COSSIN_BOX; τ_ref drifts from x0 as ``problem``'s, u_init 0."""
+    m = _COSSIN[name]()
+    nx, nu = m.nx, m.nu
+    rng = np.random.RandomState(seed)
+    x0 = rng.uniform(-0.5, 0.5, (B, nx))
+    i = nx - 3  # (cos θ, sin θ) sit before θ̇, the last coordinate
+    th = x0[:, i]
+    x0[:, i], x0[:, i + 1] = np.cos(th), np.sin(th)
+    Cd = np.broadcast_to([COSSIN_Q] * nx + [COSSIN_R] * nu,
+                         (B, T, nx + nu))
+    x_ref = x0[:, None] + np.cumsum(0.05 * rng.randn(B, T, nx), axis=1)
+    x_ref[:, 0] = x0
+    c = -Cd * np.concatenate([x_ref, np.zeros((B, T, nu))], -1)
+    to = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                                device=device)
+    return (m, to(Cd), to(c), to(x0), (-COSSIN_BOX,) * nu,
+            (COSSIN_BOX,) * nu, to(x_ref), to(np.zeros((B, T, nu))))
 
 
 def element_errors(out, ref):
@@ -196,7 +258,7 @@ def check(name, T, dtype, B) -> dict:
                share_over_tol=float((el > tol).double().mean()),
                max_abs_err_res=float((out[4] - ref[4]).abs().max()),
                res_mean=float(out[4].mean()), tol=tol,
-               share_limit=SHARE_LIMIT[dtype],
+               share_limit=share_limit(name, dtype),
                identical_to_g1={G: _same(o, outs[1])
                                 for G, o in outs.items() if not warp})
     finite = all(bool(torch.isfinite(o).all()) for o in out)
@@ -213,7 +275,7 @@ def check(name, T, dtype, B) -> dict:
             share_limit_vs_f64=F32_SHARE_VS_F64[name])
         ok = ok and row["share_over_tol_vs_f64"] <= F32_SHARE_VS_F64[name]
     else:
-        ok = ok and row["share_over_tol"] <= SHARE_LIMIT[dtype]
+        ok = ok and row["share_over_tol"] <= share_limit(name, dtype)
     if not ok:
         raise RuntimeError(f"K2 on {name}: {row}")
     if dtype == torch.float64:

@@ -375,8 +375,14 @@ int launch(const void* D, const void* O, const void* b, void* x,
     case 3:
       launch_stream<3, F>(D, O, b, x, scratch, B, T, reg, s);
       break;
+    case 4:
+      launch_stream<4, F>(D, O, b, x, scratch, B, T, reg, s);
+      break;
     case 5:
       launch_stream<5, F>(D, O, b, x, scratch, B, T, reg, s);
+      break;
+    case 6:
+      launch_stream<6, F>(D, O, b, x, scratch, B, T, reg, s);
       break;
     case 7:
       launch_stream<7, F>(D, O, b, x, scratch, B, T, reg, s);
@@ -394,7 +400,9 @@ template <typename F>
 long long scratch_bytes(int B, int T, int n) {
   switch (n) {
     case 3: return stream_scratch_bytes<3, F>(B, T);
+    case 4: return stream_scratch_bytes<4, F>(B, T);
     case 5: return stream_scratch_bytes<5, F>(B, T);
+    case 6: return stream_scratch_bytes<6, F>(B, T);
     case 7: return stream_scratch_bytes<7, F>(B, T);
     case 16: return stream_scratch_bytes<16, F>(B, T);
     default: return -1;

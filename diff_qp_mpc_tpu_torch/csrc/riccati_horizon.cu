@@ -3,7 +3,10 @@
 //
 // Replaces the TPU kernel diff_qp_mpc_tpu/ops/riccati_pallas.py::
 // batched_lqr_kkt_solve (_riccati_kernel) at the horizons of the MPC
-// expert's planners (T 10 to 120). Same function as riccati.cu: the backward
+// expert's planners (T 10 to 120), and at T 5 where the unrolled kernel has
+// no instantiation: the quadrotor's ip path (12, 4), CartpoleCosSin's (5,
+// 1), and the slew-augmented shapes of cp1, cp2 and the quadrotor ((5, 1),
+// (7, 1), (16, 4)). Same function as riccati.cu: the backward
 // Riccati recursion over the dense stage blocks, reg added to Quu before its
 // Cholesky factorization, then the forward rollout from dx0, returning
 // (dx, du, λ); each stage's arithmetic, and its order, is riccati_solve's
@@ -249,8 +252,11 @@ int dispatch(const HorizonArgs& a, int Bsz, int T, int nx, int nu,
   if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (nx == 2 && nu == 1) return launch<2, 1, F>(a, Bsz, T, reg, s);
   if (nx == 4 && nu == 1) return launch<4, 1, F>(a, Bsz, T, reg, s);
+  if (nx == 5 && nu == 1) return launch<5, 1, F>(a, Bsz, T, reg, s);
   if (nx == 6 && nu == 1) return launch<6, 1, F>(a, Bsz, T, reg, s);
+  if (nx == 7 && nu == 1) return launch<7, 1, F>(a, Bsz, T, reg, s);
   if (nx == 12 && nu == 4) return launch<12, 4, F>(a, Bsz, T, reg, s);
+  if (nx == 16 && nu == 4) return launch<16, 4, F>(a, Bsz, T, reg, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -267,8 +273,11 @@ int workspace_values() {
 extern "C" int riccati_horizon_workspace(int nx, int nu) {
   if (nx == 2 && nu == 1) return dqmpc::workspace_values<2, 1>();
   if (nx == 4 && nu == 1) return dqmpc::workspace_values<4, 1>();
+  if (nx == 5 && nu == 1) return dqmpc::workspace_values<5, 1>();
   if (nx == 6 && nu == 1) return dqmpc::workspace_values<6, 1>();
+  if (nx == 7 && nu == 1) return dqmpc::workspace_values<7, 1>();
   if (nx == 12 && nu == 4) return dqmpc::workspace_values<12, 4>();
+  if (nx == 16 && nu == 4) return dqmpc::workspace_values<16, 4>();
   return 0;
 }
 
@@ -276,7 +285,8 @@ extern "C" int riccati_horizon_workspace(int nx, int nu) {
 // gu [B,T,nu], A [B,T-1,nx,nx], B [B,T-1,nx,nu], r [B,T-1,nx], dx0 [B,nx]
 // -> dx [B,T,nx], du [B,T,nu], lam [B,T,nx]; all contiguous; ws holds
 // T·W·B scalars (riccati_horizon_workspace). Built for (nx, nu) = (2, 1),
-// (4, 1), (6, 1) and (12, 4), any T ≥ 1; cudaErrorInvalidValue otherwise.
+// (4, 1), (5, 1), (6, 1), (7, 1), (12, 4) and (16, 4), any T ≥ 1;
+// cudaErrorInvalidValue otherwise.
 // Returns a cudaError_t code.
 #define RICCATI_HORIZON_ENTRY(NAME, F)                                       \
   extern "C" int NAME(const void* Cxx, const void* Cxu, const void* Cuu,     \

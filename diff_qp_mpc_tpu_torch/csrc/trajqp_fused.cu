@@ -492,8 +492,14 @@ int dispatch(const TrajQPArgs& a, int Bsz, int T, int nx, int nu,
   if (T == 5 && nx == 4 && nu == 1)
     return launch<5, 4, 1, F>(a, Bsz, max_iter, reg, min_slack, u_lo, u_hi,
                               s);
+  if (T == 5 && nx == 5 && nu == 1)
+    return launch<5, 5, 1, F>(a, Bsz, max_iter, reg, min_slack, u_lo, u_hi,
+                              s);
   if (T == 5 && nx == 6 && nu == 1)
     return launch<5, 6, 1, F>(a, Bsz, max_iter, reg, min_slack, u_lo, u_hi,
+                              s);
+  if (T == 5 && nx == 7 && nu == 1)
+    return launch<5, 7, 1, F>(a, Bsz, max_iter, reg, min_slack, u_lo, u_hi,
                               s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -504,8 +510,9 @@ int dispatch(const TrajQPArgs& a, int Bsz, int T, int nx, int nu,
 // B [B,T-1,nx,nu], f [B,T-1,nx], x0 [B,nx], x_init [B,T,nx], u_init
 // [B,T,nu]; outputs x [B,T,nx], u [B,T,nu], lam [B,T,nx], z_hi, z_lo, s_hi,
 // s_lo [B,T,nu], res [B]. u_lo/u_hi hold nu host values. Built for
-// (T, nx, nu) = (5, 2, 1), (5, 3, 1), (5, 3, 2), (5, 4, 1) and (5, 6, 1);
-// cudaErrorInvalidValue otherwise.
+// (T, nx, nu) = (5, 2, 1), (5, 3, 1), (5, 3, 2), (5, 4, 1), (5, 5, 1),
+// (5, 6, 1) and (5, 7, 1); cudaErrorInvalidValue otherwise (the quadrotor's
+// shapes run on trajqp_fused_warp.cu).
 // Returns a cudaError_t code.
 #define TRAJQP_ENTRY(NAME, F)                                                 \
   extern "C" int NAME(                                                        \

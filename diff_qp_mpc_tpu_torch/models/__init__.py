@@ -1,5 +1,6 @@
 from diff_qp_mpc_tpu_torch.models.base import (  # noqa: F401
     DynamicsModel,
+    Functor,
     Rk4Functor,
     angle_normalize,
     angle_normalize_2pi,
@@ -21,6 +22,9 @@ from diff_qp_mpc_tpu_torch.models.lagrangian import (  # noqa: F401
     lagrangian_ode,
     manipulator_accel,
 )
-from diff_qp_mpc_tpu_torch.models.pendulum import Pendulum  # noqa: F401
+from diff_qp_mpc_tpu_torch.models.pendulum import (  # noqa: F401
+    Pendulum,
+    PendulumCosSin,
+)
 from diff_qp_mpc_tpu_torch.models.quadrotor import RexQuadrotor  # noqa: F401
 from diff_qp_mpc_tpu_torch.models import rotation  # noqa: F401,E402

@@ -100,19 +100,15 @@ def rk4_parts(ode_parts, p, xs, us):
                  for x, a, b, c, d in zip(xs, k1, k2, k3, k4))
 
 
-class Rk4Functor(DynamicsModel):
-    """A model whose ``step_parts`` is K2's RK4 functor (``Rk4Dyn`` of
-    csrc/al_fused_common.cuh) operation for operation, with the constants
-    ``PARAMS`` names (``kernel_params`` gives them in that order, folded in
-    double precision), and whose ``jac`` is one forward-mode pass of it per
-    input column."""
+class Functor(DynamicsModel):
+    """A model whose ``step_parts`` is K2's functor for it operation for
+    operation, with the constants ``PARAMS`` names (``kernel_params`` gives
+    them in that order, folded in double precision), and whose ``jac`` is
+    one forward-mode pass of it per input column."""
 
     PARAMS: Tuple[str, ...] = ()
 
     def kernel_params(self) -> Tuple[float, ...]:  # pragma: no cover
-        raise NotImplementedError
-
-    def _ode_parts(self, p, xs, us):  # pragma: no cover
         raise NotImplementedError
 
     def scalars(self, like) -> Dict[str, object]:
@@ -123,12 +119,13 @@ class Rk4Functor(DynamicsModel):
         return {k: like.new_tensor(v) for k, v in
                 zip(self.PARAMS, self.kernel_params())}
 
-    def step_parts(self, xs, us, p=None):
+    def step_parts(self, xs, us, p=None):  # pragma: no cover
         """The functor's step on tuples of coordinates (tensors, duals, or
         any number type given its own constants ``p``)."""
-        if p is None:
-            p = self.scalars(xs[0])
-        return rk4_parts(self._ode_parts, p, tuple(xs), tuple(us))
+        raise NotImplementedError
+
+    def step(self, x: Tensor, u: Tensor) -> Tensor:
+        return torch.stack(self.step_parts(x.unbind(-1), u.unbind(-1)), -1)
 
     def jac(self, x: Tensor, u: Tensor):
         """(x_next, (A, B)) from one forward-mode pass with a unit seed per
@@ -145,6 +142,19 @@ class Rk4Functor(DynamicsModel):
         J = J.movedim(0, -1)  # [..., nx, n]
         return x_next, (J[..., :self.nx].contiguous(),
                         J[..., self.nx:].contiguous())
+
+
+class Rk4Functor(Functor):
+    """A functor model whose step is RK4 of its ODE ``_ode_parts`` (``Rk4Dyn``
+    of csrc/al_fused_common.cuh)."""
+
+    def _ode_parts(self, p, xs, us):  # pragma: no cover
+        raise NotImplementedError
+
+    def step_parts(self, xs, us, p=None):
+        if p is None:
+            p = self.scalars(xs[0])
+        return rk4_parts(self._ode_parts, p, tuple(xs), tuple(us))
 
 
 def step_with_jac(model: DynamicsModel):

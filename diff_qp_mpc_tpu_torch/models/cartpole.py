@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from diff_qp_mpc_tpu_torch.models.base import (
-    DynamicsModel,
+    Functor,
     Rk4Functor,
     angle_normalize,
     angle_normalize_2pi,
@@ -33,9 +33,6 @@ Tensor = torch.Tensor
 
 class _Cartpole(Rk4Functor):
     """A cartpole whose step is its K2 functor's closed form."""
-
-    def step(self, x: Tensor, u: Tensor) -> Tensor:
-        return torch.stack(self.step_parts(x.unbind(-1), u.unbind(-1)), -1)
 
 
 class Cartpole1L(_Cartpole):
@@ -174,10 +171,15 @@ class Cartpole2L(_Cartpole):
                           angle_normalize(x[..., 2:3]), x[..., 3:]], dim=-1)
 
 
-class CartpoleCosSin(DynamicsModel):
+class CartpoleCosSin(Functor):
     """Five-state (x, ẋ, cosθ, sinθ, θ̇) cartpole: the classic gym physics
     (a half-pole's 4/3 moment factor), Euler steps, θ from upright, the
-    force clipped inside the step."""
+    force clipped inside the step. ``step_parts`` is K2's functor
+    (``csrc/al_fused_cossin.cu``) operation for operation, in the JAX
+    model's order; the Jacobian comes from its forward-mode pass (the
+    clip's tangent ½ at a bound, as JAX's max/min give it)."""
+
+    PARAMS = ("dt", "g", "total", "pml", "mp", "l", "fm")
 
     def __init__(self, dt: float = 0.05, g: float = 9.8,
                  masscart: float = 1.0, masspole: float = 0.1,
@@ -187,23 +189,25 @@ class CartpoleCosSin(DynamicsModel):
         self.length, self.force_mag = length, force_mag
         self.nx, self.nu, self.nq = 5, 1, 3
 
-    def step(self, x: Tensor, u: Tensor) -> Tensor:
-        g, mc, mp, l = self.g, self.masscart, self.masspole, self.length
-        total = mc + mp
-        pml = mp * l
-        f = torch.clamp(u[..., 0], -self.force_mag, self.force_mag)
-        pos, dpos, cos_th, sin_th, dth = x.unbind(-1)
-        th = torch.atan2(sin_th, cos_th)
-        cart_in = (f + pml * dth ** 2 * sin_th) / total
-        th_acc = (g * sin_th - cos_th * cart_in) / (
-            l * (4.0 / 3.0 - mp * cos_th ** 2 / total))
-        x_acc = cart_in - pml * th_acc * cos_th / total
-        pos = pos + self.dt * dpos
-        dpos = dpos + self.dt * x_acc
-        th = th + self.dt * dth
-        dth = dth + self.dt * th_acc
-        return torch.stack([pos, dpos, torch.cos(th), torch.sin(th), dth],
-                           dim=-1)
+    def kernel_params(self):
+        mc, mp, l = self.masscart, self.masspole, self.length
+        return (self.dt, self.g, mc + mp, mp * l, mp, l, self.force_mag)
+
+    def step_parts(self, xs, us, p=None):
+        if p is None:
+            p = self.scalars(xs[0])
+        pos, dpos, cos_th, sin_th, dth = xs
+        f = us[0].clip(-p["fm"], p["fm"])
+        th = sin_th.atan2(cos_th)
+        cart_in = (f + p["pml"] * (dth * dth) * sin_th) / p["total"]
+        th_acc = (p["g"] * sin_th - cos_th * cart_in) / (
+            p["l"] * (4.0 / 3.0 - p["mp"] * (cos_th * cos_th) / p["total"]))
+        x_acc = cart_in - p["pml"] * th_acc * cos_th / p["total"]
+        pos = pos + p["dt"] * dpos
+        dpos = dpos + p["dt"] * x_acc
+        th = th + p["dt"] * dth
+        dth = dth + p["dt"] * th_acc
+        return (pos, dpos, th.cos(), th.sin(), dth)
 
     def action_clip(self, u: Tensor) -> Tensor:
         return torch.clamp(u, -self.force_mag, self.force_mag)

@@ -11,6 +11,8 @@ constant, whose tangent is 0 and costs no operation).
 """
 from __future__ import annotations
 
+import torch
+
 
 def _parts(b):
     return (b.v, b.d) if isinstance(b, Dual) else (b, None)
@@ -65,3 +67,25 @@ class Dual:
 
     def cos(self):
         return Dual(self.v.cos(), -(self.v.sin() * self.d))
+
+    def atan2(self, other):
+        """atan2(self, other), self the sine side as in ``torch.atan2(y,
+        x)``; its tangent as JAX's: ẏ·(x/(y² + x²)) + (ẋ·−y)/(y² + x²)."""
+        bv, bd = _parts(other)
+        den = self.v * self.v + bv * bv
+        d = self.d * (bv / den)
+        if bd is not None:
+            d = d + (bd * -self.v) / den
+        return Dual(self.v.atan2(bv), d)
+
+    def clip(self, lo, hi):
+        """The value clipped to [lo, hi]; the tangent kept inside, halved at
+        a bound and zero beyond, as JAX's maximum-then-minimum gives it."""
+        v = self.v
+        if not isinstance(v, torch.Tensor):
+            # a counting number (benchmarks.flops): the selects cost no
+            # operation
+            return Dual(v.clip(lo, hi), self.d)
+        scale = torch.where((v > lo) & (v < hi), 1.0,
+                            torch.where((v == lo) | (v == hi), 0.5, 0.0))
+        return Dual(v.clip(lo, hi), self.d * scale.to(v.dtype))

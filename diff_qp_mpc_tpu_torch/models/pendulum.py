@@ -1,11 +1,16 @@
-"""2-state pendulum, semi-implicit Euler (port of
-diff_qp_mpc_tpu.models.pendulum.Pendulum): θ from upright, gravity
-destabilizing, θ̈ = (u + m g l sin θ) / (m l²)."""
+"""Pendulums (port of diff_qp_mpc_tpu.models.pendulum): the 2-state
+(θ, θ̇) one, semi-implicit Euler, θ from upright, gravity destabilizing,
+θ̈ = (u + m g l sin θ) / (m l²); and the 3-state (cos θ, sin θ, θ̇) one of
+the legacy qpth encoding."""
 from __future__ import annotations
 
 import torch
 
-from diff_qp_mpc_tpu_torch.models.base import DynamicsModel, angle_normalize
+from diff_qp_mpc_tpu_torch.models.base import (
+    DynamicsModel,
+    Functor,
+    angle_normalize,
+)
 
 Tensor = torch.Tensor
 
@@ -56,3 +61,41 @@ class Pendulum(DynamicsModel):
 
     def state_clip(self, x: Tensor) -> Tensor:
         return torch.cat([angle_normalize(x[..., :1]), x[..., 1:]], dim=-1)
+
+
+class PendulumCosSin(Functor):
+    """3-state (cos θ, sin θ, θ̇) pendulum, the legacy qpth encoding: an
+    Euler step on θ̇ with gravity toward the down equilibrium (θ from
+    upright), the torque clipped inside the step. ``step_parts`` is K2's
+    functor (``csrc/al_fused_cossin.cu``) operation for operation, in the
+    JAX model's order; the Jacobian comes from its forward-mode pass (the
+    clip's tangent ½ at a bound, as JAX's max/min give it)."""
+
+    PARAMS = ("dt", "k_sin", "ml2", "max_torque")
+
+    def __init__(self, dt: float = 0.05, m: float = 1.0, l: float = 1.0,
+                 g: float = 10.0, max_torque: float = 2.0):
+        self.dt = dt
+        self.m = m
+        self.l = l
+        self.g = g
+        self.max_torque = max_torque
+        self.nx = 3
+        self.nu = 1
+        self.nq = 2
+
+    def kernel_params(self):
+        # −3g/(2l), folded as the reference's Python constants are
+        return (self.dt, -3.0 * self.g / (2.0 * self.l),
+                self.m * self.l ** 2, self.max_torque)
+
+    def step_parts(self, xs, us, p=None):
+        if p is None:
+            p = self.scalars(xs[0])
+        cos_th, sin_th, thdot = xs
+        th = sin_th.atan2(cos_th)
+        tau = us[0].clip(-p["max_torque"], p["max_torque"])
+        thddot = p["k_sin"] * -sin_th + 3.0 * tau / p["ml2"]
+        new_thdot = thdot + thddot * p["dt"]
+        new_th = th + new_thdot * p["dt"]
+        return (new_th.cos(), new_th.sin(), new_thdot)

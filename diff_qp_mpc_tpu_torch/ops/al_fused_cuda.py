@@ -18,8 +18,9 @@ a launch whose blocks ask for more shared memory than the device allows.
 ``BUILT`` names the models the kernel is built for, each with its
 source(s), its functor's constants, its horizons per dtype and its layout:
 the pendulum, the integrator with one position (nx 2), ``Cartpole1L``,
-``Cartpole2L`` (the default model and ``.pkg()``; one source per horizon)
-and ``RexQuadrotor``. Another model, shape, horizon or dtype raises; the
+``Cartpole2L`` (the default model and ``.pkg()``; one source per horizon),
+``RexQuadrotor``, and ``PendulumCosSin`` and ``CartpoleCosSin`` (one
+source for both). Another model, shape, horizon or dtype raises; the
 plain version takes any model with ``step`` and ``jac``.
 """
 from __future__ import annotations
@@ -34,8 +35,10 @@ from diff_qp_mpc_tpu_torch.core.types import Bounds, DiagQuadCost, Lambdas
 from diff_qp_mpc_tpu_torch.models import (
     Cartpole1L,
     Cartpole2L,
+    CartpoleCosSin,
     Integrator,
     Pendulum,
+    PendulumCosSin,
     RexQuadrotor,
 )
 from diff_qp_mpc_tpu_torch.ops import almerit, btsolve, newton_al
@@ -98,9 +101,14 @@ BUILT = {
                         lambda m: m.kernel_params(),
                         {torch.float32: (5,), torch.float64: (5,)},
                         layout="warp"),
+    PendulumCosSin: Built("al_fused_cossin", "pendulum_cossin", 3, 1,
+                          lambda m: m.kernel_params(), _T5_10),
+    CartpoleCosSin: Built("al_fused_cossin", "cartpole_cossin", 5, 1,
+                          lambda m: m.kernel_params(), _T5_10),
 }
 #: the kernels' sources, for a build of them all
-LIBRARIES = tuple(lib for b in BUILT.values() for lib in b.libraries)
+LIBRARIES = tuple(dict.fromkeys(lib for b in BUILT.values()
+                                for lib in b.libraries))
 #: lanes per batch element the "group" layout takes (a power of two dividing
 #: a warp); the "warp" layout takes 32
 GROUPS = (1, 2, 4, 8, 16, 32)

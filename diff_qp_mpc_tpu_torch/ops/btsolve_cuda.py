@@ -28,7 +28,7 @@ from diff_qp_mpc_tpu_torch.utils import cuda_build
 Tensor = torch.Tensor
 
 #: block sizes n = nx + nu with a kernel instantiation
-BLOCK_SIZES = (3, 5, 7, 16)
+BLOCK_SIZES = (3, 4, 5, 6, 7, 16)
 #: (n, T) with an on-chip instantiation, per dtype
 ONCHIP_SHAPES = {torch.float32: ((3, 5), (3, 10), (5, 5)),
                  torch.float64: ((3, 5),)}

@@ -7,7 +7,9 @@ Two kernels compute it, one thread per batch element:
 - ``csrc/riccati_horizon.cu`` at the (nx, nu) of ``HORIZON_BUILT`` and any
   T: the stage loop rolled, P and p carried in registers, each stage's K,
   k, P and p in a workspace this wrapper allocates (the MPC expert's
-  planners, T 10 to 120).
+  planners, T 10 to 120; and at T 5 the shapes the unrolled kernel lacks:
+  the quadrotor's (12, 4), CartpoleCosSin's (5, 1), and the slew-augmented
+  models' (5, 1), (7, 1) and (16, 4)).
 
 ``batched_lqr_kkt_solve`` takes the plain PyTorch version
 (``ops.riccati.batched_lqr_kkt_solve``) for CPU tensors. On CUDA tensors
@@ -31,7 +33,7 @@ Tensor = torch.Tensor
 #: (T, nx, nu) with an instantiation of the unrolled kernel
 BUILT = ((5, 2, 1), (5, 3, 1), (5, 3, 2), (5, 4, 1), (5, 6, 1))
 #: (nx, nu) with an instantiation of the horizon kernel (any T)
-HORIZON_BUILT = ((2, 1), (4, 1), (6, 1), (12, 4))
+HORIZON_BUILT = ((2, 1), (4, 1), (5, 1), (6, 1), (7, 1), (12, 4), (16, 4))
 #: launches of the unrolled kernel since the count was last set to 0
 launches = 0
 #: launches of the horizon kernel since the count was last set to 0

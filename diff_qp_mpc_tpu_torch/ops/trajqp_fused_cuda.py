@@ -1,16 +1,23 @@
 """K4: the whole interior-point trajectory-QP solve as one hand-written CUDA
-kernel (``csrc/trajqp_fused.cu``), the port of
-diff_qp_mpc_tpu.ops.trajqp_fused_pallas.
+kernel, the port of diff_qp_mpc_tpu.ops.trajqp_fused_pallas.
+
+Two layouts (``LAYOUTS``). "thread" (``csrc/trajqp_fused.cu``): one thread
+per batch element, its state in registers, at the (T, nx, nu) of
+``BUILT``. "warp" (``csrc/trajqp_fused_warp.cu``): one warp per element,
+its blocks in shared memory, at the quadrotor's shapes ``WARP_BUILT``,
+whose element does not fit one lane. ``layout_for`` picks the layout by
+shape; any other shape raises.
 
 ``fused_trajqp_solve`` takes the plain PyTorch version
-(``fused_trajqp_solve_reference``, same signature and semantics) for CPU
-tensors and launches the kernel for CUDA tensors; it never falls back from
-one to the other. Each kernel launch adds one to ``launches``.
+(``fused_trajqp_solve_reference``, same signature and semantics, any
+shape) for CPU tensors and launches a kernel for CUDA tensors; it never
+falls back from one to the other. Each launch adds one to ``launches``
+(the thread layout) or ``warp_launches`` (the warp layout).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -19,13 +26,26 @@ from diff_qp_mpc_tpu_torch.utils import cuda_build
 
 Tensor = torch.Tensor
 
-#: (T, nx, nu) with a kernel instantiation
-BUILT = ((5, 2, 1), (5, 3, 1), (5, 3, 2), (5, 4, 1), (5, 6, 1))
-#: kernel launches since the count was last set to 0
+#: (T, nx, nu) the thread layout serves
+BUILT = ((5, 2, 1), (5, 3, 1), (5, 3, 2), (5, 4, 1), (5, 5, 1), (5, 6, 1),
+         (5, 7, 1))
+#: (T, nx, nu) the warp layout serves: the quadrotor's ip path and its
+#: slew-augmented shape
+WARP_BUILT = ((5, 12, 4), (5, 16, 4))
+#: (T, nx, nu) the warp layout is instantiated at: WARP_BUILT, and (5, 6, 1)
+#: to time it beside the thread layout (``_launch(..., layout="warp")``)
+WARP_SHAPES = ((5, 6, 1),) + WARP_BUILT
+LAYOUTS = ("thread", "warp")
+#: launches of the thread layout since the count was last set to 0
 launches = 0
+#: launches of the warp layout since the count was last set to 0
+warp_launches = 0
 
-_SYMBOLS = {torch.float32: "trajqp_fused_f32",
-            torch.float64: "trajqp_fused_f64"}
+_SYMBOLS = {"thread": {torch.float32: "trajqp_fused_f32",
+                       torch.float64: "trajqp_fused_f64"},
+            "warp": {torch.float32: "trajqp_fused_warp_f32",
+                     torch.float64: "trajqp_fused_warp_f64"}}
+_LIBRARIES = {"thread": "trajqp_fused", "warp": "trajqp_fused_warp"}
 # the step-length placeholder and the initial best total are float32's max
 # in every dtype, as the reference kernel's are
 _F32_MAX = float(torch.finfo(torch.float32).max)
@@ -52,6 +72,17 @@ def fused_trajqp_solve(C: Tensor, c: Tensor, A: Tensor, B: Tensor, f: Tensor,
     if C.device.type == "cpu":
         return fused_trajqp_solve_reference(*args)
     return _launch(*args)
+
+
+def layout_for(T: int, nx: int, nu: int) -> str:
+    """"thread" or "warp", the layout a CUDA solve of this shape takes;
+    raises where neither serves it."""
+    if (T, nx, nu) in BUILT:
+        return "thread"
+    if (T, nx, nu) in WARP_BUILT:
+        return "warp"
+    raise ValueError(f"no kernel for T={T}, nx={nx}, nu={nu} (built: "
+                     f"(T, nx, nu) in {BUILT + WARP_BUILT})")
 
 
 def fused_trajqp_solve_reference(C: Tensor, c: Tensor, A: Tensor, B: Tensor,
@@ -178,12 +209,10 @@ def _check(C, c, A, B, f, x0, x_init, u_init, u_lo, u_hi):
         raise ValueError("expected B [B,T-1,nx,nu]")
     Bsz, Tm1, nx, nu = B.shape
     T, n = Tm1 + 1, nx + nu
-    if (T, nx, nu) not in BUILT:
-        raise ValueError(f"no kernel for T={T}, nx={nx}, nu={nu} "
-                         f"(built: (T, nx, nu) in {BUILT})")
+    layout_for(T, nx, nu)
     if len(u_lo) != nu or len(u_hi) != nu:
         raise ValueError(f"expected {nu} bounds, got {u_lo}, {u_hi}")
-    if C.dtype not in _SYMBOLS:
+    if C.dtype not in _SYMBOLS["thread"]:
         raise TypeError(f"dtype {C.dtype}: the kernel takes float32 or "
                         "float64")
     shapes = {"C": (C, (Bsz, T, n, n)), "c": (c, (Bsz, T, n)),
@@ -204,18 +233,47 @@ def _check(C, c, A, B, f, x0, x_init, u_init, u_lo, u_hi):
     return Bsz, T, nx, nu
 
 
+def warp_smem(dtype: torch.dtype, T: int, nx: int, nu: int,
+              device: torch.device) -> Dict[str, int]:
+    """Shared memory of the warp layout's (T, nx, nu, dtype) instantiation
+    on ``device``: bytes an element (``per_element``) and a block
+    (``per_block``), and the most a block may ask of the device
+    (``device_max``)."""
+    if (T, nx, nu) not in WARP_SHAPES:
+        raise ValueError(f"the warp layout is not built for T={T}, "
+                         f"nx={nx}, nu={nu}")
+    lib = cuda_build.load(_LIBRARIES["warp"])
+    bits = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    fn = getattr(lib, f"trajqp_fused_warp_smem_{bits}")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = fn(T, nx, nu, *(ctypes.byref(o) for o in out))
+    cuda_build.check(lib, err, "trajqp_fused_warp shared-memory query")
+    return dict(zip(("per_element", "per_block", "device_max"),
+                    (o.value for o in out)))
+
+
 def _launch(C, c, A, B, f, x0, x_init, u_init, u_lo, u_hi, max_iter, reg,
-            min_slack) -> Outputs:
-    global launches
+            min_slack, layout: Optional[str] = None) -> Outputs:
+    """Launch the layout ``layout_for`` picks, or ``layout`` where it is
+    instantiated (measurements time the warp layout at (5, 6, 1))."""
+    global launches, warp_launches
     Bsz, T, nx, nu = _check(C, c, A, B, f, x0, x_init, u_init, u_lo, u_hi)
+    layout = layout or layout_for(T, nx, nu)
+    built = {"thread": BUILT, "warp": WARP_SHAPES}.get(layout, ())
+    if (T, nx, nu) not in built:
+        raise ValueError(f"the {layout} layout is not built for T={T}, "
+                         f"nx={nx}, nu={nu} (layouts: {LAYOUTS})")
     x, lam = torch.empty_like(x_init), torch.empty_like(x_init)
     u, zh, zl, sh, sl = (torch.empty_like(u_init) for _ in range(5))
     res = x0.new_empty(Bsz)
     outs = (x, u, lam, zh, zl, sh, sl, res)
     if Bsz == 0:
         return outs
-    lib = cuda_build.load("trajqp_fused")
-    fn = getattr(lib, _SYMBOLS[C.dtype])
+    lib = cuda_build.load(_LIBRARIES[layout])
+    fn = getattr(lib, _SYMBOLS[layout][C.dtype])
     dblu = ctypes.c_double * nu
     fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 \
         + [ctypes.c_double] * 2 + [ctypes.POINTER(ctypes.c_double)] * 2 \
@@ -226,6 +284,9 @@ def _launch(C, c, A, B, f, x0, x_init, u_init, u_lo, u_hi, max_iter, reg,
         err = fn(*(a.data_ptr() for a in (C, c, A, B, f, x0, x_init, u_init)),
                  *(o.data_ptr() for o in outs), Bsz, T, nx, nu, max_iter,
                  reg, min_slack, dblu(*u_lo), dblu(*u_hi), stream)
-    cuda_build.check(lib, err, "trajqp_fused kernel launch")
-    launches += 1
+    cuda_build.check(lib, err, f"{_LIBRARIES[layout]} kernel launch")
+    if layout == "thread":
+        launches += 1
+    else:
+        warp_launches += 1
     return outs

@@ -49,6 +49,7 @@ _STUB = """#pragma once
 #include <cfloat>
 #include <cmath>
 #include <cstddef>
+using std::atan2;
 using std::cos;
 using std::sin;
 using std::sqrt;

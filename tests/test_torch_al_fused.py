@@ -10,8 +10,9 @@ version differ by up to ~1e-7 for that reason, so float64 is held to 1e-6.
 In float32 the Newton systems amplify rounding (cond ~1e4 at R 0.01);
 float32 alone moves a solve by ~5e-3, so float32 is held to 1e-2.
 
-The other models (the integrator, Cartpole1L, CartpoleCosSin and
-Cartpole2L.pkg), as the JAX package's tests/test_al_fused.py poses them
+The other models (the integrator, Cartpole1L, CartpoleCosSin,
+PendulumCosSin and Cartpole2L.pkg), as the JAX package's
+tests/test_al_fused.py poses them
 (B 8, budget al_iter 1, n_newton 2, n_ls 4): K2's plain version and
 solve_fused against the JAX Pallas kernel in interpret mode, and for
 Cartpole2L.pkg at T 5 (whose kernel takes minutes to trace in interpret
@@ -168,6 +169,7 @@ MODELS = {
                    lambda: tm.Cartpole1L(dt=0.05, max_force=100.0), 3,
                    "kernel"),
     "cossin": (jm.CartpoleCosSin, tm.CartpoleCosSin, 3, "kernel"),
+    "pendulum_cossin": (jm.PendulumCosSin, tm.PendulumCosSin, 3, "kernel"),
     "cartpole2l_pkg": (jm.Cartpole2L.pkg, tm.Cartpole2L.pkg, 5, "scan"),
 }
 MODEL_B = 8
@@ -185,9 +187,9 @@ def _model_problem(name):
         goal[1] = np.pi
     rng = np.random.RandomState(0)
     x0 = goal[:nx] + rng.uniform(-0.3, 0.3, (MODEL_B, nx))
-    if name == "cossin":  # (x, ẋ, cos θ, sin θ, θ̇)
+    if name.endswith("cossin"):  # (…, cos θ, sin θ, θ̇)
         th = rng.uniform(-0.3, 0.3, MODEL_B)
-        x0[:, 2], x0[:, 3] = np.cos(th), np.sin(th)
+        x0[:, nx - 3], x0[:, nx - 2] = np.cos(th), np.sin(th)
     Cd = np.broadcast_to([10.0] * nx + [0.01] * nu,
                          (MODEL_B, T, nx + nu)).copy()
     return dict(x0=x0, Cd=Cd, c=-Cd * goal, T=T, nx=nx, nu=nu)
@@ -373,8 +375,9 @@ def test_cartpole1l_policy_and_train_step_match_jax():
 
 def test_kernel_table_names_the_built_models():
     """Each built model's entry, the folded constants its functor's make()
-    takes, and the refusal of a model without a kernel. On the CPU any
-    model with step and jac takes the plain version."""
+    takes (both CosSin models in one source), and the refusal of a model
+    without a kernel. On the CPU any model with step and jac takes the
+    plain version."""
     cp2, cp2_pkg = tm.Cartpole2L(), tm.Cartpole2L.pkg()
     assert al_fused_cuda.built_for(cp2) is al_fused_cuda.built_for(cp2_pkg)
     built = al_fused_cuda.built_for(cp2_pkg)
@@ -385,9 +388,15 @@ def test_kernel_table_names_the_built_models():
     assert len(built.params(cp2_pkg)) == len(tm.Cartpole2L.PARAMS)
     assert al_fused_cuda.BUILT[Pendulum].params(Pendulum()) == (
         0.05, 10.0, 1.0)
-    for model in (tm.Integrator(nx=4, nu=2), tm.CartpoleCosSin()):
-        with pytest.raises(NotImplementedError):
-            al_fused_cuda.built_for(model)
+    with pytest.raises(NotImplementedError):
+        al_fused_cuda.built_for(tm.Integrator(nx=4, nu=2))
+    for model, name in ((tm.CartpoleCosSin(), "cartpole_cossin"),
+                        (tm.PendulumCosSin(), "pendulum_cossin")):
+        built = al_fused_cuda.built_for(model)
+        assert (built.library, built.name) == ("al_fused_cossin", name)
+        assert built.params(model) == model.kernel_params()
+        assert len(built.params(model)) == len(type(model).PARAMS)
+    assert al_fused_cuda.LIBRARIES.count("al_fused_cossin") == 1
     p = _model_problem("cossin")
     out = al_fused_cuda.fused_al_solve(
         tm.CartpoleCosSin(), t(p["Cd"]), t(p["c"]), t(p["x0"]), (-3.0,),

@@ -61,7 +61,9 @@ def test_btsolve_kernel_matches_plain(cuda, n, dtype, tol):
 
 
 def test_btsolve_kernel_refuses_unbuilt_block_size(cuda):
-    D, O, b = _system(4, 3, 4, torch.float32, cuda)
+    """n 8 has no instantiation (n 4, which this test used before, is the
+    cos/sin pendulum's and is built)."""
+    D, O, b = _system(4, 3, 8, torch.float32, cuda)
     with pytest.raises(ValueError):
         btsolve_cuda.batched_factor_solve(D, O, b)
 
@@ -375,7 +377,11 @@ def test_riccati_kernel_refuses_unbuilt_size(cuda):
 # the MPC expert planners' (T, nx, nu) (learning/datagen.py), which the
 # horizon kernel serves
 HORIZON_SHAPES = [(10, 6, 1), (20, 2, 1), (30, 2, 1), (40, 2, 1),
-                  (60, 4, 1), (80, 4, 1), (120, 6, 1), (20, 12, 4)]
+                  (60, 4, 1), (80, 4, 1), (120, 6, 1), (20, 12, 4),
+                  # T 5 where the unrolled kernel lacks the shape: the
+                  # quadrotor's ip path, CartpoleCosSin's, and the
+                  # slew-augmented cp1, cp2 and quadrotor
+                  (5, 12, 4), (5, 5, 1), (5, 7, 1), (5, 16, 4)]
 
 
 def _horizon_errors(out, args):
@@ -688,10 +694,7 @@ def test_trajqp_layer_backward_is_one_k3_launch(cuda, kernel):
 # The quadrotor's kernel runs one warp per element (the "warp" layout, no
 # group width): its own tests follow.
 def _layout(name):
-    from diff_qp_mpc_tpu_torch.envs import make_env
-
-    env_name, kwargs, _ = k2_models.ENVS[name]
-    return al_fused_cuda.built_for(make_env(env_name, **kwargs).model).layout
+    return al_fused_cuda.built_for(k2_models.model(name)).layout
 
 
 GROUP_MODELS = [name for name in k2_models.ENVS if _layout(name) == "group"]
@@ -716,7 +719,10 @@ def test_al_fused_models_edge_batches(cuda, name, dtype, B, group):
     ref = al_fused_cuda.fused_al_solve_reference(*args, **K2_KW)
     assert all(bool(torch.isfinite(o).all()) for o in out)
     el = k2_models.element_errors(out, ref)
-    assert int((el > k2_models.TOL[dtype]).sum()) == 0
+    # no element outside TOL at these batches but where the model's share
+    # limit allows some (the CosSin models in float32)
+    assert float((el > k2_models.TOL[dtype]).double().mean()) <= \
+        k2_models.share_limit(name, dtype)
     assert _bits_equal(out, al_fused_cuda.fused_al_solve(*args, **K2_KW,
                                                          group=1))
 
@@ -746,8 +752,9 @@ def test_al_fused_models_isolate_elements(cuda, name, B, poisoned, poison):
 
 
 def test_al_fused_refuses_unbuilt_models(cuda):
-    """An unbuilt (model, T, dtype) or model raises; no kernel launches."""
-    from diff_qp_mpc_tpu_torch.models import CartpoleCosSin, Integrator
+    """An unbuilt (model, T, dtype) or model raises; no kernel launches.
+    (CartpoleCosSin, which this test refused before, is built.)"""
+    from diff_qp_mpc_tpu_torch.models import Integrator
 
     before = al_fused_cuda.launches
     for name, T, dtype in (("cartpole1l", 10, torch.float64),
@@ -759,9 +766,8 @@ def test_al_fused_refuses_unbuilt_models(cuda):
         with pytest.raises(ValueError):
             al_fused_cuda.fused_al_solve(*args)
     args = list(k2_models.problem("integrator", 4, 5, torch.float32, 0))
-    for model in (Integrator(nx=4, nu=2), CartpoleCosSin()):
-        with pytest.raises(NotImplementedError):
-            al_fused_cuda.fused_al_solve(model, *args[1:])
+    with pytest.raises(NotImplementedError):
+        al_fused_cuda.fused_al_solve(Integrator(nx=4, nu=2), *args[1:])
     assert al_fused_cuda.launches == before
 
 
@@ -888,7 +894,8 @@ def _slew_problem(B, dtype, device, seed=0):
 def _counts():
     return (btsolve_cuda.launches, al_fused_cuda.launches,
             riccati_cuda.launches, riccati_cuda.horizon_launches,
-            trajqp_fused_cuda.launches, sin_chain_cuda.launches)
+            trajqp_fused_cuda.launches, sin_chain_cuda.launches,
+            trajqp_fused_cuda.warp_launches)
 
 
 def _slew_solve(device, kernel, prev, requires_grad=False):
@@ -976,3 +983,178 @@ def test_sl1qp_launches_no_kernel(cuda):
         outs.append(res.u.detach().cpu())
     assert _counts() == before
     assert float((outs[0] - outs[1]).abs().max()) <= 1e-6
+
+
+# ------------------------------------------- K4 on the warp layout ----
+# One warp per element, its blocks in shared memory (csrc/
+# trajqp_fused_warp.cu), at the quadrotor's ip shape (5, 12, 4) and its slew
+# shape (5, 16, 4). Its sums over the warp run in another order than the
+# plain version's: float64 within 1e-9 of each output's largest entry (or 1),
+# float32 within 5e-3, as chip_smoke.py holds K4.
+K4_WARP_TOL = {torch.float32: 5e-3, torch.float64: 1e-9}
+
+
+@pytest.mark.parametrize("T,nx,nu", trajqp_fused_cuda.WARP_BUILT)
+@pytest.mark.parametrize("dtype", list(K4_WARP_TOL))
+def test_trajqp_fused_warp_matches_plain(cuda, T, nx, nu, dtype):
+    args = _trajqp_problem(64, T, nx, nu, dtype, cuda, seed=nx)
+    box = ((-1.5,) * nu, (1.5,) * nu)
+    before = (trajqp_fused_cuda.launches, trajqp_fused_cuda.warp_launches)
+    out = trajqp_fused_cuda.fused_trajqp_solve(*args, *box)
+    assert (trajqp_fused_cuda.launches, trajqp_fused_cuda.warp_launches) \
+        == (before[0], before[1] + 1)
+    ref = trajqp_fused_cuda.fused_trajqp_solve_reference(*args, *box)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    assert max(_trajqp_errors(out, ref)) <= K4_WARP_TOL[dtype]
+
+
+@pytest.mark.parametrize("B", EDGE_BATCHES)
+@pytest.mark.parametrize("T,nx,nu", trajqp_fused_cuda.WARP_BUILT)
+def test_trajqp_fused_warp_edge_batches(cuda, B, T, nx, nu):
+    args = _trajqp_problem(B, T, nx, nu, torch.float64, cuda, seed=B)
+    box = ((-1.5,) * nu, (1.5,) * nu)
+    out = trajqp_fused_cuda.fused_trajqp_solve(*args, *box)
+    ref = trajqp_fused_cuda.fused_trajqp_solve_reference(*args, *box)
+    assert max(_trajqp_errors(out, ref)) <= K4_WARP_TOL[torch.float64]
+
+
+@pytest.mark.parametrize("B,poisoned", ISOLATION_CASES)
+@pytest.mark.parametrize("poison", [float("nan"), 1e30])
+def test_trajqp_fused_warp_isolates_elements(cuda, B, poisoned, poison):
+    """A non-finite or huge input of some elements leaves every other
+    element's outputs bit-identical (each warp its own shared memory)."""
+    args = _trajqp_problem(B, 5, 12, 4, torch.float32, cuda, seed=12)
+    box = ((0.0,) * 4, (20.0,) * 4)
+    clean = trajqp_fused_cuda.fused_trajqp_solve(*args, *box)
+    bad = [a.clone() for a in args]
+    for a in bad:
+        a[list(poisoned)] = poison
+    dirty = trajqp_fused_cuda.fused_trajqp_solve(*bad, *box)
+    keep = _unpoisoned(B, poisoned, cuda)
+    for c, d in zip(clean, dirty):
+        assert torch.equal(c[keep], d[keep])
+
+
+@pytest.mark.parametrize("dtype", list(K4_WARP_TOL))
+def test_trajqp_fused_warp_layout_at_5_6_1(cuda, dtype):
+    """At (5, 6, 1), where the thread layout serves, the warp layout
+    (forced, as it is timed there) solves the same QPs alike."""
+    args = _trajqp_problem(100, 5, 6, 1, dtype, cuda, seed=6)
+    box = ((-1.5,), (1.5,))
+    thread = trajqp_fused_cuda.fused_trajqp_solve(*args, *box)
+    before = trajqp_fused_cuda.warp_launches
+    warp = trajqp_fused_cuda._launch(*args, *box, 12, 1e-9, 1e-8,
+                                     layout="warp")
+    assert trajqp_fused_cuda.warp_launches == before + 1
+    assert max(_trajqp_errors(warp, thread)) <= K4_WARP_TOL[dtype]
+
+
+def test_trajqp_fused_warp_shared_memory(cuda):
+    """Each instantiation's block fits the device, and an element holds at
+    least its QP's blocks."""
+    for T, nx, nu in trajqp_fused_cuda.WARP_SHAPES:
+        for dtype in K4_WARP_TOL:
+            sm = trajqp_fused_cuda.warp_smem(dtype, T, nx, nu, cuda)
+            n = nx + nu
+            qp = T * n * n + (T - 1) * nx * (nx + nu)
+            assert sm["per_element"] >= qp * dtype.itemsize
+            assert sm["per_block"] <= sm["device_max"]
+
+
+def test_trajqp_fused_refuses_unforced_shapes(cuda):
+    """A shape neither layout serves raises, and the warp layout cannot be
+    forced where it has no instantiation."""
+    args = _trajqp_problem(4, 5, 4, 1, torch.float32, cuda)
+    with pytest.raises(ValueError, match="warp layout"):
+        trajqp_fused_cuda._launch(*args, (-1.0,), (1.0,), 12, 1e-9, 1e-8,
+                                  layout="warp")
+    args = _trajqp_problem(4, 6, 12, 4, torch.float32, cuda)
+    with pytest.raises(ValueError, match="no kernel"):
+        trajqp_fused_cuda.fused_trajqp_solve(*args, (0.0,) * 4, (20.0,) * 4)
+
+
+# ------------------------------- every model on every solver path ----
+# Each model diff_qp_mpc_tpu_torch.models exports, at its env's shape (the
+# CosSin models at their defaults) and T 5, on the AL scan (K1), AL fused
+# (K2), ip scan (K3), ip fused (K4) and slew (K3 / K4 at (5, nx + nu, nu))
+# paths: no path raises, the path launches its kernel, and its output is
+# finite. ROADMAP.md lists what stays unbuilt (Integrator(nx=4, nu=2), K4
+# at T ≠ 5); neither is a model's env shape.
+MODEL_PATHS = ("al-scan", "al-fused", "ip-scan", "ip-fused", "slew-scan",
+               "slew-fused")
+MODEL_NAMES = ("pendulum",) + tuple(k2_models.ENVS)
+
+
+def _model_problem(name, B, device):
+    """(model, Cd, c, x0, u_lo, u_hi, x_init, u_init), float64, T 5:
+    k2_models.problem's, and for the pendulum its env's."""
+    if name != "pendulum":
+        return k2_models.problem(name, B, 5, torch.float64, seed=0,
+                                 device=device)
+    rng = np.random.RandomState(0)
+    to = lambda a: torch.tensor(a, dtype=torch.float64, device=device)
+    x0 = rng.uniform(-0.3, 0.3, (B, 2))
+    Cd = np.broadcast_to([10.0, 1.0, 0.01], (B, 5, 3))
+    return (Pendulum(), to(Cd), to(np.zeros((B, 5, 3))), to(x0), (-3.0,),
+            (3.0,), to(np.repeat(x0[:, None], 5, 1)), to(np.zeros((B, 5, 1))))
+
+
+def _model_path(name, path, device):
+    """Run ``path`` on ``name``'s problem; returns (u, the kernel ids it
+    should launch)."""
+    from diff_qp_mpc_tpu_torch.solvers import sqp_mpc, trajqp
+
+    model, Cd, c, x0, lo, hi, xi, ui = _model_problem(name, 8, device)
+    B, T, nx, nu = Cd.shape[0], 5, model.nx, model.nu
+    cost = DiagQuadCost(Cd=Cd, c=c)
+    kw = dict(dtype=torch.float64, device=device)
+    tensor_box = Bounds(u_lo=torch.tensor(lo, **kw),
+                        u_hi=torch.tensor(hi, **kw))
+    if path == "al-scan":
+        st = ALState.init(B, T, nx, nu, dtype=torch.float64, device=device)
+        return al_mpc.solve(model, cost, x0, tensor_box, st, al_mpc.ALConfig(),
+                            x_init=xi, u_init=ui)[1], ("K1",)
+    if path == "al-fused":
+        return al_mpc.solve_fused(model, cost, x0, Bounds(u_lo=lo, u_hi=hi),
+                                  al_mpc.ALConfig(), x_init=xi,
+                                  u_init=ui)[1], ("K2",)
+    kernel = path.split("-")[1]
+    slew = path.startswith("slew")
+    shape = (T, nx + nu if slew else nx, nu)
+    if kernel == "scan":
+        kid = ("K3" if riccati_cuda.kernel_for(*shape) == "riccati"
+               else "K3h")
+    else:
+        kid = ("K4" if trajqp_fused_cuda.layout_for(*shape) == "thread"
+               else "K4w")
+    res = sqp_mpc.solve(
+        model, cost, x0, Bounds(u_lo=lo, u_hi=hi) if kernel == "fused"
+        else tensor_box, ui, xi,
+        sqp_mpc.SQPConfig(qp_iter=1, qp=trajqp.TrajQPConfig(
+            kernel=kernel, max_iter=12, reg=1e-9)),
+        slew_rate_penalty=50.0 if slew else None)
+    return res.u, (kid,)
+
+
+_KERNEL_INDEX = {"K1": 0, "K2": 1, "K3": 2, "K3h": 3, "K4": 4, "K4w": 6}
+
+
+def test_model_paths_cover_every_exported_model():
+    from diff_qp_mpc_tpu_torch import models
+
+    exported = {v for v in vars(models).values() if isinstance(v, type)
+                and issubclass(v, models.DynamicsModel)} - {
+        models.DynamicsModel, models.Functor, models.Rk4Functor}
+    walked = {type(_model_problem(n, 2, "cpu")[0]) for n in MODEL_NAMES}
+    assert walked == exported
+
+
+@pytest.mark.parametrize("path", MODEL_PATHS)
+@pytest.mark.parametrize("name", MODEL_NAMES)
+def test_every_model_runs_every_solver_path(cuda, name, path):
+    before = _counts()
+    u, kids = _model_path(name, path, cuda)
+    after = _counts()
+    assert bool(torch.isfinite(u).all())
+    for kid in kids:
+        assert after[_KERNEL_INDEX[kid]] > before[_KERNEL_INDEX[kid]], kid

@@ -1,14 +1,15 @@
-"""Kernel K2's CUDA sources for the integrator, the cartpoles and the
-quadrotor, built for the host with g++ (``utils.k2_host``: one thread per
-element, no multiply-add contraction; the quadrotor's functor in the
-one-lane kernel), against the plain PyTorch version on the CPU: the
-kernel's own arithmetic, checked without a card.
+"""Kernel K2's CUDA sources for the integrator, the cartpoles, the
+quadrotor and the CosSin models, built for the host with g++
+(``utils.k2_host``: one thread per element, no multiply-add contraction;
+the quadrotor's functor in the one-lane kernel), against the plain
+PyTorch version on the CPU: the kernel's own arithmetic, checked without a
+card.
 
 Tolerances as K2's card checks hold it (``k2_models``): each element's
-error on xu within TOL (float32: but for at most SHARE_LIMIT of the
-elements), the median within MEDIAN_LIMIT (the two implementations sum in
-other orders, and the line search's first minimum meets near-ties), at
-the card checks' B 256 and seed."""
+error on xu within TOL (float32: but for at most the model's
+``share_limit`` of the elements), the median within MEDIAN_LIMIT (the two
+implementations sum in other orders, and the line search's first minimum
+meets near-ties), at the card checks' B 256 and seed."""
 import pytest
 import torch
 
@@ -27,7 +28,7 @@ def test_host_build_matches_plain(name, T, dtype):
     assert all(bool(torch.isfinite(o).all()) for o in host)
     el = k2_models.element_errors(host, ref)
     assert float((el > k2_models.TOL[dtype]).double().mean()) <= \
-        k2_models.SHARE_LIMIT[dtype]
+        k2_models.share_limit(name, dtype)
     assert float(el.median()) <= k2_models.MEDIAN_LIMIT[dtype]
 
 

@@ -146,7 +146,7 @@ def test_step_matches_jax(name, dtype):
 @pytest.mark.parametrize("name", list(MODELS))
 def test_jac_matches_jax(name, dtype):
     """The port's Jacobians (the closed form's forward-mode pass, the
-    integrator's exact form, CosSin's torch.func path) vs jax.jacfwd."""
+    integrator's exact form, CosSin's forward-mode pass) vs jax.jacfwd."""
     refs = _jax_refs(name)
     xn_ref, (A_ref, B_ref) = refs["jac"]
     xn, (A, B) = MODELS[name][1]().jac(t(refs["x"], dtype),

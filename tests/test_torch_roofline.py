@@ -65,15 +65,20 @@ def test_k2_bound_grows_with_the_sin_term():
 @pytest.mark.parametrize("model", flops.K2_MODELS)
 def test_k2_counts_per_model(model):
     """K2's counts per model: the pendulum's PR 3 hand count (sins: one per
-    step, one per Jacobian), the integrator's, and the cartpoles' and the
-    quadrotor's counted from their functors' plain versions (pinned: a
+    step, one per Jacobian), the integrator's, and the cartpoles', the
+    quadrotor's and the CosSin models' counted from their functors' plain
+    versions (pinned: a
     change to a functor's arithmetic must show here and in the bound). The
     sin term keeps its meaning: k2_ops_with_sin at one FP32 instruction a
     sin adds the sins."""
     pinned = {"pendulum": (8, 9, 1, 1), "integrator": (4, 1, 0, 0),
               "cartpole1l": (124, 855, 8, 80),
               "cartpole2l": (342, 3262, 24, 336),
-              "quadrotor": (1076, 34448, 0, 0)}
+              "quadrotor": (1076, 34448, 0, 0),
+              # atan2, cos and sin a step, each dual column 5 (atan2 1,
+              # cos and sin 2 each)
+              "pendulum_cossin": (11, 108, 3, 20),
+              "cartpole_cossin": (29, 306, 3, 30)}
     assert flops._k2_model_counts(model) == pinned[model]
     args = (10, 4, 1, 4, 4, 20)
     assert flops.k2_ops_with_sin(*args, sin_fp32_instr=1, model=model) == \
