@@ -79,13 +79,15 @@ Phases, each of which raises on failure (there is no CPU fallback):
      step.
  13. K1 at the shapes the new models' paths give it, (n, T) = (5, 5),
      (5, 10), (7, 5), (7, 10), (16, 5), (4, 5) and (6, 5), B 8 (the
-     float64 gradient check's), 64 (a closed loop's) and 256 (training's),
-     float32 and float64, each layout against its plain version within
-     K1_TOL and timed (the plain version and the dense library solve at B
-     64 too); and K1 in float32 on cp1's own AL Newton systems (T 10, B 256,
-     ρ 1 … 1e6) and the quadrotor's (T 5, B 128, ρ 1 … 1e4) against
-     float64, within K1_AL_RATIO of the plain float32 version's error, as
-     phase 10 holds the pendulum's;
+     float64 gradient check's), 64 (a closed loop's) and 256 (training's;
+     n 16 also at its training's 128), float32 and float64, each layout
+     against its plain version within K1_TOL and timed (at n 16 the warp
+     layout in both compute types beside the streaming kernel; the plain
+     version and the dense library solve at B 64 too); and K1 in float32 on
+     cp1's own AL Newton systems (T 10, B 256, ρ 1 … 1e6) and the
+     quadrotor's (T 5, B 128, ρ 1 … 1e4) against float64, within
+     K1_AL_RATIO of the plain float32 version's error, as phase 10 holds
+     the pendulum's;
  14. K2 on the integrator, the cartpoles, the quadrotor and the CosSin
      models (benchmarks/k2_models.py): every (model, T, dtype) it is built
      for against its plain version on seeded tracking problems of the
@@ -96,9 +98,10 @@ Phases, each of which raises on failure (there is no CPU fallback):
      share_limit; the quadrotor: of the plain version's float64 result, but
      for at most F32_SHARE_VS_F64); float64: every element within 3e-6, those
      beyond 1e-6 printed beside the plain version's own change on them
-     under one ulp of the inputs; every group width bit-identical to G 1
-     (the quadrotor's kernel has one: a warp per element, its blocks in
-     shared memory), timed in float32 at B 64 (the quadrotor's also at
+     under one ulp of the inputs; on the group layout (the integrator and
+     the CosSin models) every group width bit-identical to G 1 (the
+     cartpoles and the quadrotor run a warp per element with its blocks in
+     shared memory); timed in float32 at B 64 (the quadrotor's also at
      128) with its bound;
  15. one policy forward in float64 on the card against the CPU on the new
      models' paths: cp1 on the scan path (its checkpoint, T 10) and the
@@ -246,7 +249,10 @@ the float32 peak (diff_qp_mpc_tpu_torch/benchmarks/flops.py); each sin or
 cos counts as the 15 FP32 instructions of its fast path (SINF_FP32_INSTR).
 It prints one JSON line per kernel summary (the quadrotor's K2, and K3 and
 K4 at the slew-augmented pendulum's (5, 3, 1), on rows of their own beside
-the others), the card's name and power limit, and as its
+the others; K1's warp layout at n 16, its launches those of the warp
+layout's count, ``layout_counts``, and K2 on each cartpole on rows of
+their own, each with its launches in the main-path runs that take it and
+required to be positive), the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}.
 """
 import dataclasses
@@ -490,6 +496,11 @@ GRAD_TOLS = {"cp1-fused-T5": GRAD_TOL, "integrator-scan": GRAD_TOL,
 K1_MODEL_SHAPES = ((5, 5), (5, 10), (7, 5), (7, 10), (16, 5), (4, 5),
                    (6, 5))
 K1_MODEL_BATCHES = (GRAD_B, EPISODES, 256)
+# the batches per shape where not K1_MODEL_BATCHES: the quadrotor's n 16
+# also at its training's B 128 (the warp layout against the streaming one)
+K1_MODEL_BATCHES_BY_SHAPE = {(16, 5): kernel_layouts.K1_WARP_BATCHES}
+# the batches beside EPISODES at which the library solve is timed per shape
+K1_LIBRARY_BATCHES = {(16, 5): (128,)}
 # the runs that launch K1 at each shape, (n, T): [(run, kind)]
 K1_SHAPE_RUNS = {(5, 10): [("cp1-scan", "closed loop"),
                            ("cp1-fused", "training")],
@@ -1245,10 +1256,25 @@ def kernel_wrappers():
             "K5": (sin_chain_cuda, "launches")}
 
 
+def layout_counts():
+    """The count of K1's warp layout within K1's count (K1w, n 16, at the
+    horizons whose block fits the card's shared memory)."""
+    from diff_qp_mpc_tpu_torch.ops import btsolve_cuda
+
+    return {"K1w": (btsolve_cuda, "warp_launches")}
+
+
 def reset_launches():
-    """Every kernel's launch count set to 0."""
-    for module, count in kernel_wrappers().values():
+    """Every kernel's launch count, and every layout's, set to 0."""
+    for module, count in (*kernel_wrappers().values(),
+                          *layout_counts().values()):
         setattr(module, count, 0)
+
+
+def read_layout_launches():
+    """The warp layout's launch count, by id (see layout_counts)."""
+    return {k: getattr(module, count)
+            for k, (module, count) in layout_counts().items()}
 
 
 def read_launches():
@@ -1272,7 +1298,8 @@ def closed_loops(runs, tag):
         metrics = evaluate.main(argv)
         counts = read_launches()
         out[name] = dict(metrics, launches=counts, launches_per_step=(
-            counts[kid] / metrics["steps_run"]))
+            counts[kid] / metrics["steps_run"]),
+            layout_launches=read_layout_launches())
         log(tag, name, json.dumps(out[name]))
         others = {k: v for k, v in counts.items() if k != kid and v}
         if counts[kid] <= 0 or others or \
@@ -1338,11 +1365,14 @@ def phase_k1_models():
     Newton systems (raises above K1_AL_RATIO)."""
     rows = {}
     for n, T_ in K1_MODEL_SHAPES:
-        rows[n, T_] = kernel_layouts.k1_layouts(K1_MODEL_BATCHES, n=n,
-                                                T_=T_)
+        rows[n, T_] = kernel_layouts.k1_layouts(
+            K1_MODEL_BATCHES_BY_SHAPE.get((n, T_), K1_MODEL_BATCHES), n=n,
+            T_=T_)
         for r in rows[n, T_]:
             log("K1 model shapes", json.dumps(r))
         rows["library", n, T_] = k1_library_ms(EPISODES, n, T_)
+        for B in K1_LIBRARY_BATCHES.get((n, T_), ()):
+            rows["library", n, T_, B] = k1_library_ms(B, n, T_)
         rows["plain", n, T_] = k1_plain_ms(EPISODES, n, T_)
         log("K1 model shapes library", json.dumps(dict(
             B=EPISODES, n=n, T=T_, library_ms=rows["library", n, T_],
@@ -1397,11 +1427,19 @@ def k1_by_shape(k1_models, model_runs, training):
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      launches=0, **{k: max(x[k] for x in rows)
                                     for k in r if k.startswith("max_rel")})
+        if len(r["ms"]) > 1:
+            entry["ms_by_layout"] = {x["B"]: x["ms"] for x in rows}
         for run, kind in K1_SHAPE_RUNS.get((n, T_), []):
-            got = (model_runs[run]["launches"]["K1"] if kind == "closed loop"
-                   else training[run]["launches_total"]["K1"])
+            ran = model_runs[run] if kind == "closed loop" else training[run]
+            got = ran["launches"]["K1"] if kind == "closed loop" \
+                else ran["launches_total"]["K1"]
             entry["launches"] += got
             entry[f"launches_{run}"] = got
+            if lay == "warp":
+                entry.setdefault("launches_warp", 0)
+                entry["launches_warp"] += (
+                    ran["layout_launches"] if kind == "closed loop"
+                    else ran["layout_launches_total"])["K1w"]
         out[f"n{n} T{T_}"] = entry
     # the integrator's scan path takes the pendulum's shape, held by the
     # main row
@@ -1492,6 +1530,7 @@ def train_run(path, argv, traced_steps):
 
     def on_step(rec):
         rec["launches"] = read_launches()
+        rec["layout_launches"] = read_layout_launches()
         rec["guard_drops"] = int(al_mpc.guard_drops)
         records.append(rec)
         if len(records) == iters - traced_steps:
@@ -1851,6 +1890,9 @@ def phase_model_train(path, meta_path, pretrain, deqmpc, data=None,
                guard_drops_per_step=[r["guard_drops"] for r in records],
                launches_total={k: sum(r["launches"][k] for r in records)
                                for k in records[0]["launches"]},
+               layout_launches_total={
+                   k: sum(r["layout_launches"][k] for r in records)
+                   for k in records[0]["layout_launches"]},
                grad_norm_max=max(r["grad_norm"] for r in records),
                seconds=time.perf_counter() - t0)
     row.update(trace)
@@ -3685,6 +3727,90 @@ def k2_by_model(k2_models, model_runs, training):
     return out
 
 
+# the kernels line's rows of K2 on the cartpoles, which run the warp layout:
+# (model, the runs that launch it, its closed loops' horizons)
+K2_WARP_ROWS = (("cartpole1l", ("cp1-fused",), (10,)),
+                ("cartpole2l", ("cp2-v7-fused", "cp2-v8-fused"), (5, 10)))
+
+
+def warp_kernel_rows(k1_models, k2_models, model_runs, training):
+    """The kernels line's rows of K1's warp layout at n 16 and K2 on each
+    cartpole (the warp layout): float32 ms at B 64, plain, library (K1) and
+    bound, the largest errors of their checks, and their launches in the
+    main-path runs that take them (K1's warp layout's own count; raises
+    where a row's kernel was launched no time there)."""
+    from diff_qp_mpc_tpu_torch.benchmarks import k2_models as k2_models_mod
+    from diff_qp_mpc_tpu_torch.ops import btsolve_cuda
+
+    rows = []
+    k1 = {r["B"]: r for r in k1_models[16, 5]}
+    r64 = k1[EPISODES]
+    runs = {run: model_runs[run]["layout_launches"]["K1w"]
+            for run, kind in K1_SHAPE_RUNS[16, 5] if kind == "closed loop"}
+    runs.update({f"{run} training": training[run][
+        "layout_launches_total"]["K1w"]
+        for run, kind in K1_SHAPE_RUNS[16, 5] if kind == "training"})
+    f32, f64 = "torch.float32", "torch.float64"
+    rows.append({
+        "name": "btsolve n16 (K1, one warp per element)", "route": "cuda",
+        "source": "diff_qp_mpc_tpu_torch/csrc/btsolve.cu",
+        "replaces": "diff_qp_mpc_tpu/ops/btsolve_pallas.py:203",
+        "launches": sum(runs.values()), "launches_by_run": runs,
+        "max_abs_err": max(r[f"max_abs_err_warp_{f32}"] for r in k1.values()),
+        "max_rel_err": max(r[f"max_rel_err_warp_{f32}"] for r in k1.values()),
+        "max_rel_err_float64": max(r[f"max_rel_err_warp_{f64}"]
+                                   for r in k1.values()),
+        "tolerance_rel": K1_TOL[torch.float32],
+        "compute": str(btsolve_cuda.WARP_COMPUTE[torch.float32]),
+        "ms": r64["ms"]["warp"],
+        "ms_by_batch": {B: r["ms"] for B, r in k1.items()},
+        "plain_ms": k1_models["plain", 16, 5],
+        "bound_ms": r64["bound_ms"], "bound_by": r64["bound_by"],
+        "library_ms": k1_models["library", 16, 5],
+        "library_ms_by_batch": {B: k1_models["library", 16, 5, B]
+                                for B in K1_LIBRARY_BATCHES[16, 5]},
+        "shared_memory": r64["warp_shared_memory"],
+        "shape": f"B={EPISODES} T=5 n=16 float32"})
+    for name, run_names, horizons in K2_WARP_ROWS:
+        runs = {run: model_runs[run]["launches"]["K2"] for run in run_names}
+        runs.update({f"{run} training": training[run]["launches_total"][
+            "K2"] for run in run_names if run in training})
+        timed = {T_: next(r for r in k2_models[f"{name} T{T_} float32"]
+                          if "ms" in r and r["B"] == EPISODES)
+                 for T_ in horizons}
+        checked = {(T_, dt): next(
+            r for r in k2_models[f"{name} T{T_} {dt}"]
+            if "ms" not in r and r["B"] == EPISODES)
+            for T_, dt in [(T_, "float32") for T_ in horizons]
+            + [(5, "float64")]}
+        main_t = horizons[-1]
+        t = timed[main_t]
+        rows.append({
+            "name": f"al_fused {name} (K2, one warp per element)",
+            "route": "cuda",
+            "source": f"diff_qp_mpc_tpu_torch/csrc/al_fused_{name}.cu",
+            "replaces": "diff_qp_mpc_tpu/ops/al_fused_pallas.py:340",
+            "launches": sum(runs.values()), "launches_by_run": runs,
+            "max_abs_err": checked[main_t, "float32"]["max_abs_err_xu"],
+            "share_over_tolerance": max(
+                v["share_over_tol"] for (_, dt), v in checked.items()
+                if dt == "float32"),
+            "max_abs_err_float64": checked[5, "float64"]["max_abs_err_xu"],
+            "tolerance": {str(dt)[6:]: tol
+                          for dt, tol in k2_models_mod.TOL.items()},
+            "ms": t["ms"],
+            "ms_by_horizon": {T_: r["ms"] for T_, r in timed.items()},
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "shared_memory": t["shared_memory"],
+            "shape": f"B={EPISODES} T={main_t} float32"})
+    for row in rows:
+        if row["launches"] <= 0:
+            raise RuntimeError(f"{row['name']}: launched no time on the "
+                               f"main path: {row['launches_by_run']}")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3888,6 +4014,8 @@ def main():
         "shared_memory": next(r["shared_memory"] for r in k2_models[
             "quadrotor T5 float32"] if "shared_memory" in r),
         "shape": f"B={main_b} T=5 nx=12 nu=4 float32"})
+    kernels.extend(warp_kernel_rows(k1_models, k2_models, model_runs,
+                                    training))
     kernels.append({
         "name": "sin_chain (K5)", "route": "cuda",
         "source": "diff_qp_mpc_tpu_torch/csrc/sin_chain.cu",

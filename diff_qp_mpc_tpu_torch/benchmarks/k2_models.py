@@ -17,7 +17,8 @@ model's own env (``problem``):
     quadrotor in float32, the share of elements more than TOL from the
     plain version's float64 result against ``F32_SHARE_VS_F64``;
   - on the "group" layout, the outputs at every group width G
-    bit-identical to G 1 (the quadrotor's "warp" layout has one width);
+    bit-identical to G 1 (the "warp" layout of the quadrotor and the
+    cartpoles has one width);
   - in float32 at B 64: device ms per launch, the plain version's ms, and
     the bound from ``flops.k2_ops_with_sin`` for the model.
 A failed check raises. Without a card it raises. ``chip_smoke.py`` runs

@@ -14,10 +14,14 @@ pendulum, n 3):
     (t₂₀ − t₁)/19 is one candidate's latency;
   - K1 in each layout of ``btsolve_cuda.LAYOUTS``: device time, error
     against its plain version (``K1_TOL``), bound and share of it; also at
-    B 64 and 4096 at the other shapes with an on-chip instantiation;
+    B 64 and 4096 at the other shapes with an on-chip instantiation, and at
+    the quadrotor's n 16 (B 8, 64, 128, 256: the streaming layout and the
+    warp layout in each compute type, ``k1_layouts``);
   - K1 on the AL path's own Newton systems (``k1_al_systems``): float32
     against the float64 solution at ρ 1 … 1e6, within ``K1_AL_RATIO`` of
-    the plain float32 version's own error.
+    the plain float32 version's own error; and the warp layout's float32
+    computation on the quadrotor's systems over ``K1_RULE_SEEDS`` draws
+    (``k1_compute_rule``), the check that sets its compute type.
 A mismatch, or an error above tolerance, raises. Without a card it raises.
 ``chip_smoke.py`` runs the same K1 and K2 checks.
 """
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 from pathlib import Path
 
 import numpy as np
@@ -64,6 +69,12 @@ K1_AL_RHOS = (1.0, 1e2, 1e4, 1e6)
 #: the quadrotor's, up to its checkpoint's rho_max
 K1_QUAD_AL_RHOS = (1.0, 1e2, 1e4)
 K1_AL_RATIO = 2.0
+#: the draws (seeds of ``al_systems``) over which the warp layout's float32
+#: computation must meet K1_AL_RATIO on the quadrotor's systems (B 128, ρ
+#: up to K1_QUAD_AL_RHOS) to be the compute type of float32 inputs
+K1_RULE_SEEDS = tuple(range(8))
+#: the batches K1 is timed at on the quadrotor's block size
+K1_WARP_BATCHES = (8, 64, 128, 256)
 # K3 in float32 over the expert planners' horizons (T ≥ 10) and on the
 # IPM's own Riccati systems, and K4 in float32 on the cp2 ip checkpoint's
 # QPs (terminal P entries to 2.5e5): the recursion's rounding grows with T
@@ -221,39 +232,74 @@ def k2_ls_split(B=64, budget=AL_BUDGET) -> dict:
 
 
 # ---------------------------------------------------------------- K1 ----
+def _k1_variants(dtype, n, T_):
+    """(name, layout, compute) of every K1 variant built at (dtype, n, T_):
+    each layout, and the warp layout once in each compute type (named
+    "warp" for ``WARP_COMPUTE``'s and "warp_<type>" for the other)."""
+    out = []
+    for lay in btsolve_cuda.LAYOUTS:
+        if lay == "onchip" and (n, T_) not in btsolve_cuda.ONCHIP_SHAPES[
+                dtype]:
+            continue
+        if lay == "warp":
+            if n not in btsolve_cuda.WARP_SIZES:
+                continue
+            rule = btsolve_cuda.WARP_COMPUTE[dtype]
+            out += [("warp" if c == rule else f"warp_{str(c)[6:]}", lay, c)
+                    for c in (torch.float32, torch.float64)
+                    if not (c == torch.float32 and dtype == torch.float64)]
+            continue
+        out.append((lay, lay, None))
+    return out
+
+
+def _k1_solve(D, O, b, reg, layout=None, compute=None):
+    """K1 on the card in ``layout`` (None: the rule's) computing in
+    ``compute`` on the warp layout (None: ``WARP_COMPUTE``'s), through the
+    wrapper's launch: the public entry point leaves the compute type to
+    the rule, which this module's checks set."""
+    return btsolve_cuda._launch(D, O, b, float(reg), layout, compute)
+
+
 def k1_layouts(batches=BATCHES, reg=AL_BUDGET["reg"], n=N, T_=T) -> list:
     """K1 in each layout built at (n, T_) (the main path's (3, 5) by
-    default): device ms per launch (float32), error against the plain
-    version in float32 and float64 (raises above K1_TOL), the bytes bound
-    and its share."""
+    default; at a warp block size the warp layout in each compute type):
+    device ms per launch (float32), error against the plain version in
+    float32 and float64 (raises above K1_TOL), the bytes bound and its
+    share."""
     rows = []
     for B in batches:
         row = dict(B=B, n=n, T=T_,
                    chosen_layout=btsolve_cuda.choose_layout(torch.float32,
                                                             n, T_))
         for dtype in (torch.float32, torch.float64):
-            layouts = [lay for lay in btsolve_cuda.LAYOUTS if lay == "stream"
-                       or (n, T_) in btsolve_cuda.ONCHIP_SHAPES[dtype]]
+            variants = _k1_variants(dtype, n, T_)
             D, O, b = random_bt_spd(B, T_, n, dtype, seed=B)
             ref = btsolve.batched_factor_solve(D, O, b, reg)
             scale = float(ref.abs().max())
-            for layout in layouts:
-                x = btsolve_cuda.batched_factor_solve(D, O, b, reg,
-                                                      layout=layout)
-                err = float((x - ref).abs().max()) / scale
-                row[f"max_rel_err_{layout}_{dtype}"] = err
+            for name, lay, comp in variants:
+                x = _k1_solve(D, O, b, reg, lay, comp)
+                abs_err = float((x - ref).abs().max())
+                err = abs_err / scale
+                row[f"max_rel_err_{name}_{dtype}"] = err
+                row[f"max_abs_err_{name}_{dtype}"] = abs_err
                 if not (bool(torch.isfinite(x).all())
                         and err <= K1_TOL[dtype]):
-                    raise RuntimeError(f"K1 ({layout}) disagrees with its "
+                    raise RuntimeError(f"K1 ({name}) disagrees with its "
                                        f"plain version: {row}")
             if dtype == torch.float32:
-                fns = [lambda lay=lay: btsolve_cuda.batched_factor_solve(
-                    D, O, b, reg, layout=lay) for lay in layouts]
-                row["ms"] = dict(zip(layouts, _device_ms(fns, B, "btsolve")))
+                fns = [lambda lay=lay, comp=comp:
+                       _k1_solve(D, O, b, reg, lay, comp)
+                       for _, lay, comp in variants]
+                row["ms"] = dict(zip([v[0] for v in variants],
+                                     _device_ms(fns, B, "btsolve")))
                 row["bound_ms"], row["bound_by"] = bound(
                     B * k1_bytes(T_, n), B * k1_ops(T_, n))
                 row["bound_share"] = {
                     lay: row["bound_ms"] / m for lay, m in row["ms"].items()}
+                if n in btsolve_cuda.WARP_SIZES:
+                    row["warp_shared_memory"] = btsolve_cuda.warp_smem(
+                        dtype, T_, n, D.device)
         rows.append(row)
     return rows
 
@@ -303,10 +349,26 @@ def al_systems(B, rho, dtype=torch.float64, seed=0, device="cuda",
     return D.contiguous(), O.contiguous(), g.contiguous(), ct
 
 
+def _k1_al_row(D, O, rhs, reg, compute=None) -> dict:
+    """K1's float32 solve of D, O, rhs (float64 systems, rounded to
+    float32) and the plain float32 version's, each error the max over the
+    batch relative to the float64 solution's largest entry, and the
+    ratio."""
+    x64 = btsolve.batched_factor_solve(D, O, rhs, reg)
+    f32 = [a.float() for a in (D, O, rhs)]
+    scale = float(x64.abs().max())
+    err = lambda x: float((x.double() - x64).abs().max()) / scale
+    row = dict(max_rel_err_kernel=err(_k1_solve(*f32, reg, None, compute)),
+               max_rel_err_plain=err(btsolve.batched_factor_solve(*f32, reg)))
+    row["ratio"] = row["max_rel_err_kernel"] / max(
+        row["max_rel_err_plain"], 1e-300)
+    return row
+
+
 def k1_al_systems(B=4096, rhos=K1_AL_RHOS, reg=AL_BUDGET["reg"],
-                  model_name=None, T_=T) -> list:
-    """K1 in float32 on the AL path's systems (``al_systems``, the
-    pendulum's or ``model_name``'s at ``T_``), for the Newton step's
+                  model_name=None, T_=T, seed=0) -> list:
+    """K1 in float32 on the AL path's systems (``al_systems`` at ``seed``,
+    the pendulum's or ``model_name``'s at ``T_``), for the Newton step's
     right-hand side (the gradient) and the backward's (a cotangent): its
     error and the plain float32 version's, each the max over the batch
     relative to the float64 solution's largest entry. Raises where K1's
@@ -314,21 +376,13 @@ def k1_al_systems(B=4096, rhos=K1_AL_RHOS, reg=AL_BUDGET["reg"],
     finite."""
     rows = []
     for rho in rhos:
-        D, O, g, ct = al_systems(B, rho, model_name=model_name, T_=T_)
+        D, O, g, ct = al_systems(B, rho, seed=seed, model_name=model_name,
+                                 T_=T_)
         for rhs_name, rhs in (("gradient", g), ("cotangent", ct)):
-            x64 = btsolve.batched_factor_solve(D, O, rhs, reg)
-            f32 = [a.float() for a in (D, O, rhs)]
-            scale = float(x64.abs().max())
-            err = lambda x: float((x.double() - x64).abs().max()) / scale
             row = dict(model=model_name or "pendulum", n=D.shape[-1],
                        T=D.shape[1], B=B, rho=rho, reg=reg, rhs=rhs_name,
-                       max_rel_err_kernel=err(
-                           btsolve_cuda.batched_factor_solve(*f32, reg)),
-                       max_rel_err_plain=err(
-                           btsolve.batched_factor_solve(*f32, reg)),
+                       seed=seed, **_k1_al_row(D, O, rhs, reg),
                        ratio_limit=K1_AL_RATIO)
-            row["ratio"] = row["max_rel_err_kernel"] / max(
-                row["max_rel_err_plain"], 1e-300)
             rows.append(row)
             if not row["max_rel_err_kernel"] <= (
                     K1_AL_RATIO * row["max_rel_err_plain"]):
@@ -336,10 +390,43 @@ def k1_al_systems(B=4096, rhos=K1_AL_RHOS, reg=AL_BUDGET["reg"],
     return rows
 
 
+def k1_compute_rule(seeds=K1_RULE_SEEDS, B=128, reg=AL_BUDGET["reg"]) -> dict:
+    """The check that sets the warp layout's compute type for float32
+    inputs: K1's warp layout at n 16 computing in float32 and in float64 on
+    the quadrotor's AL systems (``al_systems`` at B, ρ up to
+    K1_QUAD_AL_RHOS, the gradient and a cotangent) drawn at each of
+    ``seeds``: per compute type each draw's ratio to the plain float32
+    version's error, the worst, and whether every draw meets K1_AL_RATIO.
+    Raises on a non-finite solve."""
+    rows = []
+    for seed in seeds:
+        for rho in K1_QUAD_AL_RHOS:
+            D, O, g, ct = al_systems(B, rho, seed=seed,
+                                     model_name="quadrotor", T_=T)
+            for rhs_name, rhs in (("gradient", g), ("cotangent", ct)):
+                for comp in (torch.float32, torch.float64):
+                    row = dict(seed=seed, rho=rho, rhs=rhs_name,
+                               compute=str(comp),
+                               **_k1_al_row(D, O, rhs, reg, compute=comp))
+                    if not math.isfinite(row["max_rel_err_kernel"]):
+                        raise RuntimeError(f"K1 warp: not finite: {row}")
+                    rows.append(row)
+    out = dict(B=B, seeds=list(seeds), ratio_limit=K1_AL_RATIO, rows=rows)
+    for comp in (torch.float32, torch.float64):
+        mine = [r for r in rows if r["compute"] == str(comp)]
+        out[str(comp)] = dict(
+            worst_ratio=max(r["ratio"] for r in mine),
+            every_draw_within=all(r["ratio"] <= K1_AL_RATIO for r in mine))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path,
                     default=Path("build/kernel_layouts.json"))
+    ap.add_argument("--only", default="",
+                    help="comma-separated measurements to run (default: "
+                         "all): " + ", ".join(MEASUREMENTS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: these measurements are of the "
@@ -350,20 +437,23 @@ def main(argv=None) -> int:
                              or "entry function" in ln]
                          for k, v in logs.items()},
                   device=torch.cuda.get_device_name(0))
-    for name, fn in (("k2_groups", k2_groups), ("k2_tie", k2_tie),
-                     ("k2_ls_split", k2_ls_split),
-                     ("k1_layouts", k1_layouts),
-                     ("k1_al_systems", k1_al_systems),
-                     ("k1_onchip_shapes", lambda: [
-                         row for n, T_ in
-                         btsolve_cuda.ONCHIP_SHAPES[torch.float32]
-                         if (n, T_) != (N, T)
-                         for row in k1_layouts((64, 4096), n=n, T_=T_)])):
-        result[name] = fn()
+    only = [m for m in args.only.split(",") if m] or list(MEASUREMENTS)
+    for name in only:
+        result[name] = MEASUREMENTS[name]()
         print(name, json.dumps(result[name]), flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
     return 0
+
+
+MEASUREMENTS = {
+    "k2_groups": k2_groups, "k2_tie": k2_tie, "k2_ls_split": k2_ls_split,
+    "k1_layouts": k1_layouts, "k1_al_systems": k1_al_systems,
+    "k1_onchip_shapes": lambda: [
+        row for n, T_ in btsolve_cuda.ONCHIP_SHAPES[torch.float32]
+        if (n, T_) != (N, T) for row in k1_layouts((64, 4096), n=n, T_=T_)],
+    "k1_warp": lambda: k1_layouts(K1_WARP_BATCHES, n=16, T_=T),
+    "k1_compute_rule": k1_compute_rule}
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 // K2's functor for the 2-link cartpole (diff_qp_mpc_tpu/models/cartpole.py,
-// Cartpole2L, the default model and .pkg() alike), shared by its sources
-// al_fused_cartpole2l_t5.cu and al_fused_cartpole2l_t10.cu: one source per
-// horizon, so nvcc builds the horizons in parallel (the kernel is
-// al_fused_common.cuh's).
+// Cartpole2L, the default model and .pkg() alike): Cartpole2LSys for the
+// warp layout of al_fused_warp.cuh (al_fused_cartpole2l.cu) and
+// Cartpole2LDyn for the one-lane kernel of al_fused_common.cuh, which the
+// host build of that source runs (utils/k2_host.py).
 #pragma once
 
 #include "al_fused_common.cuh"

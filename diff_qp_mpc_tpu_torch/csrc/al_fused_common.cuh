@@ -789,6 +789,16 @@ struct Rk4Dyn {
                                           n_ls, rho_factor, rho_max, reg,     \
                                           params, u_lo, u_hi, s);
 
+// A case of the one-lane kernel at G 1 only, for the host build of a source
+// whose card kernel is the warp layout (utils/k2_host.py defines K2_HOST):
+// the same functor, to bisect its and the merit's rounding off the card.
+#define AL_HOST_CASE(TT, MT, F)                                               \
+  case TT:                                                                    \
+    return log2G == 0 ? dqmpc::launch<MT, TT, F, 0>(                          \
+                            a, B, al_iter, n_newton, n_ls, rho_factor,        \
+                            rho_max, reg, params, u_lo, u_hi, s)              \
+                      : static_cast<int>(cudaErrorInvalidValue);
+
 // Resident threads of the (T, dtype, 2^log2G) instantiation on the current
 // device (see dqmpc::resident_threads), into *out. Returns a cudaError_t
 // code.

@@ -174,12 +174,6 @@ AL_WARP_SMEM_ENTRY(al_fused_quadrotor_smem_f64,
                    AL_WARP_SMEM_CASE(5, dqmpc::QuadrotorSys, double))
 #else
 // the host build: the one-lane kernel at G 1 only
-#define AL_HOST_CASE(TT, MT, F)                                              \
-  case TT:                                                                   \
-    return log2G == 0 ? dqmpc::launch<MT, TT, F, 0>(                         \
-                            a, B, al_iter, n_newton, n_ls, rho_factor,       \
-                            rho_max, reg, params, u_lo, u_hi, s)             \
-                      : static_cast<int>(cudaErrorInvalidValue);
 AL_FUSED_ENTRY(al_fused_quadrotor_f32, float,
                AL_HOST_CASE(5, dqmpc::QuadrotorDyn, float))
 AL_FUSED_ENTRY(al_fused_quadrotor_f64, double,

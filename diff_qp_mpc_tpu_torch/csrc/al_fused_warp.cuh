@@ -1,6 +1,6 @@
-// K2 at n = NX + NU = 16 (the quadrotor): the whole augmented-Lagrangian MPC
-// solve with one warp per batch element and the element's blocks in shared
-// memory.
+// K2 with one warp per batch element and the element's blocks in shared
+// memory: the whole augmented-Lagrangian MPC solve of the quadrotor (n =
+// NX + NU = 16) and of the cartpoles (n 5 and 7).
 //
 // Replaces the TPU kernel diff_qp_mpc_tpu/ops/al_fused_pallas.py::
 // fused_al_solve (_al_kernel) for a model whose element does not fit one
@@ -33,9 +33,14 @@
 // merit's cost) and the upper triangular solves run in another order than
 // the one-lane kernel's, so the two agree to rounding, not bit for bit.
 //
+// The cartpoles' elements fit a lane's registers only with spills of 0.9-12
+// KB a thread (al_fused_common.cuh's group layout, which they ran on before,
+// 2.3-7.2× slower at B 64-4096); here they take 1.8-6.6 KB of shared memory
+// an element in float32.
+//
 // Bound on the H100: 2.5·10⁶ operations and 2 KB of device memory an element
-// in float32 at the checkpoint's budget (benchmarks/flops.py), so the
-// operations. At the main path's B 64-128 a launch occupies one warp on each
+// in float32 at the quadrotor checkpoint's budget (benchmarks/flops.py), so
+// the operations. At the main path's B 64-128 a launch occupies one warp on each
 // of a few dozen SMs, and each element is a chain of dependent phases a warp
 // long, so it is latency-bound:
 // the Jacobian's dual RK4 columns, the 20 candidates' four RK4 steps each,

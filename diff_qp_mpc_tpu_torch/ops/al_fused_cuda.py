@@ -7,27 +7,36 @@ diff_qp_mpc_tpu.ops.al_fused_pallas.
 and launches the kernel for CUDA tensors; it never falls back from one to
 the other. Each kernel launch adds one to ``launches``.
 
-Two layouts. "group" (``al_fused_common.cuh``): each batch element on a
-group of G lanes (``GROUPS``) that share its line search, each lane holding
-the element in its registers; the outputs are bit-identical at every G, and
+Two layouts, one per model (``Built.layout``). "group"
+(``al_fused_common.cuh``): each batch element on a group of G lanes
+(``GROUPS``) that share its line search, each lane holding the element in
+its registers; the outputs are bit-identical at every G, and
 ``choose_group`` is the rule that picks G from the batch. "warp"
-(``al_fused_warp.cuh``, the quadrotor at n 16, whose element does not fit
-one lane): one warp per element, its blocks in shared memory; it raises on
-a launch whose blocks ask for more shared memory than the device allows.
+(``al_fused_warp.cuh``): one warp per element, its blocks in shared memory;
+it raises on a launch whose blocks ask for more shared memory than the
+device allows. The quadrotor (n 16, whose element does not fit one lane)
+and the cartpoles (n 5 and 7, whose elements spill 0.9-12 KB a lane) run
+the warp layout. The cartpoles ran the group layout before; one card call
+timed both layouts on every cartpole (T, dtype) at B 64, 256 and 4096
+(float32 ms a launch at B 64, group / warp, on an NVIDIA H100 80GB HBM3 at
+700 W: cp1 T 5 0.467 / 0.199, T 10 1.238 / 0.392, cp2 T 5 2.047 / 0.403,
+T 10 4.938 / 0.804; PERF.md), and the warp layout was 2.3-7.2× faster in
+every case, so it replaced the group layout there. The warp layout takes
+``group`` None or 32.
 
 ``BUILT`` names the models the kernel is built for, each with its
 source(s), its functor's constants, its horizons per dtype and its layout:
 the pendulum, the integrator with one position (nx 2), ``Cartpole1L``,
-``Cartpole2L`` (the default model and ``.pkg()``; one source per horizon),
-``RexQuadrotor``, and ``PendulumCosSin`` and ``CartpoleCosSin`` (one
-source for both). Another model, shape, horizon or dtype raises; the
-plain version takes any model with ``step`` and ``jac``.
+``Cartpole2L`` (the default model and ``.pkg()``), ``RexQuadrotor``, and
+``PendulumCosSin`` and ``CartpoleCosSin`` (one source for both). Another
+model, shape, horizon or dtype raises; the plain version takes any model
+with ``step`` and ``jac``.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -49,29 +58,19 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class Built:
-    """One model's kernel: ``csrc/<library>.cu`` (or, per horizon,
-    ``csrc/<library[T]>.cu``) exports ``al_fused_<name>_f32``/``_f64`` and,
+    """One model's kernel: ``csrc/<library>.cu`` exports ``al_fused_<name>_f32``/``_f64`` and,
     on the "group" layout, their ``_resident_threads_`` queries, on the
     "warp" layout their ``_smem_`` queries; ``params`` folds the model's
     constants in double precision, in the order of its functor's ``make``
     (or ``load``); ``horizons`` per dtype have an instantiation."""
 
-    library: Union[str, Mapping[int, str]]
+    library: str
     name: str
     nx: int
     nu: int
     params: Callable[[object], Tuple[float, ...]]
     horizons: Mapping[torch.dtype, Tuple[int, ...]]
     layout: str = "group"
-
-    def library_for(self, T: int) -> str:
-        return self.library if isinstance(self.library, str) \
-            else self.library[T]
-
-    @property
-    def libraries(self) -> Tuple[str, ...]:
-        return (self.library,) if isinstance(self.library, str) \
-            else tuple(dict.fromkeys(self.library.values()))
 
     def symbol(self, dtype: torch.dtype, resident: bool = False,
                smem: bool = False) -> str:
@@ -93,10 +92,9 @@ BUILT = {
                       lambda m: (m.dt,),
                       {torch.float32: (5,), torch.float64: (5,)}),
     Cartpole1L: Built("al_fused_cartpole1l", "cartpole1l", 4, 1,
-                      lambda m: m.kernel_params(), _T5_10),
-    Cartpole2L: Built({5: "al_fused_cartpole2l_t5",
-                       10: "al_fused_cartpole2l_t10"}, "cartpole2l", 6, 1,
-                      lambda m: m.kernel_params(), _T5_10),
+                      lambda m: m.kernel_params(), _T5_10, layout="warp"),
+    Cartpole2L: Built("al_fused_cartpole2l", "cartpole2l", 6, 1,
+                      lambda m: m.kernel_params(), _T5_10, layout="warp"),
     RexQuadrotor: Built("al_fused_quadrotor", "quadrotor", 12, 4,
                         lambda m: m.kernel_params(),
                         {torch.float32: (5,), torch.float64: (5,)},
@@ -107,8 +105,7 @@ BUILT = {
                           lambda m: m.kernel_params(), _T5_10),
 }
 #: the kernels' sources, for a build of them all
-LIBRARIES = tuple(dict.fromkeys(lib for b in BUILT.values()
-                                for lib in b.libraries))
+LIBRARIES = tuple(dict.fromkeys(b.library for b in BUILT.values()))
 #: lanes per batch element the "group" layout takes (a power of two dividing
 #: a warp); the "warp" layout takes 32
 GROUPS = (1, 2, 4, 8, 16, 32)
@@ -321,7 +318,7 @@ def resident_threads(dtype: torch.dtype, T: int, device: torch.device,
     index = _device_index(device)
     key = (built.name, index, dtype, T)
     if key not in _resident:
-        lib = cuda_build.load(built.library_for(T))
+        lib = cuda_build.load(built.library)
         fn = getattr(lib, built.symbol(dtype, resident=True))
         fn.argtypes = [ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_int)]
@@ -350,7 +347,7 @@ def warp_smem(dtype: torch.dtype, T: int, device: torch.device,
     index = _device_index(device)
     key = (built.name, index, dtype, T)
     if key not in _smem:
-        lib = cuda_build.load(built.library_for(T))
+        lib = cuda_build.load(built.library)
         fn = getattr(lib, built.symbol(dtype, smem=True))
         fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
         fn.restype = ctypes.c_int
@@ -406,7 +403,7 @@ def _launch(model, Cd, c, x0, u_lo, u_hi, x_init, u_init, al_iter, n_newton,
     if B * group >= 2 ** 31:
         raise ValueError(f"B·G = {B}·{group} threads exceed the kernel's "
                          "int indexing")
-    lib = cuda_build.load(built.library_for(T))
+    lib = cuda_build.load(built.library)
     stream = torch.cuda.current_stream(Cd.device).cuda_stream
     with torch.cuda.device(Cd.device):
         err = call_entry(getattr(lib, built.symbol(Cd.dtype)),

@@ -20,11 +20,12 @@ own sin and cos and its contraction choices differ from g++'s, so this
 shows how the kernel's arithmetic, not the card, moves a result. Needs g++;
 each build lives under ``build/k2_host/`` while it loads.
 
-The build defines ``K2_HOST``: the quadrotor's source, whose card kernel
-runs one warp per element with its blocks in shared memory
-(``al_fused_warp.cuh``), then instantiates ``al_fused_common.cuh``'s
-one-lane kernel with the same functor instead, so its functor's and its
-merit's arithmetic run here too (not the warp layout's sums and solves).
+The build defines ``K2_HOST``: the quadrotor's and the cartpoles' sources,
+whose card kernel runs one warp per element with its blocks in shared
+memory (``al_fused_warp.cuh``), then instantiate ``al_fused_common.cuh``'s
+one-lane kernel with the same functor instead, so their functors' and
+their merit's arithmetic run here too (not the warp layout's sums and
+solves; ``utils/warp_emu.py`` runs those).
 """
 from __future__ import annotations
 
@@ -158,7 +159,7 @@ def launch(model, Cd, c, x0, u_lo, u_hi, x_init, u_init, al_iter=2,
     build of the model's kernel (``group`` is ignored: G 1)."""
     built = al_fused_cuda.built_for(model)
     B, T, n = Cd.shape
-    library = built.library_for(T)
+    library = built.library
     key = (library, contract, tuple(exempt), rounded_merit)
     if key not in _loaded:
         so = build(library, contract, exempt, rounded_merit)

@@ -1,14 +1,17 @@
 """Where the main path's time goes on the card.
 
-Runs the evaluate entry point's policy closed-loop on the pendulum (64
-episodes) and traces a window of steps with torch.profiler, once per solver
-path: the AL checkpoint on the scan (K1) and fused (K2) paths, the ip
-checkpoint on the ip scan (K3) and ip fused (K4) paths. Prints one JSON line
-per path: host ms per closed-loop step, device busy ms per step (kernels,
-copies and memsets from the trace), the device's idle share, launches per
-step, and the kernels that take the most device time.
+Runs the evaluate entry point's policy closed-loop (64 episodes) and traces
+a window of steps with torch.profiler, once per solver path: by default the
+pendulum's AL checkpoint on the scan (K1) and fused (K2) paths and its ip
+checkpoint on the ip scan (K3) and ip fused (K4) paths; ``--paths`` names
+others of ``PATHS`` (the cp1, cp2 v8 and quadrotor checkpoints, each with
+its meta.json's env and horizon). Prints one JSON line per path: host ms
+per closed-loop step, device busy ms per step (kernels, copies and memsets
+from the trace), the device's idle share, launches per step, and the
+kernels that take the most device time.
 
     python -m diff_qp_mpc_tpu_torch.utils.profile_main_path [--steps 10]
+        [--paths scan,fused,...]
 
 Chrome traces go to --out (default build/profile/, which git ignores).
 """
@@ -29,9 +32,17 @@ from diff_qp_mpc_tpu_torch.utils.checkpoint import load_policy_params
 
 CKPT = "logs/deqmpc_pendulum_sac_fused_T5_bsz256/ckpt.msgpack"
 IP_CKPT = "logs/deqmpc_pendulum_ip_fused_v2/ckpt.msgpack"
-# path name -> (checkpoint, --fused)
-PATHS = {"scan": (CKPT, False), "fused": (CKPT, True),
-         "ip-scan": (IP_CKPT, False), "ip-fused": (IP_CKPT, True)}
+# path name -> (checkpoint, --fused, env: None takes the checkpoint's)
+PATHS = {"scan": (CKPT, False, "pendulum"), "fused": (CKPT, True, "pendulum"),
+         "ip-scan": (IP_CKPT, False, "pendulum"),
+         "ip-fused": (IP_CKPT, True, "pendulum"),
+         "cp1-fused": ("logs/deqmpc_cp1_fused_v10_T10/ckpt_best.msgpack",
+                       True, None),
+         "cp2-v8-fused": ("logs/deqmpc_cp2_fused_v8_T10/ckpt_best.msgpack", True,
+                          None),
+         "quad-scan": ("logs/deqmpc_quadrotor_fused_v8/ckpt_best.msgpack",
+                       False, None)}
+DEFAULT_PATHS = ("scan", "fused", "ip-scan", "ip-fused")
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -57,9 +68,9 @@ def profile_path(name: str, steps: int, warmup: int, episodes: int,
                  out: str, seed: int = 0):
     from torch.profiler import ProfilerActivity, profile
 
-    ckpt, fused = PATHS[name]
-    argv = ["--env", "pendulum", "--deq", "--ckpt", ckpt] + (
-        ["--fused"] if fused else [])
+    ckpt, fused, env_name = PATHS[name]
+    argv = (["--env", env_name] if env_name else []) + [
+        "--deq", "--ckpt", ckpt] + (["--fused"] if fused else [])
     args = evaluate.parse_args(argv)
     device = torch.device("cuda")
     env = make_env(args.env)
@@ -113,10 +124,12 @@ def main(argv=None):
     p.add_argument("--episodes", type=int, default=64)
     p.add_argument("--out", type=str, default=os.path.join("build",
                                                            "profile"))
+    p.add_argument("--paths", type=str, default=",".join(DEFAULT_PATHS),
+                   help="comma-separated paths of " + ", ".join(PATHS))
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profiling the main path needs a CUDA device")
-    for name in PATHS:
+    for name in args.paths.split(","):
         print(json.dumps(profile_path(name, args.steps, args.warmup,
                                       args.episodes, args.out)), flush=True)
 

@@ -1,0 +1,325 @@
+"""The warp-layout kernels of ``csrc/`` run on the CPU: a CUDA source built
+with g++, one POSIX thread per CUDA thread.
+
+    python -m diff_qp_mpc_tpu_torch.utils.warp_emu [--tsan]
+
+holds K1's warp layout (``csrc/btsolve.cu``, n 16, T 5, float64) and K2's
+warp layout on Cartpole1L (``csrc/al_fused_cartpole1l.cu``, T 5,
+float64) against their plain versions on a few elements and prints the
+errors. ``--tsan`` builds with ThreadSanitizer and reruns itself with its
+runtime preloaded, so that a missing ``__syncwarp`` between lanes that
+share memory is reported as a data race.
+
+The build stubs the CUDA names (``stub.h`` below) and rewrites two
+constructs with a regular expression: ``extern __shared__`` arrays become
+a pointer to the block's shared memory, and a ``kernel<<<config>>>(args)``
+launch becomes ``emu::launch``, which runs the grid's blocks one after
+another, each block's threads as ``std::thread``s. ``__syncwarp`` and
+``__syncthreads`` are barriers of the warp's and the block's threads; a
+shuffle is a rendezvous of the warp's 32 lanes (each writes its value to a
+slot, a barrier, each reads its source lane's slot, a barrier). A shuffle
+must name the whole warp, and a warp's lanes must meet at every barrier:
+the kernels here keep their warps' control flow uniform. Shared memory
+starts filled with NaN bytes, so a read of a word that no lane wrote
+shows in the result. g++ does not contract multiply-adds here, and its
+sin and cos are the host's, so the emulation runs the kernel's arithmetic
+and its order, not the card's rounding. Needs g++; each build lives under
+``build/warp_emu/`` while it loads.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+from diff_qp_mpc_tpu_torch.utils.cuda_build import CSRC
+
+BUILD = Path(__file__).resolve().parents[2] / "build" / "warp_emu"
+_STUB = r"""#pragma once
+#include <pthread.h>
+
+#include <algorithm>
+#include <cfloat>
+#include <cmath>
+#include <cstddef>
+#include <cstdlib>
+#include <cstring>
+#include <thread>
+#include <vector>
+using std::atan2;
+using std::cos;
+using std::min;
+using std::sin;
+using std::sqrt;
+#define __device__
+#define __global__
+#define __host__
+#define __forceinline__ inline __attribute__((always_inline))
+#define __noinline__ __attribute__((noinline))
+#define __launch_bounds__(x)
+#define __align__(n) __attribute__((aligned(n)))
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorInvalidConfiguration = 9 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16,
+                      cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+struct emu_dim3 { unsigned x, y, z; };
+static thread_local emu_dim3 blockIdx, threadIdx;
+static emu_dim3 blockDim;
+inline cudaError_t cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+// an H100's: 132 SMs, 232,448 bytes of shared memory a block may ask for
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  *v = a == cudaDevAttrMaxSharedMemoryPerBlockOptin ? 232448 : 132;
+  return 0;
+}
+template <class K>
+cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* b, K, int,
+                                                          int) {
+  *b = 1;
+  return 0;
+}
+template <class T> inline T emu_rounded_product(T a, T b) {
+  T r = a * b;
+  asm volatile("" : "+x"(r));  // no multiply-add across this
+  return r;
+}
+inline float __fmul_rn(float a, float b) {
+  return emu_rounded_product(a, b);
+}
+inline double __dmul_rn(double a, double b) {
+  return emu_rounded_product(a, b);
+}
+namespace emu {
+struct Warp {
+  pthread_barrier_t bar;
+  unsigned long long slot[32];
+};
+struct Block {
+  std::vector<Warp> warps;
+  pthread_barrier_t bar;
+  unsigned char* shared;
+};
+static thread_local Block* block;
+inline unsigned char* shared() { return block->shared; }
+inline Warp& warp() { return block->warps[threadIdx.x / 32]; }
+inline void syncwarp() { pthread_barrier_wait(&warp().bar); }
+template <class T>
+T shfl(unsigned mask, T v, int src) {
+  static_assert(sizeof(T) <= sizeof(unsigned long long), "a slot a lane");
+  if (mask != 0xffffffffu) std::abort();  // whole warps only
+  Warp& w = warp();
+  std::memcpy(&w.slot[threadIdx.x & 31], &v, sizeof(T));
+  pthread_barrier_wait(&w.bar);
+  T r;
+  std::memcpy(&r, &w.slot[src & 31], sizeof(T));
+  pthread_barrier_wait(&w.bar);
+  return r;
+}
+struct Config {
+  Config(long long b, long long t, long long s = 0, void* = nullptr)
+      : blocks(b), threads(t), shared(s) {}
+  long long blocks, threads, shared;
+};
+template <class K, class... A>
+void launch(K kernel, Config c, A... a) {
+  if (c.threads % 32) std::abort();  // whole warps only
+  blockDim.x = static_cast<unsigned>(c.threads);
+  std::vector<double> shared(c.shared / sizeof(double) + 2);
+  for (long long bi = 0; bi < c.blocks; ++bi) {
+    Block blk;
+    blk.warps.resize(c.threads / 32);
+    for (Warp& w : blk.warps) pthread_barrier_init(&w.bar, nullptr, 32);
+    pthread_barrier_init(&blk.bar, nullptr,
+                         static_cast<unsigned>(c.threads));
+    std::memset(shared.data(), 0xff, shared.size() * sizeof(double));
+    blk.shared = reinterpret_cast<unsigned char*>(shared.data());
+    std::vector<std::thread> ts;
+    for (long long t = 0; t < c.threads; ++t)
+      ts.emplace_back([&, t] {
+        block = &blk;
+        blockIdx.x = static_cast<unsigned>(bi);
+        threadIdx.x = static_cast<unsigned>(t);
+        kernel(a...);
+      });
+    for (std::thread& t : ts) t.join();
+    for (Warp& w : blk.warps) pthread_barrier_destroy(&w.bar);
+    pthread_barrier_destroy(&blk.bar);
+  }
+}
+}  // namespace emu
+#define __syncwarp(...) emu::syncwarp()
+inline void __syncthreads() { pthread_barrier_wait(&emu::block->bar); }
+template <class T>
+T __shfl_sync(unsigned mask, T v, int src) {
+  return emu::shfl(mask, v, src);
+}
+template <class T>
+T __shfl_xor_sync(unsigned mask, T v, int s) {
+  return emu::shfl(mask, v, static_cast<int>(threadIdx.x & 31) ^ s);
+}
+"""
+_SHARED = re.compile(r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?"
+                     r"unsigned\s+char\s+(\w+)\[\];")
+_LAUNCH = re.compile(r"(\w+(?:<[^;<>]*>)?)<<<([^;]*?)>>>\(")
+_loaded: Dict[tuple, ctypes.CDLL] = {}
+_MODULE = "diff_qp_mpc_tpu_torch.utils.warp_emu"
+
+
+def rewrite(text: str) -> str:
+    """``text`` with its ``extern __shared__`` arrays and its ``<<<>>>``
+    launches rewritten for the emulation."""
+    text = _SHARED.sub(r"unsigned char* \1 = emu::shared();", text)
+    return _LAUNCH.sub(r"emu::launch(\1, emu::Config(\2), ", text)
+
+
+def build(library: str, sanitize: bool = False) -> Path:
+    """The emulation's build of ``csrc/<library>.cu`` (with ThreadSanitizer
+    if ``sanitize``) in a new directory under ``build/warp_emu/`` that the
+    caller removes."""
+    if shutil.which("g++") is None:
+        raise RuntimeError("g++ not found: the emulation builds with it")
+    BUILD.mkdir(parents=True, exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix=f"{library}-", dir=BUILD))
+    src = out / "src"
+    (src / "inc").mkdir(parents=True)
+    (src / "inc" / "cuda_runtime.h").write_text("")
+    (src / "stub.h").write_text(_STUB)
+    for f in list(CSRC.glob("*.cuh")) + [CSRC / f"{library}.cu"]:
+        (src / f.name).write_text(rewrite(f.read_text()))
+    so = out / f"lib{library}.so"
+    flags = ["-fsanitize=thread", "-O1", "-g"] if sanitize else ["-O1"]
+    proc = subprocess.run(
+        ["g++", "-std=c++17", *flags, "-ffp-contract=off", "-pthread",
+         "-fPIC", "-shared", "-x", "c++", "-I", str(src / "inc"), "-include",
+         str(src / "stub.h"), "-o", str(so), str(src / f"{library}.cu")],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        shutil.rmtree(out, ignore_errors=True)
+        raise RuntimeError(f"g++ failed for {library}.cu:\n{proc.stderr}")
+    return so
+
+
+def load(library: str, sanitize: bool = False) -> ctypes.CDLL:
+    """The loaded emulation build of ``csrc/<library>.cu``, built once per
+    process."""
+    key = (library, sanitize)
+    if key not in _loaded:
+        so = build(library, sanitize)
+        _loaded[key] = ctypes.CDLL(str(so))
+        shutil.rmtree(so.parent)  # loaded; the mapping stays
+    return _loaded[key]
+
+
+def btsolve_warp(D, O, b, reg: float = 0.0,
+                 compute: Optional[torch.dtype] = None,
+                 sanitize: bool = False) -> torch.Tensor:
+    """K1's warp layout (``btsolve_warp_f32``/``_f64``) on CPU tensors;
+    ``compute`` as ``btsolve_cuda.batched_factor_solve`` takes it."""
+    from diff_qp_mpc_tpu_torch.ops import btsolve_cuda
+
+    B, T, n, _ = D.shape
+    compute = btsolve_cuda.WARP_COMPUTE[D.dtype] if compute is None \
+        else compute
+    D, O, b = (a.contiguous() for a in (D, O, b))
+    x = torch.empty_like(b)
+    lib = load("btsolve", sanitize)
+    fn = getattr(lib, btsolve_cuda._WARP_SYMBOLS[D.dtype])
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(D.data_ptr(), O.data_ptr(), b.data_ptr(), x.data_ptr(), B, T, n,
+             float(reg), btsolve_cuda._BITS[compute], None)
+    if err:
+        raise RuntimeError(f"emulated btsolve warp kernel: error {err}")
+    return x
+
+
+def fused_al_solve_warp(model, Cd, c, x0, u_lo, u_hi, x_init, u_init,
+                        al_iter=2, n_newton=4, n_ls=20, rho_factor=10.0,
+                        rho_max=1e4, reg=1e-5, lam_dyn=None, lam_hi=None,
+                        lam_lo=None, rho0=None, sanitize: bool = False):
+    """K2's warp layout for ``model`` (a model on that layout) on CPU
+    tensors, with ``al_fused_cuda.fused_al_solve``'s arguments and
+    outputs."""
+    from diff_qp_mpc_tpu_torch.ops import al_fused_cuda
+
+    built = al_fused_cuda.built_for(model)
+    if built.layout != "warp":
+        raise ValueError(f"the {built.name} kernel is not on the warp layout")
+    B, T, _ = Cd.shape
+    lam_dyn, lam_hi, lam_lo, rho0 = al_fused_cuda._fill_warm_start(
+        B, T, model.nx, model.nu, Cd, lam_dyn, lam_hi, lam_lo, rho0)
+    ins = [a.contiguous() for a in (Cd, c, x0, x_init, u_init, lam_dyn,
+                                    lam_hi, lam_lo, rho0)]
+    outs = [torch.empty_like(a) for a in (Cd, lam_dyn, lam_hi, lam_lo,
+                                          rho0)]
+    lib = load(built.library, sanitize)
+    err = al_fused_cuda.call_entry(
+        getattr(lib, built.symbol(Cd.dtype)), ins + outs, B,
+        5, T, al_iter, n_newton, n_ls, rho_factor, rho_max, reg,
+        built.params(model), u_lo, u_hi, None)
+    if err:
+        raise RuntimeError(f"emulated al_fused warp kernel: error {err}")
+    return tuple(outs)
+
+
+def self_check(sanitize: bool = False) -> dict:
+    """K1's warp layout at n 16, T 5, B 3 and K2's on Cartpole1L at T 5,
+    B 2, both float64, against their plain versions: the largest errors
+    (K1's relative to the solution's largest entry)."""
+    from diff_qp_mpc_tpu_torch.benchmarks import k2_models
+    from diff_qp_mpc_tpu_torch.benchmarks.kernel_layouts import (
+        random_bt_spd,
+    )
+    from diff_qp_mpc_tpu_torch.ops import al_fused_cuda, btsolve
+
+    D, O, b = random_bt_spd(3, 5, 16, torch.float64, seed=3, device="cpu")
+    x = btsolve_warp(D, O, b, 1e-7, sanitize=sanitize)
+    ref = btsolve.batched_factor_solve(D, O, b, 1e-7)
+    k1 = float((x - ref).abs().max() / ref.abs().max())
+    args = k2_models.problem("cartpole1l", 2, 5, torch.float64, seed=2,
+                             device="cpu")
+    out = fused_al_solve_warp(*args, **k2_models.BUDGET, sanitize=sanitize)
+    plain = al_fused_cuda.fused_al_solve_reference(*args, **k2_models.BUDGET)
+    k2 = float(k2_models.element_errors(out, plain).max())
+    return dict(k1_n16_T5_B3_float64_max_rel_err=k1,
+                k2_cartpole1l_T5_B2_float64_max_abs_err_xu=k2,
+                finite=all(bool(torch.isfinite(o).all())
+                           for o in (x, *out)))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tsan", action="store_true",
+                    help="build with ThreadSanitizer (reruns this module "
+                         "with its runtime preloaded)")
+    args = ap.parse_args(argv)
+    if args.tsan and "libtsan" not in os.environ.get("LD_PRELOAD", ""):
+        lib = subprocess.run(["g++", "-print-file-name=libtsan.so"],
+                             capture_output=True, text=True).stdout.strip()
+        env = dict(os.environ, LD_PRELOAD=lib,
+                   TSAN_OPTIONS="halt_on_error=1 report_signal_unsafe=0")
+        return subprocess.run([sys.executable, "-m", _MODULE, "--tsan"],
+                              env=env).returncode
+    print(json.dumps(self_check(sanitize=args.tsan)))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

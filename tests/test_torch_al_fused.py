@@ -382,8 +382,8 @@ def test_kernel_table_names_the_built_models():
     assert al_fused_cuda.built_for(cp2) is al_fused_cuda.built_for(cp2_pkg)
     built = al_fused_cuda.built_for(cp2_pkg)
     assert built.symbol(torch.float32) == "al_fused_cartpole2l_f32"
-    assert built.symbol(torch.float64, resident=True) == \
-        "al_fused_cartpole2l_resident_threads_f64"
+    assert built.symbol(torch.float64, smem=True) == \
+        "al_fused_cartpole2l_smem_f64"
     assert built.params(cp2) != built.params(cp2_pkg)
     assert len(built.params(cp2_pkg)) == len(tm.Cartpole2L.PARAMS)
     assert al_fused_cuda.BUILT[Pendulum].params(Pendulum()) == (

@@ -69,16 +69,20 @@ def test_btsolve_kernel_refuses_unbuilt_block_size(cuda):
 
 
 # every (dtype, n, T, layout) K1 takes: the on-chip layouts at their built
-# shapes, the streaming layout at each of them and at every block size
+# shapes, the streaming layout at each of them and at every block size, the
+# warp layout at its block size over horizons (T 1: no off-diagonal block)
 K1_CASES = sorted({(dt, n, T, lay)
                    for dt, shapes in btsolve_cuda.ONCHIP_SHAPES.items()
                    for n, T in shapes
-                   for lay in btsolve_cuda.LAYOUTS}
+                   for lay in ("onchip", "stream")}
                   | {(dt, n, 5, "stream") for dt in K1_TOL
                      for n in btsolve_cuda.BLOCK_SIZES}
                   # the cartpoles' shapes at T 10 (n 5 cp1, n 7 cp2)
                   | {(dt, n, 10, "stream") for dt in K1_TOL
-                     for n in (5, 7)}, key=str)
+                     for n in (5, 7)}
+                  | {(dt, n, T, "warp") for dt in K1_TOL
+                     for n in btsolve_cuda.WARP_SIZES for T in (1, 5)},
+                  key=str)
 
 
 @pytest.mark.parametrize("dtype,n,T,layout", K1_CASES, ids=str)
@@ -106,6 +110,84 @@ def test_btsolve_onchip_refuses_unbuilt_shape(cuda):
     D, O, b = _system(4, 5, 7, torch.float32, cuda)
     with pytest.raises(ValueError):
         btsolve_cuda.batched_factor_solve(D, O, b, layout="onchip")
+
+
+@pytest.mark.parametrize("dtype,compute,T", [
+    (torch.float32, torch.float32, 5), (torch.float32, torch.float64, 5),
+    (torch.float32, torch.float64, 10), (torch.float64, torch.float64, 5),
+    (torch.float64, torch.float64, 10)])
+def test_btsolve_warp_compute_types(cuda, dtype, compute, T):
+    """The warp layout at n 16 in each compute type against the plain
+    version computing in that type on the same inputs (K1_TOL of the input
+    dtype: at T 10 these systems leave a float32 solve 1.7e-4 off the
+    float64 one, so a float64 computation is held to the float64
+    solution); one launch, counted in both counts."""
+    D, O, b = _system(100, T, 16, dtype, cuda, seed=7)
+    before = (btsolve_cuda.launches, btsolve_cuda.warp_launches)
+    x = btsolve_cuda._launch(D, O, b, 1e-7, "warp", compute)
+    assert (btsolve_cuda.launches, btsolve_cuda.warp_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = btsolve.batched_factor_solve(
+        *(a.to(compute) for a in (D, O, b)), 1e-7).to(dtype)
+    assert bool(torch.isfinite(x).all())
+    assert float((x - ref).abs().max() / ref.abs().max()) <= K1_TOL[dtype]
+
+
+def test_btsolve_warp_shared_memory(cuda):
+    """An element's D, O and b in shared memory, rows padded to n + 1: the
+    sizes at n 16, two elements a block (warp_block_bytes alike); at a T
+    whose block asks for more than the device allows, the rule takes the
+    streaming kernel, and the warp layout forced there is refused at
+    launch, and nothing launches."""
+    n = 16
+    for T in (1, 5, 10):
+        for dtype, compute, size in ((torch.float32, torch.float32, 4),
+                                     (torch.float32, torch.float64, 8),
+                                     (torch.float64, torch.float64, 8)):
+            sm = btsolve_cuda.warp_smem(dtype, T, n, cuda, compute)
+            words = (2 * T - 1) * n * (n + 1) + T * n
+            assert sm["per_element"] == words * size
+            assert sm["per_block"] == 2 * words * size
+            assert sm["per_block"] == btsolve_cuda.warp_block_bytes(
+                T, n, compute)
+            assert sm["per_block"] <= sm["device_max"]
+    sm = btsolve_cuda.warp_smem(torch.float64, 30, n, cuda)
+    assert sm["per_block"] > sm["device_max"]
+    for dtype in (torch.float32, torch.float64):
+        assert btsolve_cuda.choose_layout(dtype, n, 30,
+                                          sm["device_max"]) == "stream"
+        D, O, b = _system(2, 30, n, dtype, cuda)
+        before = (btsolve_cuda.launches, btsolve_cuda.warp_launches)
+        x = btsolve_cuda.batched_factor_solve(D, O, b, 1e-7)
+        assert (btsolve_cuda.launches, btsolve_cuda.warp_launches) == (
+            before[0] + 1, before[1])
+        # the streaming kernel computes n 16 in float64 (csrc/btsolve.cu's
+        # Compute), so it is held to the plain version computing in float64:
+        # at T 30 these systems leave a float32 solve 3.5e-4 off that one
+        ref = btsolve.batched_factor_solve(
+            *(a.double() for a in (D, O, b)), 1e-7).to(dtype)
+        assert bool(torch.isfinite(x).all())
+        assert float((x - ref).abs().max() / ref.abs().max()) <= \
+            K1_TOL[dtype]
+    before = btsolve_cuda.launches
+    with pytest.raises(RuntimeError, match="warp"):
+        btsolve_cuda.batched_factor_solve(D, O, b, 1e-7, layout="warp")
+    assert btsolve_cuda.launches == before
+
+
+def test_btsolve_warp_refuses_unbuilt(cuda):
+    """The warp layout at a block size without an instantiation, and a
+    float32 computation of float64 inputs, raise before any launch."""
+    before = btsolve_cuda.launches
+    D, O, b = _system(4, 5, 3, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        btsolve_cuda.batched_factor_solve(D, O, b, layout="warp")
+    D, O, b = _system(4, 5, 16, torch.float64, cuda)
+    with pytest.raises(ValueError):
+        btsolve_cuda._launch(D, O, b, 0.0, None, torch.float32)
+    with pytest.raises(ValueError):
+        btsolve_cuda._launch(D, O, b, 0.0, "stream", torch.float64)
+    assert btsolve_cuda.launches == before
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-2),
@@ -277,11 +359,15 @@ def _unpoisoned(B, poisoned, device):
     return keep
 
 
+# the block size each K1 layout's edge and isolation tests take
+K1_LAYOUT_N = {"onchip": 3, "stream": 3, "warp": 16}
+
+
 @pytest.mark.parametrize("B", EDGE_BATCHES)
 @pytest.mark.parametrize("layout", btsolve_cuda.LAYOUTS)
 @pytest.mark.parametrize("dtype", list(K1_TOL))
 def test_btsolve_kernel_edge_batches(cuda, B, layout, dtype):
-    D, O, b = _system(B, 5, 3, dtype, cuda, seed=B)
+    D, O, b = _system(B, 5, K1_LAYOUT_N[layout], dtype, cuda, seed=B)
     x = btsolve_cuda.batched_factor_solve(D, O, b, 1e-7, layout=layout)
     ref = btsolve.batched_factor_solve(D, O, b, 1e-7)
     assert bool(torch.isfinite(x).all())
@@ -294,7 +380,7 @@ def test_btsolve_kernel_edge_batches(cuda, B, layout, dtype):
 def test_btsolve_kernel_isolates_elements(cuda, B, poisoned, poison, layout):
     """A non-finite or huge input of some elements leaves every other
     element's outputs bit-identical."""
-    args = _system(B, 5, 3, torch.float32, cuda, seed=3)
+    args = _system(B, 5, K1_LAYOUT_N[layout], torch.float32, cuda, seed=3)
     clean = btsolve_cuda.batched_factor_solve(*args, 1e-7, layout=layout)
     bad = [a.clone() for a in args]
     for a in bad:
@@ -691,8 +777,8 @@ def test_trajqp_layer_backward_is_one_k3_launch(cuda, kernel):
 # k2_models.problem: seeded tracking problems of each model's env; check
 # raises unless the kernel agrees with its plain version (TOL per element,
 # SHARE_LIMIT of elements outside it) and every G is bit-identical to G 1.
-# The quadrotor's kernel runs one warp per element (the "warp" layout, no
-# group width): its own tests follow.
+# The quadrotor's and the cartpoles' kernels run one warp per element (the
+# "warp" layout, no group width): their own tests follow.
 def _layout(name):
     return al_fused_cuda.built_for(k2_models.model(name)).layout
 
@@ -704,6 +790,7 @@ K2_MODEL_T5 = [(name, torch.float32) for name in GROUP_MODELS]
 
 @pytest.mark.parametrize("name,T,dtype", GROUP_CASES, ids=str)
 def test_al_fused_models_match_plain(cuda, name, T, dtype):
+    """Every G of the group layout."""
     before = al_fused_cuda.launches
     row = k2_models.check(name, T, dtype, 64)
     assert al_fused_cuda.launches == before + len(al_fused_cuda.GROUPS)
@@ -788,9 +875,9 @@ def test_solve_fused_stateful_models_launch_once_per_al_iteration(cuda,
 
 def test_cartpole1l_f32_breakdown_through_k2(cuda):
     """The JAX package's float32 breakdown regression (its
-    tests/test_al_fused.py, Cartpole1L at dt 0.01) through K2: al_iter 8
-    with ρ up to 1e6, reg 1e-6. No NaN in the forward or in the gradient
-    (one K1 launch), and dyn_res < 1e-4."""
+    tests/test_al_fused.py, Cartpole1L at dt 0.01) through K2 on the warp
+    layout: al_iter 8 with ρ up to 1e6, reg 1e-6. No NaN in the forward or
+    in the gradient (one K1 launch), and dyn_res < 1e-4."""
     from diff_qp_mpc_tpu_torch.models import Cartpole1L
 
     B, T = 32, 5
@@ -814,6 +901,103 @@ def test_cartpole1l_f32_breakdown_through_k2(cuda):
         before[0] + 1, before[1] + 1)
     assert torch.isfinite(u).all() and torch.isfinite(c.grad).all()
     assert float(res.mean()) < 1e-4
+
+
+# ------------------------------------ K2 on the cartpoles, warp layout ----
+# al_fused_warp.cuh instantiated for Cartpole1L and Cartpole2L
+# (csrc/al_fused_cartpole1l.cu, al_fused_cartpole2l.cu), which ran the
+# group layout before; its sums over the warp and its upper solves run in
+# another order, so it is held to the plain version as the group layout was
+# (k2_models.TOL, the share limit), not to the group layout's bits.
+CARTPOLES = ("cartpole1l", "cartpole2l")
+CARTPOLE_CASES = [c for c in k2_models.CASES if c[0] in CARTPOLES]
+
+
+@pytest.mark.parametrize("name,T,dtype", CARTPOLE_CASES, ids=str)
+def test_al_fused_cartpoles_warp_matches_plain(cuda, name, T, dtype):
+    args = k2_models.problem(name, 64, T, dtype, seed=64)
+    before = al_fused_cuda.launches
+    out = al_fused_cuda.fused_al_solve(*args, **K2_KW)
+    assert al_fused_cuda.launches == before + 1
+    ref = al_fused_cuda.fused_al_solve_reference(*args, **K2_KW)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    el = k2_models.element_errors(out, ref)
+    assert float((el > k2_models.TOL[dtype]).double().mean()) <= \
+        k2_models.share_limit(name, dtype)
+    assert float(el.median()) <= k2_models.MEDIAN_LIMIT[dtype]
+
+
+@pytest.mark.parametrize("B", (1, 3, 65))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", CARTPOLES)
+def test_al_fused_cartpoles_warp_edge_batches(cuda, name, dtype, B):
+    """The warp layout at T 5 with a ragged last block (two elements a
+    block), group None and 32 alike."""
+    args = k2_models.problem(name, B, 5, dtype, seed=B)
+    out = al_fused_cuda.fused_al_solve(*args, **K2_KW)
+    ref = al_fused_cuda.fused_al_solve_reference(*args, **K2_KW)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    el = k2_models.element_errors(out, ref)
+    assert float((el > k2_models.TOL[dtype]).double().mean()) <= \
+        k2_models.share_limit(name, dtype)
+    assert _bits_equal(out, al_fused_cuda.fused_al_solve(
+        *args, **K2_KW, group=32))
+
+
+@pytest.mark.parametrize("B,poisoned", ISOLATION_CASES)
+@pytest.mark.parametrize("poison", [float("nan"), 1e30])
+@pytest.mark.parametrize("name", CARTPOLES)
+def test_al_fused_cartpoles_warp_isolates_elements(cuda, name, B, poisoned,
+                                                   poison):
+    """A non-finite or huge input of some elements leaves every other
+    element's outputs bit-identical (each warp its own shared memory)."""
+    model, *rest = k2_models.problem(name, B, 5, torch.float32, seed=4)
+    Cd, c, x0, u_lo, u_hi, xi, ui = rest
+
+    def run(ts):
+        Cd_, c_, x0_, xi_, ui_ = ts
+        return al_fused_cuda.fused_al_solve(model, Cd_, c_, x0_, u_lo, u_hi,
+                                            xi_, ui_, **K2_KW)
+
+    clean = run([Cd, c, x0, xi, ui])
+    bad = [a.clone() for a in (Cd, c, x0, xi, ui)]
+    for a in bad:
+        a[list(poisoned)] = poison
+    dirty = run(bad)
+    keep = _unpoisoned(B, poisoned, cuda)
+    for a, b in zip(clean, dirty):
+        assert torch.equal(a[keep], b[keep])
+
+
+def test_al_fused_cartpoles_warp_shared_memory(cuda):
+    """WarpElement's sizes (al_fused_warp.cuh) at the cartpoles' (nx, nu)
+    and horizons, two elements a block, within what the card allows."""
+    for name, T, dtype in CARTPOLE_CASES:
+        model = k2_models.model(name)
+        nx, nu = model.nx, model.nu
+        n = nx + nu
+        values = (5 * T * n + nx + (T - 1) * nx + 2 * T * nu
+                  + (T - 1) * nx * n + 2 * (T - 1) * nx + T * nu
+                  + T * n * (n + 1) // 2 + (T - 1) * n * n)
+        size = 4 if dtype == torch.float32 else 8
+        smem = al_fused_cuda.warp_smem(dtype, T, cuda, model)
+        assert smem["per_element"] == values * size
+        assert smem["per_block"] == 2 * values * size <= smem["device_max"]
+
+
+@pytest.mark.parametrize("name", CARTPOLES)
+def test_al_fused_cartpoles_layout_rule_on_card(cuda, name):
+    """Every launch of a cartpole takes the warp layout: group None or 32,
+    one warp per element; other group widths, and the group layout's
+    occupancy query, are refused before any launch."""
+    args = k2_models.problem(name, 4, 5, torch.float32, seed=0)
+    before = al_fused_cuda.launches
+    for group in (1, 8):
+        with pytest.raises(ValueError, match="one warp per element"):
+            al_fused_cuda.fused_al_solve(*args, group=group)
+    with pytest.raises(ValueError):
+        al_fused_cuda.resident_threads(torch.float32, 5, cuda, args[0])
+    assert al_fused_cuda.launches == before
 
 
 # ------------------------------------------------ K2 on the quadrotor ----
@@ -861,6 +1045,20 @@ def test_al_fused_quadrotor_refuses_groups(cuda):
         al_fused_cuda.resident_threads(torch.float32, 5, cuda,
                                        RexQuadrotor())
     assert al_fused_cuda.launches == before
+
+
+def test_k1_warp_compute_rule_on_quadrotor_systems(cuda):
+    """The rule that sets the warp layout's compute type for float32
+    inputs (btsolve_cuda.WARP_COMPUTE), on the quadrotor's AL systems over
+    K1_RULE_SEEDS draws at B 128: the type it takes meets K1_AL_RATIO on
+    every draw; float32 is taken only if its computation does."""
+    from diff_qp_mpc_tpu_torch.benchmarks import kernel_layouts
+
+    out = kernel_layouts.k1_compute_rule()
+    rule = btsolve_cuda.WARP_COMPUTE[torch.float32]
+    assert out[str(rule)]["every_draw_within"]
+    if rule == torch.float64:
+        assert not out[str(torch.float32)]["every_draw_within"]
 
 
 def test_k1_on_quadrotor_al_newton_systems(cuda):

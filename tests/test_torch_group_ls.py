@@ -148,12 +148,13 @@ def test_fused_al_solve_group_does_not_change_cpu_result():
     (torch.float32, 3, 5, "onchip"), (torch.float32, 3, 10, "onchip"),
     (torch.float32, 5, 5, "onchip"), (torch.float32, 5, 10, "stream"),
     (torch.float32, 3, 7, "stream"), (torch.float32, 7, 5, "stream"),
-    (torch.float32, 16, 5, "stream"), (torch.float64, 3, 5, "onchip"),
+    (torch.float32, 16, 5, "warp"), (torch.float64, 3, 5, "onchip"),
     (torch.float64, 3, 10, "stream"), (torch.float64, 5, 5, "stream"),
     (torch.float16, 3, 5, "stream")])
 def test_choose_layout(dtype, n, T, layout):
     """On chip at the shapes whose element fits in registers without
-    spills (the main path's (3, 5) in both dtypes), streaming elsewhere."""
+    spills (the main path's (3, 5) in both dtypes), a warp per element at
+    the quadrotor's n 16, streaming elsewhere."""
     assert btsolve_cuda.choose_layout(dtype, n, T) == layout
 
 
