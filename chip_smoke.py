@@ -134,30 +134,34 @@ Phases, each of which raises on failure (there is no CPU fallback):
      exactly 12 K2 and 6 K1 launches a DEQ-MPC step.
  18. the terminal-LQR ip path and the MPC expert, in this order:
      (a) K3 at (T, nx, nu) = (5, 6, 1) (csrc/riccati.cu) and its horizon
-     kernel (csrc/riccati_horizon.cu) at every expert planner's shape
-     (K3_HORIZON_SHAPES), B 64, 256 and the dataset's batch (200; the
-     quadrotor's 300), float32 and float64, against the plain version:
-     float64 within K3_TOL; float32 at T 5 within K3_TOL, over the longer
-     horizons against the float64 solution within F32_VS_F64_RATIO of the
-     plain float32 version's error; timed at B 64 with the dense KKT's
-     torch.linalg.solve beside it, the horizon kernel also at (5, 6, 1).
+     kernels (csrc/riccati_horizon.cu; at the quadrotor's (20, 12, 4)
+     csrc/riccati_horizon_warp.cu, one warp per element) at every expert
+     planner's shape (K3_HORIZON_SHAPES), B 64, 256 and the dataset's
+     batch (200; the quadrotor's 300), float32 and float64, against the
+     plain version: float64 within K3_TOL; float32 at T 5 within K3_TOL,
+     over the longer horizons against the float64 solution within
+     F32_VS_F64_RATIO of the plain float32 version's error; timed at B 64
+     with the dense KKT's torch.linalg.solve beside it, the horizon kernel
+     also at (5, 6, 1), the warp-layout kernel also by the profiler.
      K3 at (5, 6, 1) on the cp2 ip checkpoint's own scan-IPM systems and
      the horizon kernel at (10, 6, 1) on the cp2 stabilize expert's, and
-     K4 at (5, 6, 1) on the checkpoint's own QPs (terminal P included),
-     float32 against float64 by the same ratio rule;
-     (b) K4 at (5, 6, 1) on the K4 profiler's random QPs, B 64 and 256,
+     K4 at (5, 6, 1) (on its warp layout, K4w) on the checkpoint's own QPs
+     (terminal P included), float32 against float64 by the same ratio
+     rule;
+     (b) K4w at (5, 6, 1) on the K4 profiler's random QPs, B 64 and 256,
      both dtypes, all eight outputs within K4_TOL, timed at B 64;
      (c) the float64 policy forward card vs CPU on the cp2 ip checkpoint's
      scan and fused paths (as phase 15), and its closed loops through the
      evaluate entry point (CP2_IP_RUNS), launches per step exact;
      (d) its float64 training gradient card vs CPU (B 8, fused) and
      training with its meta.json's flags (ip, fused, terminal_lqr) cut to
-     CP2_IP_TRAIN_PRETRAIN + CP2_IP_TRAIN_DEQMPC steps, exactly 18 K4 and
+     CP2_IP_TRAIN_PRETRAIN + CP2_IP_TRAIN_DEQMPC steps, exactly 18 K4w and
      6 K3 launches a DEQ-MPC step;
      (e) the MPC expert (learning/datagen.py, float64) on EXPERT_RUNS: the
      cp2 stabilize planner (T 10, terminal LQR) on 64 trajectories × 20
      steps and the quadrotor's (T 20) on 16 × 5, exactly (qp_iter + 1) ×
-     12 × 2 horizon-kernel launches an MPC step, ms a step, the success
+     12 × 2 horizon-kernel launches an MPC step (the quadrotor's all on the
+     warp layout, K3hw), ms a step, the success
      share, its first actions card vs CPU within EXPERT_TOL;
      (f) DAgger through its entry point from the cp1 checkpoint: 8
      episodes × 20 steps, 8 states relabeled × 10 steps by the cp1
@@ -231,13 +235,15 @@ Phases, each of which raises on failure (there is no CPU fallback):
      K4w at (5, 12, 4) and (5, 16, 4) against its plain version within
      K4W_TOL, B 64, both dtypes, on random box QPs and on the quadrotor's
      own ip and slew QPs, timed with its plain version, bound and shared
-     memory; beside the thread layout at (5, 6, 1), B 64 and 256; K4 at
-     the cartpoles' slew shapes (5, 5, 1) and (5, 7, 1) within K4_TOL; (d)
-     the slew option on cp1, cp2 and the quadrotor, scan and fused, float64,
-     B 64: exactly 72 K3h or 3 K4 / K4w a solve and one K3h in its
-     backward, u card vs CPU within SLEW_TOL; K3h at (5, 12, 4), (5, 5, 1),
-     (5, 7, 1) and (5, 16, 4) against its plain version and timed beside
-     the dense KKT's torch.linalg.solve; (e) both CosSin models through
+     memory; K4w at the cartpoles' slew shapes (5, 5, 1) and (5, 7, 1)
+     within K4_TOL; (d) the slew option on cp1, cp2 and the quadrotor,
+     scan and fused, float64, B 64: exactly 72 K3h or 3 K4w a solve and
+     one K3h in its backward (at the quadrotor's (16, 4) every K3h on the
+     warp layout, K3hw), u card vs CPU within SLEW_TOL; K3h at (5, 12, 4),
+     (5, 5, 1), (5, 7, 1) and (5, 16, 4) against its plain version and
+     timed beside the dense KKT's torch.linalg.solve (the warp layout at
+     (12, 4) and (16, 4) also by the profiler); (e) both CosSin models
+     through
      solve_fused (1 K2, 1 K1 backward) and the AL scan path (8 K1, 1 K1
      backward), float64 card vs CPU. Their K2 (every G against G 1, timed)
      and K1 at n 4 and 6 run in phases 14 and 13. The kernels line gets a
@@ -283,7 +289,9 @@ from diff_qp_mpc_tpu_torch.benchmarks.flops import (
 from diff_qp_mpc_tpu_torch.benchmarks.kernel_layouts import (
     F32_VS_F64_RATIO,
     K1_TOL,
+    K4W_TOL,
     k2_inputs,
+    lqr_problem,
     random_bt_spd,
 )
 from diff_qp_mpc_tpu_torch.benchmarks.timing import (
@@ -523,12 +531,12 @@ CP2_IP_META = CP2_IP_CKPT + ".meta.json"
 # step), so the fused path runs 64 episodes cut to 15 steps (every episode
 # that succeeds on the port's draw does so within its first 10 steps) and
 # the scan path to 10
-CP2_IP_RUNS = (("cp2-ip-fused", ["--fused"], 15, "K4", 6 * 3),
+CP2_IP_RUNS = (("cp2-ip-fused", ["--fused"], 15, "K4w", 6 * 3),
                ("cp2-ip-scan", [], 10, "K3", 6 * 3 * 12 * 2))
-# its training, cut as cp1's: per DEQ-MPC step 18 K4 and one K3 backward
-# solve per tracking solve
+# its training, cut as cp1's: per DEQ-MPC step 18 K4 (on the warp layout,
+# K4w, at (5, 6, 1)) and one K3 backward solve per tracking solve
 CP2_IP_TRAIN_PRETRAIN, CP2_IP_TRAIN_DEQMPC = 20, 20
-LAUNCHES_PER_TRAIN_STEP["cp2-ip-fused"] = {"K4": 6 * 3, "K3": 6}
+LAUNCHES_PER_TRAIN_STEP["cp2-ip-fused"] = {"K4w": 6 * 3, "K3": 6}
 TRACED_TRAIN_STEPS["cp2-ip-fused"] = 2
 # the MPC expert planners' (T, nx, nu) (learning/datagen.py EXPERT_PLANNER):
 # cp2 stabilize (terminal LQR), the pendulum's two, the integrator's CLI
@@ -538,10 +546,14 @@ K3_HORIZON_SHAPES = ((10, 6, 1), (20, 2, 1), (40, 2, 1), (30, 2, 1),
 # the datasets' batch by (nx, nu): 200 trajectories, the quadrotor's 300
 K3_DATASET_B = {(12, 4): 300}
 # the device ms of the terminal-LQR kernel rows (K3 at (5, 6, 1), the
-# horizon kernel, K4 at (5, 6, 1)) come from CUDA events queued
+# horizon kernels, K4 at (5, 6, 1)) come from CUDA events queued
 # behind a spin kernel (timing.queued_events_ms), not from torch.profiler:
 # on one card machine the profiler saw no time of the horizon kernel in
-# three windows running, where on another it saw every launch
+# three windows running, where on another it saw every launch; the
+# warp-layout horizon kernel is also timed by the profiler
+# (``ms_profiler``): on an NVIDIA H100 80GB HBM3 at 700 W it read 4-17%
+# below the queued events at every shape and batch, the events' own cost,
+# and in one run saw no time of it in the coverage phase (PERF.md)
 
 # the expert runs: (name, env, env flags, trajectories, MPC steps)
 EXPERT_RUNS = (("cp2-stabilize", "cartpole2link", {"stabilization": True},
@@ -677,10 +689,11 @@ TRACED_TRAIN_STEPS["quad-ip-fused"] = 1
 # shapes, B 64: float64 within 1e-9 and float32 within 5e-3 of each
 # output's largest entry or 1, as K4's profiler cases hold float32 (its sums
 # over the warp run in another order, so it agrees to rounding, not bit for
-# bit); and timed beside the thread layout at (5, 6, 1), B 64 and 256
-K4W_TOL = {torch.float32: 5e-3, torch.float64: 1e-9}
+# bit; kernel_layouts.K4W_TOL); at the cartpoles' slew shapes, within
+# K4_TOL, as they were held on the thread layout (cp2's (5, 6, 1) is
+# checked in phase_cp2_qps)
 K4W_SHAPES = ((5, 12, 4), (5, 16, 4))
-K4W_VS_THREAD = ((5, 6, 1), (EPISODES, 256))
+K4W_CARTPOLE_SHAPES = ((5, 5, 1), (5, 7, 1))
 # (d) the slew option on the other models at the ip checkpoint's budget
 # (SLEW_QP_ITER, IP_BUDGET, SLEW_PENALTY, B 64) on their k2_models tracking
 # problems, float64: the augmented QP at (5, nx + nu, nu) on K3's horizon
@@ -829,21 +842,6 @@ def phase_k2():
 
 
 # ---------------------------------------------------------------- K3 ----
-def lqr_problem(B, T_, nx, nu, dtype, seed, device="cuda"):
-    """Random LQR-KKT system with SPD stage costs, on the card."""
-    rng = np.random.RandomState(seed)
-    M = rng.randn(B, T_, nx, nx)
-    Mu = rng.randn(B, T_, nu, nu)
-    arrays = (M @ M.transpose(0, 1, 3, 2) + np.eye(nx),
-              0.2 * rng.randn(B, T_, nx, nu),
-              Mu @ Mu.transpose(0, 1, 3, 2) + np.eye(nu),
-              rng.randn(B, T_, nx), rng.randn(B, T_, nu),
-              np.eye(nx) + 0.1 * rng.randn(B, T_ - 1, nx, nx),
-              0.2 * rng.randn(B, T_ - 1, nx, nu),
-              0.1 * rng.randn(B, T_ - 1, nx), rng.randn(B, nx))
-    return [torch.tensor(a, dtype=dtype, device=device) for a in arrays]
-
-
 def dense_kkt(Cxx, Cxu, Cuu, gx, gu, A, Bm, r, dx0, reg):
     """The LQR-KKT system K3 solves, assembled dense per element:
     [[H, Eᵀ], [E, 0]] [w; λ] = [−g; dx0; r] with w = (x₀, u₀, …) and λ
@@ -1257,11 +1255,14 @@ def kernel_wrappers():
 
 
 def layout_counts():
-    """The count of K1's warp layout within K1's count (K1w, n 16, at the
-    horizons whose block fits the card's shared memory)."""
-    from diff_qp_mpc_tpu_torch.ops import btsolve_cuda
+    """The counts of the warp layouts within their kernel's count: K1's
+    (K1w, n 16, at the horizons whose block fits the card's shared memory)
+    within K1's, K3's warp-layout horizon kernel (K3hw, the quadrotor's
+    (nx, nu)) within K3h's."""
+    from diff_qp_mpc_tpu_torch.ops import btsolve_cuda, riccati_cuda
 
-    return {"K1w": (btsolve_cuda, "warp_launches")}
+    return {"K1w": (btsolve_cuda, "warp_launches"),
+            "K3hw": (riccati_cuda, "horizon_warp_launches")}
 
 
 def reset_launches():
@@ -1272,7 +1273,7 @@ def reset_launches():
 
 
 def read_layout_launches():
-    """The warp layout's launch count, by id (see layout_counts)."""
+    """The warp layouts' launch counts, by id (see layout_counts)."""
     return {k: getattr(module, count)
             for k, (module, count) in layout_counts().items()}
 
@@ -1958,9 +1959,11 @@ def k3_check(args, reg, ratio=None):
 def k3_timing(args, reg, name=None):
     """ms of the kernel ``name`` (by default the one the shape routes to;
     device time from events queued behind a spin kernel, see the note
-    above EXPERT_RUNS), of the plain version, and of torch.linalg.solve on
-    the dense KKT system (events around 50 calls, as phase_k3's rows), and
-    the bound, float32."""
+    above EXPERT_RUNS; the warp-layout horizon kernel also by the
+    profiler, ``ms_profiler``, or the profiler's error where it saw none),
+    of the plain version, and of torch.linalg.solve on the dense KKT
+    system (events around 50 calls, as phase_k3's rows), and the bound,
+    float32."""
     from diff_qp_mpc_tpu_torch.ops import riccati_cuda
 
     B, T_, nx, nu = args[1].shape
@@ -1970,6 +1973,14 @@ def k3_timing(args, reg, name=None):
                ms=queued_events_ms(kern, 20),
                plain_ms=events_ms(lambda: _plain_k3(args, reg), 3,
                                   warmup=1))
+    if name == "riccati_horizon_warp":
+        try:
+            row["ms_profiler"] = device_kernel_ms(
+                kern, 20, "riccati_horizon_warp_kernel")
+        except RuntimeError as err:  # the profiler missed K3h before
+            row["ms_profiler"] = str(err)
+        row["shared_memory"] = riccati_cuda.warp_smem(
+            args[0].dtype, nx, nu, args[0].device)
     Kd, rhs = dense_kkt(*args, reg)
     library = lambda: torch.linalg.solve(Kd, rhs)
     row["library_ms"] = events_ms(library, 50)
@@ -1984,7 +1995,11 @@ def phase_k3_horizon():
     """(a) K3 at (5, 6, 1) (the unrolled kernel) and the horizon kernel at
     every expert planner's shape, B 64, 256 and the dataset's batch, both
     dtypes, against the plain version (k3_check); timed in float32 at B
-    64, the horizon kernel also at (5, 6, 1) beside the unrolled one."""
+    64, the horizon kernel also at (5, 6, 1) beside the unrolled one (at
+    the quadrotor's (20, 12, 4) the warp-layout horizon kernel, also by the
+    profiler)."""
+    from diff_qp_mpc_tpu_torch.ops import riccati_cuda
+
     reg = IP_BUDGET["reg"]
     rows = {}
     for shape in ((T, 6, 1),) + K3_HORIZON_SHAPES:
@@ -1999,6 +2014,9 @@ def phase_k3_horizon():
         args = lqr_problem(EPISODES, T_, nx, nu, torch.float32,
                            seed=EPISODES + T_)
         rows[key] = dict(k3_timing(args, reg), checks=checks)
+        rows[key]["max_abs_err"] = _max_errs(
+            riccati_cuda.batched_lqr_kkt_solve(*args, reg),
+            _plain_k3(args, reg))[0]
         if T_ == T:
             rows[key]["horizon_kernel"] = k3_timing(args, reg,
                                                     "riccati_horizon")
@@ -2112,7 +2130,14 @@ def phase_cp2_qps():
                     plain_ms=events_ms(
                         lambda: trajqp_fused_cuda.fused_trajqp_solve_reference(
                             *arrays, *bounds, **IP_BUDGET), 3, warmup=1),
-                    library_ms=None)
+                    library_ms=None,
+                    layout=trajqp_fused_cuda.layout_for(T, 6, 1),
+                    max_abs_err=_max_errs(kern(), trajqp_fused_cuda.
+                                          fused_trajqp_solve_reference(
+                                              *arrays, *bounds,
+                                              **IP_BUDGET))[0],
+                    shared_memory=trajqp_fused_cuda.warp_smem(
+                        dtype, T, 6, 1, arrays[0].device))
                 rows["timing"]["bound_ms"], rows["timing"]["bound_by"] = \
                     bound(B * k4_bytes(T, 6, 1),
                           B * k4_ops(T, 6, 1, IP_BUDGET["max_iter"]))
@@ -2202,11 +2227,12 @@ def phase_cp2_ip_main_path():
     return runs
 
 
-def expert_run(name, env, num_traj, max_steps, per_step):
+def expert_run(name, env, num_traj, max_steps, per_step, warp):
     """The MPC expert (datagen.mpc_expert_rollouts, float64, the default)
     on ``env`` from its reset draw: the launch counts set to 0 before every
     MPC step and read after it, exactly ``per_step`` horizon-kernel (K3h)
-    launches and no other kernel; ms per step (host clock, each step ends
+    launches and no other kernel, all of them on the warp layout (K3hw)
+    where ``warp``, none otherwise; ms per step (host clock, each step ends
     in a copy to the host), the success share of the trajectories' last
     states; its first step's actions against the CPU expert's on the first
     EXPERT_CPU_ROWS initial states, within EXPERT_TOL of their largest; and
@@ -2221,15 +2247,17 @@ def expert_run(name, env, num_traj, max_steps, per_step):
 
     want = {k: 0 for k in kernel_wrappers()}
     want["K3h"] = per_step
+    want_layouts = {k: 0 for k in layout_counts()}
+    want_layouts["K3hw"] = per_step if warp else 0
     times, bad = [], []
     t_prev = [time.perf_counter()]
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = {}
 
     def on_step(step):
-        counts = read_launches()
-        if counts != want:
-            bad.append((step, counts))
+        counts, layouts = read_launches(), read_layout_launches()
+        if counts != want or layouts != want_layouts:
+            bad.append((step, counts, layouts))
         reset_launches()
         now = time.perf_counter()
         times.append((now - t_prev[0]) * 1e3)
@@ -2257,7 +2285,7 @@ def expert_run(name, env, num_traj, max_steps, per_step):
     busy, kernels = _trace_device_time(trace)
     if bad:
         raise RuntimeError(f"{name}: launches per MPC step {bad[:3]}, "
-                           f"expected {want}")
+                           f"expected {want} and {want_layouts}")
     finals = torch.as_tensor(np.stack([t[-1][0] for t in trajs]))
     # the reset draw the card run started from (drawn on the CPU, float64)
     x0 = env._sample_init(torch.Generator().manual_seed(0), num_traj)
@@ -2279,7 +2307,9 @@ def expert_run(name, env, num_traj, max_steps, per_step):
                device_busy_share=sum(busy.values()) / window["wall_us"],
                device_launches_per_step=sum(
                    c for _, c in kernels.values()) / 2,
-               launches_total={"K3h": per_step * len(times)})
+               launches_total={"K3h": per_step * len(times)},
+               layout_launches_total={"K3hw": want_layouts["K3hw"]
+                                      * len(times)})
     log("expert", json.dumps(row))
     if not (all(np.isfinite(p).all() for t in trajs for s in t for p in s)
             and row["first_action_card_vs_cpu"] <= row["tol"]):
@@ -2290,17 +2320,20 @@ def expert_run(name, env, num_traj, max_steps, per_step):
 def phase_experts():
     """(e) the cp2 stabilize expert (terminal LQR, T 10, K3h at (10, 6, 1))
     on 64 trajectories cut to 20 steps, and the quadrotor's (T 20, K3h at
-    (20, 12, 4)) on 16 × 5; per MPC step (qp_iter + 1) QPs × max_iter 12
-    × 2 Riccati solves."""
+    (20, 12, 4) on the warp layout) on 16 × 5; per MPC step (qp_iter + 1)
+    QPs × max_iter 12 × 2 Riccati solves."""
     from diff_qp_mpc_tpu_torch.envs import make_env
     from diff_qp_mpc_tpu_torch.learning import datagen
+    from diff_qp_mpc_tpu_torch.ops import riccati_cuda
 
     out = {}
     for name, env_name, kw, n, steps in EXPERT_RUNS:
         env = make_env(env_name, **kw)
-        qp_iter = datagen.planner_settings(env)["qp_iter"]
-        per_step = (qp_iter + 1) * IP_BUDGET["max_iter"] * 2
-        out[name] = expert_run(name, env, n, steps, per_step)
+        planner = datagen.planner_settings(env)
+        per_step = (planner["qp_iter"] + 1) * IP_BUDGET["max_iter"] * 2
+        warp = riccati_cuda.kernel_for(planner["T"], env.nx, env.nu) == \
+            "riccati_horizon_warp"
+        out[name] = expert_run(name, env, n, steps, per_step, warp)
     return out
 
 
@@ -3268,10 +3301,17 @@ def phase_deq_family():
 # ------------------------------------ every model on every solver path --
 def coverage_quad_ip():
     """(a) DEQ-MPC training with the quadrotor checkpoint's meta flags on
-    the ip fused path (K4w forward, K3h backward), cut; (b) its checkpoint
-    closed-loop through the evaluate entry point (18 K4w a step)."""
+    the ip fused path (K4w forward, K3h backward, every K3h on the warp
+    layout), cut; (b) its checkpoint closed-loop through the evaluate entry
+    point (18 K4w a step)."""
     train = phase_model_train("quad-ip-fused", QUAD_META, QUAD_IP_PRETRAIN,
                               QUAD_IP_DEQMPC, extra=["--solver_type", "ip"])
+    if train["layout_launches_total"]["K3hw"] != \
+            train["launches_total"]["K3h"]:
+        raise RuntimeError(f"quad-ip-fused training: K3h "
+                           f"{train['launches_total']['K3h']}, of them on "
+                           f"the warp layout "
+                           f"{train['layout_launches_total']['K3hw']}")
     ckpt = os.path.join(TRAIN_LOGDIR, "quad-ip-fused", "ckpt.msgpack")
     loop = closed_loops(
         [("quad-ip-fused", ["--ckpt", ckpt, "--fused", "--episodes",
@@ -3316,32 +3356,27 @@ def _k4_random(B, shape, dtype):
             dict(IP_BUDGET, u_lo=box.u_lo, u_hi=box.u_hi))
 
 
-def _k4_timing(shape, B, layout=None):
+def _k4_timing(shape, B):
     """Float32 ms per launch of K4 at ``shape`` (queued events, as the
     other K4 rows), the plain version's, and the bound, at B."""
     from diff_qp_mpc_tpu_torch.ops import trajqp_fused_cuda
 
     args, kw = _k4_random(B, shape, torch.float32)
-    kern = lambda: trajqp_fused_cuda._launch(
-        *args, kw["u_lo"], kw["u_hi"], kw["max_iter"], kw["reg"],
-        kw["min_slack"], layout=layout)
-    row = dict(B=B, shape=shape, layout=layout or trajqp_fused_cuda.
-               layout_for(*shape), ms=queued_events_ms(kern, 10),
-               library_ms=None)
+    kern = lambda: trajqp_fused_cuda.fused_trajqp_solve(*args, **kw)
+    row = dict(B=B, shape=shape, layout=trajqp_fused_cuda.layout_for(*shape),
+               ms=queued_events_ms(kern, 10), library_ms=None)
     row["bound_ms"], row["bound_by"] = bound(
         B * k4_bytes(*shape), B * k4_ops(*shape, IP_BUDGET["max_iter"]))
     return row
 
 
 def coverage_k4():
-    """(c) K4 on the warp layout at the quadrotor's shapes against its plain
-    version, B 64, both dtypes: on the profiler's random QPs and on the
-    quadrotor's own QPs (recorded from its ip and slew solves on the card in
+    """(c) K4 on the warp layout at the quadrotor's shapes and the
+    cartpoles' slew shapes (5, 5, 1) and (5, 7, 1) against its plain
+    version, B 64, both dtypes: on the profiler's random QPs and, at the quadrotor's,
+    on its own QPs (recorded from its ip and slew solves on the card in
     float32, checked in both dtypes); timed with its plain version and
-    bound; its shared memory; and at (5, 6, 1) beside the thread layout at
-    B 64 and 256 (the wrapper keeps the thread layout there). K4 on the
-    thread layout at the cartpoles' slew shapes (5, 5, 1) and (5, 7, 1)
-    against its plain version, timed."""
+    bound; its shared memory."""
     from diff_qp_mpc_tpu_torch.ops import trajqp_fused_cuda
 
     out = {}
@@ -3352,9 +3387,8 @@ def coverage_k4():
         with torch.no_grad():
             _model_sqp("quadrotor", "fused", torch.float32, slew=True)
     own = {(5, 12, 4): ip_calls, (5, 16, 4): slew_calls}
-    for shape in K4W_SHAPES + ((5, 5, 1), (5, 7, 1)):
-        warp = shape in K4W_SHAPES
-        tols = K4W_TOL if warp else K4_TOL
+    for shape in K4W_SHAPES + K4W_CARTPOLE_SHAPES:
+        tols = K4W_TOL if shape in K4W_SHAPES else K4_TOL
         checks = []
         for dtype in (torch.float32, torch.float64):
             args, kw = _k4_random(EPISODES, shape, dtype)
@@ -3377,19 +3411,11 @@ def coverage_k4():
             row[f"max_scaled_err_{dtype[6:]}"] = max(
                 max(c["scaled_err"].values()) for c in checks
                 if c["dtype"] == dtype)
-        if warp:
-            row["shared_memory"] = trajqp_fused_cuda.warp_smem(
-                torch.float32, *shape, CARD)
+        row["shared_memory"] = trajqp_fused_cuda.warp_smem(
+            torch.float32, *shape, CARD)
         log("coverage K4", json.dumps({k: v for k, v in row.items()
                                        if k != "checks"}))
         out[shape] = row
-    shape, batches = K4W_VS_THREAD
-    out["warp vs thread"] = [dict(thread=_k4_timing(shape, B, "thread")["ms"],
-                                  warp=_k4_timing(shape, B, "warp")["ms"],
-                                  thread_again=_k4_timing(shape, B,
-                                                          "thread")["ms"],
-                                  B=B, shape=shape) for B in batches]
-    log("coverage K4 warp vs thread", json.dumps(out["warp vs thread"]))
     return out
 
 
@@ -3419,19 +3445,21 @@ def coverage_slew():
                                 requires_grad=True)
             sync()
             ms = 1e3 * (time.perf_counter() - t0)
-            fwd = read_launches()
+            fwd, fwd_layouts = read_launches(), read_layout_launches()
             reset_launches()
             (res.u ** 2).sum().backward()
-            bwd = read_launches()
+            bwd, bwd_layouts = read_launches(), read_layout_launches()
             ref, _ = _model_sqp(name, kernel, torch.float64, slew=True,
                                 device="cpu")
             row = dict(model=name, shape=shape, kernel=kernel,
                        ms_per_solve=ms, launches=fwd, backward_launches=bwd,
+                       layout_launches=fwd_layouts,
+                       backward_layout_launches=bwd_layouts,
                        u_card_vs_cpu=float((res.u.detach().cpu()
                                             - ref.u).abs().max()))
             log("coverage slew", json.dumps(row))
             out["runs"].append(row)
-            for counts in (fwd, bwd):
+            for counts in (fwd, bwd, fwd_layouts, bwd_layouts):
                 for k, v in counts.items():
                     if v:
                         key = f"{k} {shape}"
@@ -3439,7 +3467,12 @@ def coverage_slew():
             others = {k: v for k, v in fwd.items() if k != kid and v}
             bad_bwd = {k: v for k, v in bwd.items()
                        if v != (1 if k == k3 else 0)}
-            if (fwd[kid] != per_solve or others or bad_bwd
+            # every K3h of a warp-layout shape on the warp layout
+            warp = riccati_cuda.kernel_for(*shape) == "riccati_horizon_warp"
+            bad_layout = (fwd_layouts["K3hw"] != (fwd["K3h"] if warp else 0)
+                          or bwd_layouts["K3hw"] != (bwd["K3h"] if warp
+                                                     else 0))
+            if (fwd[kid] != per_solve or others or bad_bwd or bad_layout
                     or not row["u_card_vs_cpu"] <= SLEW_TOL):
                 raise RuntimeError(f"coverage slew: {row}, expected "
                                    f"{per_solve} {kid} launches and one "
@@ -3555,8 +3588,8 @@ def phase_coverage():
 
 def coverage_kernel_rows(cov):
     """The kernels line's rows of this phase's shapes: K4 on the warp
-    layout at (5, 12, 4) and (5, 16, 4), K4 at (5, 5, 1) and (5, 7, 1), and
-    K3's horizon kernel at T 5 where the unrolled kernel lacks the shape:
+    layout at (5, 5, 1), (5, 7, 1), (5, 12, 4) and (5, 16, 4), and K3's
+    horizon kernels at T 5 where the unrolled kernel lacks the shape:
     float32 ms at B 64 with plain, library and bound, the largest errors of
     their checks, and the launches of the runs that take them."""
     tr = cov["quad_ip"]["train"]["launches_total"]
@@ -3564,42 +3597,41 @@ def coverage_kernel_rows(cov):
     slew = cov["slew"]["launches"]
     rows = []
     for shape, row in cov["k4"].items():
-        if not isinstance(shape, tuple):
-            continue
-        warp = shape in K4W_SHAPES
-        kid = "K4w" if warp else "K4"
-        by_run = {"coverage slew": slew.get(f"{kid} {shape}", 0)}
+        by_run = {"coverage slew": slew.get(f"K4w {shape}", 0)}
         if shape == (5, 12, 4):
             by_run = {"quad-ip-fused training": tr["K4w"],
                       "quad-ip-fused closed loop": loop["K4w"]}
         rows.append(dict(
-            name=f"trajqp_fused (K4) {shape}" + (
-                ", one warp per element" if warp else ""),
+            name=f"trajqp_fused (K4) {shape}, one warp per element",
             route="cuda",
-            source="diff_qp_mpc_tpu_torch/csrc/" + (
-                "trajqp_fused_warp.cu" if warp else "trajqp_fused.cu"),
+            source="diff_qp_mpc_tpu_torch/csrc/trajqp_fused_warp.cu",
             replaces="diff_qp_mpc_tpu/ops/trajqp_fused_pallas.py:308",
             launches=sum(by_run.values()), launches_by_run=by_run,
             **{k: row[k] for k in (
                 "max_abs_err", "max_scaled_err_float32",
                 "max_scaled_err_float64", "ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms")},
+                "bound_by", "library_ms", "shared_memory")},
             tolerance={str(d)[6:]: t for d, t in (
-                K4W_TOL if warp else K4_TOL).items()},
-            **({"shared_memory": row["shared_memory"]} if warp else {}),
+                K4W_TOL if shape in K4W_SHAPES else K4_TOL).items()},
             shape=f"B={EPISODES} T={shape[0]} nx={shape[1]} nu={shape[2]} "
                   "float32"))
     for shape, row in cov["slew"]["K3h"].items():
-        by_run = ({"quad-ip-fused training": tr["K3h"]} if shape == (5, 12, 4)
-                  else {"coverage slew": slew.get(f"K3h {shape}", 0)})
+        warp = row["kernel"] == "riccati_horizon_warp"
+        kid = "K3hw" if warp else "K3h"
+        by_run = ({"quad-ip-fused training": cov["quad_ip"]["train"][
+            "layout_launches_total"]["K3hw"]} if shape == (5, 12, 4)
+                  else {"coverage slew": slew.get(f"{kid} {shape}", 0)})
         rows.append(dict(
-            name=f"riccati_horizon (K3) {shape}", route="cuda",
-            source="diff_qp_mpc_tpu_torch/csrc/riccati_horizon.cu",
+            name=f"{row['kernel']} (K3) {shape}" + (
+                ", one warp per element" if warp else ""), route="cuda",
+            source=f"diff_qp_mpc_tpu_torch/csrc/{row['kernel']}.cu",
             replaces="diff_qp_mpc_tpu/ops/riccati_pallas.py:219",
             launches=sum(by_run.values()), launches_by_run=by_run,
             **{k: row[k] for k in (
                 "max_abs_err", "max_rel_err_float32", "max_rel_err_float64",
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{k: row[k] for k in ("ms_profiler", "shared_memory")
+               if k in row},
             shape=f"B={EPISODES} T={shape[0]} nx={shape[1]} nu={shape[2]} "
                   "float32"))
     return rows
@@ -3627,9 +3659,7 @@ def k3_by_shape(k3_horizon, cp2_qps, cp2_runs, training, experts):
         entry = {k: row[k] for k in ("kernel", "ms", "plain_ms",
                                      "library_ms", "bound_ms", "bound_by",
                                      "library_max_rel_err")}
-        entry["source"] = ("diff_qp_mpc_tpu_torch/csrc/riccati.cu"
-                           if row["kernel"] == "riccati" else
-                           "diff_qp_mpc_tpu_torch/csrc/riccati_horizon.cu")
+        entry["source"] = f"diff_qp_mpc_tpu_torch/csrc/{row['kernel']}.cu"
         for dtype in ("torch.float32", "torch.float64"):
             mine = [c for c in checks if c["dtype"] == dtype]
             entry[f"max_rel_err_{dtype[6:]}"] = max(
@@ -3648,18 +3678,44 @@ def k3_by_shape(k3_horizon, cp2_qps, cp2_runs, training, experts):
     return out
 
 
-def k4_by_shape(cp2_qps, cp2_runs, training):
-    """The kernels line's K4 row at (5, 6, 1): float32 ms at B 64 with
-    plain and bound, the errors of the random-QP and checkpoint-QP checks,
-    and the launches of the cp2 ip checkpoint's fused runs."""
+def new_warp_rows(k3_horizon, cp2_qps, cp2_runs, training, experts):
+    """The kernels line's rows of the warp layouts this PR's phases time
+    outside the coverage phase: K3's horizon kernel at the quadrotor
+    expert's (20, 12, 4) (float32 ms at B 64 with plain, library and bound,
+    its checks' largest errors, the expert's launches, all on the warp
+    layout) and K4 at (5, 6, 1) (the same on the K4 profiler's random QPs,
+    its checkpoint-QP check, the cp2 ip fused runs' launches)."""
+    k3 = k3_horizon["T20 nx12 nu4"]
+    worst = {dt: max(c.get("kernel_vs_f64", c["max_rel_err"])
+                     for c in k3["checks"] if c["dtype"] == f"torch.{dt}")
+             for dt in ("float32", "float64")}
+    k3_runs = {"quadrotor expert": experts["quadrotor"][
+        "layout_launches_total"]["K3hw"]}
     t = cp2_qps["timing"]
     rand = cp2_qps["K4 random"]
     ckpt = cp2_qps["K4 checkpoint QPs"]
-    closed = cp2_runs["cp2-ip-fused"]["launches"]["K4"]
-    trained = training["cp2-ip-fused"]["launches_total"]["K4"]
-    return {"T5 nx6 nu1": dict(
-        {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                           "library_ms")},
+    k4_runs = {"cp2-ip-fused closed loop": cp2_runs["cp2-ip-fused"][
+        "launches"]["K4w"], "cp2-ip-fused training": training[
+        "cp2-ip-fused"]["launches_total"]["K4w"]}
+    rows = [dict(
+        name=f"{k3['kernel']} (K3) (20, 12, 4), one warp per element",
+        route="cuda", source=f"diff_qp_mpc_tpu_torch/csrc/{k3['kernel']}.cu",
+        replaces="diff_qp_mpc_tpu/ops/riccati_pallas.py:219",
+        launches=sum(k3_runs.values()), launches_by_run=k3_runs,
+        max_rel_err_float32=worst["float32"],
+        max_rel_err_float64=worst["float64"],
+        **{k: k3[k] for k in ("max_abs_err", "ms", "ms_profiler",
+                              "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "library_max_rel_err",
+                              "shared_memory")},
+        shape=f"B={EPISODES} T=20 nx=12 nu=4 float32"), dict(
+        name="trajqp_fused (K4) (5, 6, 1), one warp per element",
+        route="cuda",
+        source="diff_qp_mpc_tpu_torch/csrc/trajqp_fused_warp.cu",
+        replaces="diff_qp_mpc_tpu/ops/trajqp_fused_pallas.py:308",
+        launches=sum(k4_runs.values()), launches_by_run=k4_runs,
+        **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms", "shared_memory")},
         max_scaled_err_float32=max(max(r["scaled_err"].values())
                                    for r in rand
                                    if r["dtype"] == "torch.float32"),
@@ -3670,9 +3726,12 @@ def k4_by_shape(cp2_qps, cp2_runs, training):
                                          for r in ckpt),
         checkpoint_qps_plain_vs_f64=max(max(r["plain_vs_f64"].values())
                                         for r in ckpt),
-        launches=closed + trained,
-        launches_by_run={"cp2-ip-fused closed loop": closed,
-                         "cp2-ip-fused training": trained})}
+        shape=f"B={EPISODES} T=5 nx=6 nu=1 float32")]
+    for row in rows:
+        if row["launches"] <= 0:
+            raise RuntimeError(f"{row['name']}: launched no time on the "
+                               f"main path: {row['launches_by_run']}")
+    return rows
 
 
 def ptxas_summary(text):
@@ -3982,10 +4041,9 @@ def main():
                 for row in experts.values())
             kernels[-1]["by_shape"] = k3_by_shape(
                 k3_horizon, cp2_qps, cp2_runs, training, experts)
-        if kid == "K4":
-            kernels[-1]["by_shape"] = k4_by_shape(cp2_qps, cp2_runs,
-                                                  training)
     kernels.extend(slew_kernel_rows(slew))
+    kernels.extend(new_warp_rows(k3_horizon, cp2_qps, cp2_runs, training,
+                                 experts))
     kernels.extend(coverage_kernel_rows(cov))
     # the CosSin models' K1 (n 4, n 6) and K2 launches in phase 22
     cossin = cov["cossin"]["launches"]

@@ -20,7 +20,7 @@ line per run (wall seconds, ms per MPC step, the criteria) and writes them
 to ``--out`` (default ``build/expert_runs.json``). Raises without a card.
 
     PYTHONPATH=$PWD python -m diff_qp_mpc_tpu_torch.benchmarks.expert_runs \\
-        [--out PATH]
+        [--out PATH] [--runs cp2,quad]
 """
 from __future__ import annotations
 
@@ -94,10 +94,16 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=os.path.join("build",
                                                  "expert_runs.json"))
+    p.add_argument("--runs", default=",".join(sorted(RUNS)),
+                   help="comma-separated runs of " + ", ".join(sorted(RUNS)))
     args = p.parse_args(argv)
+    names = [n for n in args.runs.split(",") if n]
+    unknown = set(names) - set(RUNS)
+    if unknown:
+        raise ValueError(f"unknown runs {sorted(unknown)}")
     resolve_device(None)  # raises without a card
     rows = []
-    for name in sorted(RUNS):
+    for name in names:
         rows.append(run(name))
         print("expert run", json.dumps(rows[-1]), flush=True)
     card = card_name_and_power_limit()

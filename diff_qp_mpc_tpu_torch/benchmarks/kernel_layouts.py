@@ -1,4 +1,4 @@
-"""K2's lanes per element and K1's layouts on the card.
+"""K2's lanes per element and K1's, K3's and K4's layouts on the card.
 
     python -m diff_qp_mpc_tpu_torch.benchmarks.kernel_layouts \\
         [--out build/kernel_layouts.json]
@@ -21,7 +21,18 @@ pendulum, n 3):
     against the float64 solution at ρ 1 … 1e6, within ``K1_AL_RATIO`` of
     the plain float32 version's own error; and the warp layout's float32
     computation on the quadrotor's systems over ``K1_RULE_SEEDS`` draws
-    (``k1_compute_rule``), the check that sets its compute type.
+    (``k1_compute_rule``), the check that sets its compute type;
+  - K3's horizon kernels at the quadrotor's (nx, nu) (``k3_layouts``): the
+    warp layout and, where it is still built, the one-thread layout, at
+    ``K3_WARP_SHAPES`` × ``K3_WARP_BATCHES``, both dtypes: queued-event ms
+    in turns (thread, warp, warp, thread), the profiler's ms of the warp
+    kernel, errors against the plain version (float64 within
+    ``K3_LAYOUT_TOL``; float32 against the float64 solution within
+    ``F32_VS_F64_RATIO`` of the plain float32 version's error);
+  - K4 at the cartpoles' shapes (``k4_layouts``): the warp layout and,
+    where it is still built, the thread layout, at ``K4_WARP_BATCHES``,
+    both dtypes, timed in the same turns, each within ``K4W_TOL`` of the
+    plain version on all eight outputs.
 A mismatch, or an error above tolerance, raises. Without a card it raises.
 ``chip_smoke.py`` runs the same K1 and K2 checks.
 """
@@ -42,10 +53,25 @@ from diff_qp_mpc_tpu_torch.benchmarks.flops import (
     k1_ops,
     k2_bytes,
     k2_ops_with_sin,
+    k3_bytes,
+    k3_ops,
+    k4_bytes,
+    k4_ops,
 )
-from diff_qp_mpc_tpu_torch.benchmarks.timing import device_kernel_ms, events_ms
+from diff_qp_mpc_tpu_torch.benchmarks.timing import (
+    device_kernel_ms,
+    events_ms,
+    queued_events_ms,
+)
 from diff_qp_mpc_tpu_torch.models import Pendulum
-from diff_qp_mpc_tpu_torch.ops import al_fused_cuda, btsolve, btsolve_cuda
+from diff_qp_mpc_tpu_torch.ops import (
+    al_fused_cuda,
+    btsolve,
+    btsolve_cuda,
+    riccati,
+    riccati_cuda,
+    trajqp_fused_cuda,
+)
 from diff_qp_mpc_tpu_torch.utils import cuda_build
 
 BATCHES = (64, 256, 4096, 262144)
@@ -84,6 +110,22 @@ K1_WARP_BATCHES = (8, 64, 128, 256)
 # F32_VS_F64_RATIO times the plain float32 version's (or within the float32
 # tolerance, where the plain version's error is below it)
 F32_VS_F64_RATIO = 2.0
+#: K3 relative to the largest entry (a direct solve: rounding only)
+K3_LAYOUT_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+#: K4 on the warp layout, each output's error over max(1, its largest
+#: entry): its sums over the warp (the norms, μ, σ) run in another order
+#: than the plain version's, so it agrees to rounding, not bit for bit
+K4W_TOL = {torch.float32: 5e-3, torch.float64: 1e-9}
+#: K3's horizon-kernel layouts are timed at the quadrotor's ip and expert
+#: shapes and its slew shape, at the expert's B 16, the paths' 64 and 128,
+#: the dataset's 300 and a filled card's 4096
+K3_WARP_SHAPES = ((5, 12, 4), (20, 12, 4), (5, 16, 4))
+K3_WARP_BATCHES = (16, 64, 128, 300, 4096)
+#: K4's layouts at the cartpoles' shapes, at the paths' 64 and 256 and 4096
+K4_WARP_SHAPES = ((5, 5, 1), (5, 6, 1), (5, 7, 1))
+K4_WARP_BATCHES = (64, 256, 4096)
+#: K4's budget on the ip path (TrajQPConfig defaults)
+K4_BUDGET = dict(max_iter=12, reg=1e-9, min_slack=1e-8)
 
 
 def _reps(B: int) -> int:
@@ -111,6 +153,21 @@ def random_bt_spd(B, T_, n, dtype, seed, device="cuda"):
     b = rng.randn(B, T_, n)
     to = lambda a: torch.tensor(a, dtype=dtype, device=device)
     return to(D), to(O), to(b)
+
+
+def lqr_problem(B, T_, nx, nu, dtype, seed, device="cuda"):
+    """Random LQR-KKT system with SPD stage costs (K3's inputs)."""
+    rng = np.random.RandomState(seed)
+    M = rng.randn(B, T_, nx, nx)
+    Mu = rng.randn(B, T_, nu, nu)
+    arrays = (M @ M.transpose(0, 1, 3, 2) + np.eye(nx),
+              0.2 * rng.randn(B, T_, nx, nu),
+              Mu @ Mu.transpose(0, 1, 3, 2) + np.eye(nu),
+              rng.randn(B, T_, nx), rng.randn(B, T_, nu),
+              np.eye(nx) + 0.1 * rng.randn(B, T_ - 1, nx, nx),
+              0.2 * rng.randn(B, T_ - 1, nx, nu),
+              0.1 * rng.randn(B, T_ - 1, nx), rng.randn(B, nx))
+    return [torch.tensor(a, dtype=dtype, device=device) for a in arrays]
 
 
 def k2_inputs(B, dtype, seed, device="cuda"):
@@ -420,6 +477,134 @@ def k1_compute_rule(seeds=K1_RULE_SEEDS, B=128, reg=AL_BUDGET["reg"]) -> dict:
     return out
 
 
+# ---------------------------------------------------------- K3, K4 ----
+def _turns(fns, reps):
+    """Queued-event ms per call of each of ``fns`` (two), timed in turns
+    a, b, b, a; the mean of each one's two readings."""
+    a, b = fns
+    ms = [queued_events_ms(f, reps) for f in (a, b, b, a)]
+    return (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+
+
+def _rel(got, want):
+    """The largest over matching tensors of max |got − want| / max |want|,
+    in float64."""
+    return max(float((g.double() - w.double()).abs().max()
+                     / w.double().abs().max()) for g, w in zip(got, want))
+
+
+def k3_layouts(shapes=K3_WARP_SHAPES, batches=K3_WARP_BATCHES,
+               reg=K4_BUDGET["reg"]) -> list:
+    """K3's horizon kernels per (shape, dtype, B): each built layout's
+    error (raises above tolerance), queued-event ms of both in turns where
+    both are built, the profiler's ms of the warp layout, the bound, and
+    the faster layout."""
+    rows = []
+    for T_, nx, nu in shapes:
+        for dtype in (torch.float32, torch.float64):
+            for B in batches:
+                args = lqr_problem(B, T_, nx, nu, dtype, seed=B + T_)
+                sol = riccati.batched_lqr_kkt_solve(*args, reg)
+                plain = (sol.dx, sol.du, sol.lam)
+                ref = plain
+                if dtype == torch.float32:
+                    sol = riccati.batched_lqr_kkt_solve(
+                        *(a.double() for a in args), reg)
+                    ref = (sol.dx, sol.du, sol.lam)
+                limit = max(K3_LAYOUT_TOL[dtype],
+                            F32_VS_F64_RATIO * _rel(plain, ref)
+                            if dtype == torch.float32 else 0.0)
+                row = dict(T=T_, nx=nx, nu=nu, B=B, dtype=str(dtype),
+                           limit=limit, ms={})
+                names = [n for n, built in riccati_cuda._HORIZON_KERNELS
+                         .items() if (nx, nu) in built]
+                fns = {}
+                for name in names:
+                    fns[name] = lambda name=name: riccati_cuda._launch(
+                        args, reg, name)
+                    out = fns[name]()
+                    row[f"err_{name}"] = _rel(out, ref)
+                    if not (all(bool(torch.isfinite(o).all()) for o in out)
+                            and row[f"err_{name}"] <= limit):
+                        raise RuntimeError(f"K3 ({name}) disagrees with its "
+                                           f"plain version: {row}")
+                if len(names) == 2:
+                    row["ms"]["riccati_horizon"], \
+                        row["ms"]["riccati_horizon_warp"] = _turns(
+                            (fns["riccati_horizon"],
+                             fns["riccati_horizon_warp"]), 20)
+                else:
+                    row["ms"][names[0]] = queued_events_ms(fns[names[0]], 20)
+                if "riccati_horizon_warp" in fns:
+                    try:  # the profiler has missed K3h on one machine
+                        row["ms_profiler_warp"] = device_kernel_ms(
+                            fns["riccati_horizon_warp"], 20,
+                            "riccati_horizon_warp_kernel")
+                    except RuntimeError as err:
+                        row["ms_profiler_warp"] = str(err)
+                    row["warp_shared_memory"] = riccati_cuda.warp_smem(
+                        dtype, nx, nu, args[0].device)
+                row["faster"] = min(row["ms"], key=row["ms"].get)
+                row["kernel_for"] = riccati_cuda.kernel_for(T_, nx, nu)
+                row["bound_ms"], row["bound_by"] = bound(
+                    B * k3_bytes(T_, nx, nu), B * k3_ops(T_, nx, nu))
+                print("k3_layouts", json.dumps(row), flush=True)
+                rows.append(row)
+    return rows
+
+
+def k4_layouts(shapes=K4_WARP_SHAPES, batches=K4_WARP_BATCHES) -> list:
+    """K4 per (shape, dtype, B) on the profiler benchmark's random box QPs,
+    cold-started: each built layout within K4W_TOL of the plain version
+    on all eight outputs (raises above it), queued-event ms of both in
+    turns where both are built, the bound, and the faster layout."""
+    from diff_qp_mpc_tpu_torch.benchmarks import prof_trajqp_fused as prof
+
+    rows = []
+    for shape in shapes:
+        for dtype in (torch.float32, torch.float64):
+            for B in batches:
+                arrays, box = prof.problem(B, *shape, dtype)
+                args = (*arrays, *prof.cold_start(*arrays), box.u_lo,
+                        box.u_hi, K4_BUDGET["max_iter"], K4_BUDGET["reg"],
+                        K4_BUDGET["min_slack"])
+                ref = trajqp_fused_cuda.fused_trajqp_solve_reference(*args)
+                row = dict(shape=shape, B=B, dtype=str(dtype),
+                           tol=K4W_TOL[dtype], ms={})
+                layouts = [lay for lay, built in (
+                    ("thread", trajqp_fused_cuda.BUILT),
+                    ("warp", trajqp_fused_cuda.WARP_BUILT)) if shape in built]
+                fns = {}
+                for lay in layouts:
+                    fns[lay] = lambda lay=lay: trajqp_fused_cuda._launch(
+                        *args, layout=lay)
+                    out = fns[lay]()
+                    row[f"err_{lay}"] = max(
+                        float((g - w).abs().max()) / max(
+                            1.0, float(w.abs().max()))
+                        for g, w in zip(out, ref))
+                    if not (all(bool(torch.isfinite(o).all()) for o in out)
+                            and row[f"err_{lay}"] <= K4W_TOL[dtype]):
+                        raise RuntimeError(f"K4 ({lay}) disagrees with its "
+                                           f"plain version: {row}")
+                if len(layouts) == 2:
+                    row["ms"]["thread"], row["ms"]["warp"] = _turns(
+                        (fns["thread"], fns["warp"]), 10)
+                else:
+                    row["ms"][layouts[0]] = queued_events_ms(
+                        fns[layouts[0]], 10)
+                row["faster"] = min(row["ms"], key=row["ms"].get)
+                row["layout_for"] = trajqp_fused_cuda.layout_for(*shape)
+                row["warp_shared_memory"] = trajqp_fused_cuda.warp_smem(
+                    dtype, *shape, args[0].device)
+                row["bound_ms"], row["bound_by"] = bound(
+                    B * k4_bytes(*shape),
+                    B * k4_ops(*shape, K4_BUDGET["max_iter"]))
+                print("k4_layouts", json.dumps(row), flush=True)
+                rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path,
@@ -431,7 +616,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: these measurements are of the "
                            "card only")
-    logs = cuda_build.build(["btsolve", "al_fused"])
+    logs = cuda_build.build(["btsolve", "al_fused", "riccati_horizon",
+                             "riccati_horizon_warp", "trajqp_fused",
+                             "trajqp_fused_warp"])
     result = dict(ptxas={k: [ln.strip() for ln in v.splitlines()
                              if "registers" in ln or "spill" in ln
                              or "entry function" in ln]
@@ -453,7 +640,8 @@ MEASUREMENTS = {
         row for n, T_ in btsolve_cuda.ONCHIP_SHAPES[torch.float32]
         if (n, T_) != (N, T) for row in k1_layouts((64, 4096), n=n, T_=T_)],
     "k1_warp": lambda: k1_layouts(K1_WARP_BATCHES, n=16, T_=T),
-    "k1_compute_rule": k1_compute_rule}
+    "k1_compute_rule": k1_compute_rule, "k3_layouts": k3_layouts,
+    "k4_layouts": k4_layouts}
 
 
 if __name__ == "__main__":

@@ -3,15 +3,17 @@
 //
 // Replaces the TPU kernel diff_qp_mpc_tpu/ops/riccati_pallas.py::
 // batched_lqr_kkt_solve (_riccati_kernel) at the horizons of the MPC
-// expert's planners (T 10 to 120), and at T 5 where the unrolled kernel has
-// no instantiation: the quadrotor's ip path (12, 4), CartpoleCosSin's (5,
-// 1), and the slew-augmented shapes of cp1, cp2 and the quadrotor ((5, 1),
-// (7, 1), (16, 4)). Same function as riccati.cu: the backward
-// Riccati recursion over the dense stage blocks, reg added to Quu before its
-// Cholesky factorization, then the forward rollout from dx0, returning
-// (dx, du, λ); each stage's arithmetic, and its order, is riccati_solve's
-// (riccati_common.cuh), so at a shape both kernels build the two round
-// alike.
+// expert's planners (T 10 to 120) whose element fits a thread, and at T 5
+// where the unrolled kernel has no instantiation: CartpoleCosSin's (5, 1)
+// and the slew-augmented shapes of cp1 and cp2 ((5, 1), (7, 1)). The
+// quadrotor's (12, 4) and (16, 4) run on riccati_horizon_warp.cu, one warp
+// per element: here a thread held more than 255 registers at those shapes
+// and spilled 28-176 KB to local memory (PERF.md). Same function as
+// riccati.cu: the backward Riccati recursion over the dense stage blocks,
+// reg added to Quu before its Cholesky factorization, then the forward
+// rollout from dx0, returning (dx, du, λ); each stage's arithmetic, and its
+// order, is riccati_solve's (riccati_common.cuh), so at a shape both
+// kernels build the two round alike.
 //
 // Design: (NX, NU) are template parameters and their loops unroll; the
 // stage loops do not (#pragma unroll 1), so the code size and the registers
@@ -21,9 +23,7 @@
 // rollout reads back (λ needs P and p). The workspace is stage-major with
 // the batch element fastest, ws[(t·W + j)·B + e] (W values a stage), so
 // neighbouring threads touch neighbouring addresses. The inputs keep the
-// callers' batch-major layout. At (12, 4) a thread's P, the products PA and
-// Aᵀ(PA) and the Q blocks exceed its 255 registers and spill to local
-// memory (PERF.md records ptxas's counts).
+// callers' batch-major layout.
 #include <cstddef>
 
 #include "riccati_common.cuh"
@@ -255,8 +255,6 @@ int dispatch(const HorizonArgs& a, int Bsz, int T, int nx, int nu,
   if (nx == 5 && nu == 1) return launch<5, 1, F>(a, Bsz, T, reg, s);
   if (nx == 6 && nu == 1) return launch<6, 1, F>(a, Bsz, T, reg, s);
   if (nx == 7 && nu == 1) return launch<7, 1, F>(a, Bsz, T, reg, s);
-  if (nx == 12 && nu == 4) return launch<12, 4, F>(a, Bsz, T, reg, s);
-  if (nx == 16 && nu == 4) return launch<16, 4, F>(a, Bsz, T, reg, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -276,8 +274,6 @@ extern "C" int riccati_horizon_workspace(int nx, int nu) {
   if (nx == 5 && nu == 1) return dqmpc::workspace_values<5, 1>();
   if (nx == 6 && nu == 1) return dqmpc::workspace_values<6, 1>();
   if (nx == 7 && nu == 1) return dqmpc::workspace_values<7, 1>();
-  if (nx == 12 && nu == 4) return dqmpc::workspace_values<12, 4>();
-  if (nx == 16 && nu == 4) return dqmpc::workspace_values<16, 4>();
   return 0;
 }
 
@@ -285,8 +281,9 @@ extern "C" int riccati_horizon_workspace(int nx, int nu) {
 // gu [B,T,nu], A [B,T-1,nx,nx], B [B,T-1,nx,nu], r [B,T-1,nx], dx0 [B,nx]
 // -> dx [B,T,nx], du [B,T,nu], lam [B,T,nx]; all contiguous; ws holds
 // T·W·B scalars (riccati_horizon_workspace). Built for (nx, nu) = (2, 1),
-// (4, 1), (5, 1), (6, 1), (7, 1), (12, 4) and (16, 4), any T ≥ 1;
-// cudaErrorInvalidValue otherwise.
+// (4, 1), (5, 1), (6, 1) and (7, 1), any T ≥ 1; cudaErrorInvalidValue
+// otherwise (the quadrotor's (12, 4) and (16, 4) run on
+// riccati_horizon_warp.cu).
 // Returns a cudaError_t code.
 #define RICCATI_HORIZON_ENTRY(NAME, F)                                       \
   extern "C" int NAME(const void* Cxx, const void* Cxu, const void* Cuu,     \

@@ -2,7 +2,9 @@
 // one thread per batch element.
 //
 // Replaces the TPU kernel diff_qp_mpc_tpu/ops/trajqp_fused_pallas.py::
-// fused_trajqp_solve (_trajqp_kernel). Per element, with its state in
+// fused_trajqp_solve (_trajqp_kernel) at the shapes whose element fits a
+// thread, (T, nx, nu) = (5, 2, 1), (5, 3, 1), (5, 3, 2) and (5, 4, 1); the
+// larger ones run on trajqp_fused_warp.cu. Per element, with its state in
 // registers, max_iter Mehrotra predictor-corrector iterations of
 //   min Σₜ ½ wₜᵀCₜwₜ + cₜᵀwₜ  s.t.  x_{t+1} = Aₜxₜ + Bₜuₜ + fₜ, x₀ = x0,
 //                                   u_lo ≤ u ≤ u_hi:
@@ -492,15 +494,6 @@ int dispatch(const TrajQPArgs& a, int Bsz, int T, int nx, int nu,
   if (T == 5 && nx == 4 && nu == 1)
     return launch<5, 4, 1, F>(a, Bsz, max_iter, reg, min_slack, u_lo, u_hi,
                               s);
-  if (T == 5 && nx == 5 && nu == 1)
-    return launch<5, 5, 1, F>(a, Bsz, max_iter, reg, min_slack, u_lo, u_hi,
-                              s);
-  if (T == 5 && nx == 6 && nu == 1)
-    return launch<5, 6, 1, F>(a, Bsz, max_iter, reg, min_slack, u_lo, u_hi,
-                              s);
-  if (T == 5 && nx == 7 && nu == 1)
-    return launch<5, 7, 1, F>(a, Bsz, max_iter, reg, min_slack, u_lo, u_hi,
-                              s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -510,9 +503,9 @@ int dispatch(const TrajQPArgs& a, int Bsz, int T, int nx, int nu,
 // B [B,T-1,nx,nu], f [B,T-1,nx], x0 [B,nx], x_init [B,T,nx], u_init
 // [B,T,nu]; outputs x [B,T,nx], u [B,T,nu], lam [B,T,nx], z_hi, z_lo, s_hi,
 // s_lo [B,T,nu], res [B]. u_lo/u_hi hold nu host values. Built for
-// (T, nx, nu) = (5, 2, 1), (5, 3, 1), (5, 3, 2), (5, 4, 1), (5, 5, 1),
-// (5, 6, 1) and (5, 7, 1); cudaErrorInvalidValue otherwise (the quadrotor's
-// shapes run on trajqp_fused_warp.cu).
+// (T, nx, nu) = (5, 2, 1), (5, 3, 1), (5, 3, 2) and (5, 4, 1);
+// cudaErrorInvalidValue otherwise (the cartpoles' (5, 5, 1)-(5, 7, 1) and
+// the quadrotor's shapes run on trajqp_fused_warp.cu).
 // Returns a cudaError_t code.
 #define TRAJQP_ENTRY(NAME, F)                                                 \
   extern "C" int NAME(                                                        \

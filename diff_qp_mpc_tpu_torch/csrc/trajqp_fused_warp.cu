@@ -4,15 +4,20 @@
 //
 // Replaces the TPU kernel diff_qp_mpc_tpu/ops/trajqp_fused_pallas.py::
 // fused_trajqp_solve (_trajqp_kernel) at the shapes whose element does not
-// fit one lane: the quadrotor's ip path (T, nx, nu) = (5, 12, 4) and its
-// slew-augmented shape (5, 16, 4). trajqp_fused.cu keeps an element in one
-// lane's registers, which at (5, 6, 1) already spills 24-83 KB a thread; at
-// nx 12, nu 4 an element holds about 3,000 values (C's 5 × 16² blocks, A
-// and B, the Riccati pass's P, K and k of every stage), at (5, 16, 4) about
-// 5,000. Here the element lives in dynamic shared memory (WarpQP below:
-// 20,304 B in float32 at (5, 12, 4), 30,048 B at (5, 16, 4), twice that
-// in float64), kWarpsPerBlock elements a block, and the warp's lanes share
-// its work:
+// fit one lane: the cartpoles' (T, nx, nu) = (5, 5, 1) (cp1's slew shape,
+// CartpoleCosSin's ip path), (5, 6, 1) (cp2's ip path) and (5, 7, 1) (cp2's
+// slew shape), the quadrotor's ip path (5, 12, 4) and its slew-augmented
+// shape (5, 16, 4). trajqp_fused.cu keeps an element in one lane's
+// registers, which at (5, 5, 1)-(5, 7, 1) spilled 4-121 KB a thread and ran
+// 1.1-14× slower than this layout at B 64, 256 and 4096 in both dtypes on
+// an NVIDIA H100 80GB HBM3 at 700 W (PERF.md; those instantiations were
+// then deleted); at nx 12, nu 4
+// an element holds about 3,000 values (C's 5 × 16² blocks, A and B, the
+// Riccati pass's P, K and k of every stage), at (5, 16, 4) about 5,000.
+// Here the element lives in dynamic shared memory (WarpQP below: 5,364 B in
+// float32 at (5, 6, 1), 20,304 B at (5, 12, 4), 30,048 B at (5, 16, 4),
+// twice that in float64), kWarpsPerBlock elements a block, and the warp's
+// lanes share its work:
 //   - the residuals, a row a lane (each row's sum in the one-lane kernel's
 //     order);
 //   - each stage's Riccati work: the entries of P·A, P·B and P·r, then of
@@ -644,10 +649,10 @@ int launch(const WarpArgs& a, int Bsz, int max_iter, double reg,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiations: the quadrotor's ip and slew shapes, and (5, 6, 1),
-// where the layout is timed beside trajqp_fused.cu's (the wrapper serves
-// that shape on the thread layout).
-#define TRAJQP_WARP_SHAPES(X) X(5, 6, 1) X(5, 12, 4) X(5, 16, 4)
+// The instantiations: the cartpoles' shapes (5, 5, 1), (5, 6, 1) and
+// (5, 7, 1), and the quadrotor's ip and slew shapes.
+#define TRAJQP_WARP_SHAPES(X) \
+  X(5, 5, 1) X(5, 6, 1) X(5, 7, 1) X(5, 12, 4) X(5, 16, 4)
 
 template <typename F>
 int dispatch(const WarpArgs& a, int Bsz, int T, int nx, int nu, int max_iter,
@@ -678,8 +683,8 @@ int smem(int T, int nx, int nu, int* per_element, int* per_block,
 }  // namespace dqmpc
 
 // Inputs and outputs as trajqp_fused.cu's entry points (contiguous,
-// batch-major). Built for (T, nx, nu) = (5, 6, 1), (5, 12, 4) and (5, 16,
-// 4); cudaErrorInvalidValue otherwise, cudaErrorInvalidConfiguration when a
+// batch-major). Built for (T, nx, nu) = (5, 5, 1), (5, 6, 1), (5, 7, 1),
+// (5, 12, 4) and (5, 16, 4); cudaErrorInvalidValue otherwise, cudaErrorInvalidConfiguration when a
 // block's shared memory exceeds what the device allows. Returns a
 // cudaError_t code.
 #define TRAJQP_WARP_ENTRY(NAME, F)                                            \

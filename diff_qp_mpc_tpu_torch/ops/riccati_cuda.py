@@ -1,27 +1,34 @@
 """K3: batched Riccati LQR-KKT solve as hand-written CUDA kernels, the port
 of diff_qp_mpc_tpu.ops.riccati_pallas.
 
-Two kernels compute it, one thread per batch element:
-- ``csrc/riccati.cu`` at the (T, nx, nu) of ``BUILT``: every stage loop
-  unrolled, the element in registers (the DEQ-MPC tracker's horizon, T 5);
+Three kernels compute it:
+- ``csrc/riccati.cu`` at the (T, nx, nu) of ``BUILT``: one thread per
+  element, every stage loop unrolled, the element in registers (the
+  DEQ-MPC tracker's horizon, T 5);
+- ``csrc/riccati_horizon_warp.cu`` at the (nx, nu) of
+  ``HORIZON_WARP_BUILT`` and any T: one warp per element, the stage's
+  blocks and the recursion's temporaries in shared memory (``warp_smem``),
+  each stage's K, k, P and p in a workspace this wrapper allocates (the
+  quadrotor: its MPC expert's planner, T 20; its ip path and every ip
+  backward, T 5; its slew-augmented (16, 4));
 - ``csrc/riccati_horizon.cu`` at the (nx, nu) of ``HORIZON_BUILT`` and any
-  T: the stage loop rolled, P and p carried in registers, each stage's K,
-  k, P and p in a workspace this wrapper allocates (the MPC expert's
-  planners, T 10 to 120; and at T 5 the shapes the unrolled kernel lacks:
-  the quadrotor's (12, 4), CartpoleCosSin's (5, 1), and the slew-augmented
-  models' (5, 1), (7, 1) and (16, 4)).
+  T: one thread per element, the stage loop rolled, P and p carried in
+  registers, the same workspace (the MPC expert's other planners, T 10 to
+  120; and at T 5 the shapes the unrolled kernel lacks: CartpoleCosSin's
+  (5, 1) and the slew-augmented models' (5, 1) and (7, 1)).
 
 ``batched_lqr_kkt_solve`` takes the plain PyTorch version
 (``ops.riccati.batched_lqr_kkt_solve``) for CPU tensors. On CUDA tensors
-it launches the unrolled kernel where its shape is built, else the horizon
-kernel where (nx, nu) is, and raises otherwise; it never falls back to the
-plain version. Each launch adds one to ``launches`` (the unrolled kernel)
-or ``horizon_launches`` (the horizon kernel).
+it launches the kernel ``kernel_for`` names and raises where none is built;
+it never falls back to the plain version. Each launch adds one to
+``launches`` (the unrolled kernel) or ``horizon_launches`` (either horizon
+kernel); a launch of the warp-layout horizon kernel also adds one to
+``horizon_warp_launches``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -32,16 +39,23 @@ Tensor = torch.Tensor
 
 #: (T, nx, nu) with an instantiation of the unrolled kernel
 BUILT = ((5, 2, 1), (5, 3, 1), (5, 3, 2), (5, 4, 1), (5, 6, 1))
-#: (nx, nu) with an instantiation of the horizon kernel (any T)
-HORIZON_BUILT = ((2, 1), (4, 1), (5, 1), (6, 1), (7, 1), (12, 4), (16, 4))
+#: (nx, nu) with an instantiation of the one-thread horizon kernel (any T)
+HORIZON_BUILT = ((2, 1), (4, 1), (5, 1), (6, 1), (7, 1))
+#: (nx, nu) with an instantiation of the warp-layout horizon kernel (any T)
+HORIZON_WARP_BUILT = ((12, 4), (16, 4))
 #: launches of the unrolled kernel since the count was last set to 0
 launches = 0
-#: launches of the horizon kernel since the count was last set to 0
+#: launches of either horizon kernel since the count was last set to 0
 horizon_launches = 0
+#: launches of the warp-layout horizon kernel (counted in horizon_launches
+#: too) since the count was last set to 0
+horizon_warp_launches = 0
 
 _SYMBOLS = {torch.float32: "riccati_f32", torch.float64: "riccati_f64"}
-_HORIZON_SYMBOLS = {torch.float32: "riccati_horizon_f32",
-                    torch.float64: "riccati_horizon_f64"}
+#: each horizon kernel's library and the (nx, nu) it is built for
+_HORIZON_KERNELS = {"riccati_horizon_warp": HORIZON_WARP_BUILT,
+                    "riccati_horizon": HORIZON_BUILT}
+_BITS = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def batched_lqr_kkt_solve(Cxx: Tensor, Cxu: Tensor, Cuu: Tensor, gx: Tensor,
@@ -58,15 +72,38 @@ def batched_lqr_kkt_solve(Cxx: Tensor, Cxu: Tensor, Cuu: Tensor, gx: Tensor,
 
 
 def kernel_for(T: int, nx: int, nu: int) -> str:
-    """"riccati" or "riccati_horizon", the kernel a CUDA solve of this
-    shape launches; raises where neither is built for it."""
+    """"riccati", "riccati_horizon_warp" or "riccati_horizon", the kernel
+    a CUDA solve of this shape launches; raises where none is built for
+    it."""
     if (T, nx, nu) in BUILT:
         return "riccati"
-    if (nx, nu) in HORIZON_BUILT and T >= 1:
-        return "riccati_horizon"
+    for name, built in _HORIZON_KERNELS.items():
+        if (nx, nu) in built and T >= 1:
+            return name
     raise ValueError(f"no kernel for T={T}, nx={nx}, nu={nu} (built: "
                      f"(T, nx, nu) in {BUILT}, and (nx, nu) in "
-                     f"{HORIZON_BUILT} at any T)")
+                     f"{HORIZON_WARP_BUILT + HORIZON_BUILT} at any T)")
+
+
+def warp_smem(dtype: torch.dtype, nx: int, nu: int,
+              device: torch.device) -> Dict[str, int]:
+    """Shared memory of the warp-layout horizon kernel's (nx, nu, dtype)
+    instantiation on ``device``: bytes an element (``per_element``) and a
+    block (``per_block``), and the most a block may ask of the device
+    (``device_max``)."""
+    if (nx, nu) not in HORIZON_WARP_BUILT:
+        raise ValueError(f"the warp-layout horizon kernel is not built for "
+                         f"nx={nx}, nu={nu}")
+    lib = cuda_build.load("riccati_horizon_warp")
+    fn = getattr(lib, f"riccati_horizon_warp_smem_{_BITS[dtype]}")
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = fn(nx, nu, *(ctypes.byref(o) for o in out))
+    cuda_build.check(lib, err, "riccati_horizon_warp shared-memory query")
+    return dict(zip(("per_element", "per_block", "device_max"),
+                    (o.value for o in out)))
 
 
 def _check(args):
@@ -99,14 +136,14 @@ def _check(args):
 
 def _launch(args, reg: float, name: Optional[str] = None
             ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Launch the kernel ``name`` serves by shape (kernel_for); measurements
+    """Launch the kernel ``kernel_for`` names, or ``name``; measurements
     pass "riccati_horizon" to time the horizon kernel where the unrolled
     one serves."""
-    global launches, horizon_launches
+    global launches, horizon_launches, horizon_warp_launches
     Bsz, T, nx, nu = _check(args)
     name = name or kernel_for(T, nx, nu)
-    if name == "riccati_horizon" and (nx, nu) not in HORIZON_BUILT:
-        raise ValueError(f"the horizon kernel is not built for nx={nx}, "
+    if name != "riccati" and (nx, nu) not in _HORIZON_KERNELS[name]:
+        raise ValueError(f"the {name} kernel is not built for nx={nx}, "
                          f"nu={nu}")
     gx, gu = args[3], args[4]
     dx, du, lam = torch.empty_like(gx), torch.empty_like(gu), \
@@ -121,11 +158,11 @@ def _launch(args, reg: float, name: Optional[str] = None
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
             + [ctypes.c_double, ctypes.c_void_p]
     else:
-        lib.riccati_horizon_workspace.restype = ctypes.c_int
-        width = lib.riccati_horizon_workspace(nx, nu)
-        ws = gx.new_empty(T * width * Bsz)
+        workspace = getattr(lib, f"{name}_workspace")
+        workspace.restype = ctypes.c_int
+        ws = gx.new_empty(T * workspace(nx, nu) * Bsz)
         outs.append(ws.data_ptr())
-        fn = getattr(lib, _HORIZON_SYMBOLS[gx.dtype])
+        fn = getattr(lib, f"{name}_{_BITS[gx.dtype]}")
         fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 \
             + [ctypes.c_double, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -137,4 +174,6 @@ def _launch(args, reg: float, name: Optional[str] = None
         launches += 1
     else:
         horizon_launches += 1
+        if name == "riccati_horizon_warp":
+            horizon_warp_launches += 1
     return dx, du, lam

@@ -2,11 +2,14 @@
 kernel, the port of diff_qp_mpc_tpu.ops.trajqp_fused_pallas.
 
 Two layouts (``LAYOUTS``). "thread" (``csrc/trajqp_fused.cu``): one thread
-per batch element, its state in registers, at the (T, nx, nu) of
-``BUILT``. "warp" (``csrc/trajqp_fused_warp.cu``): one warp per element,
-its blocks in shared memory, at the quadrotor's shapes ``WARP_BUILT``,
-whose element does not fit one lane. ``layout_for`` picks the layout by
-shape; any other shape raises.
+per batch element, its state in registers, at the smaller (T, nx, nu) of
+``BUILT``. "warp"
+(``csrc/trajqp_fused_warp.cu``): one warp per element, its blocks in
+shared memory, at ``WARP_BUILT``: the cartpoles' shapes and the
+quadrotor's, whose element does not fit one lane (at the cartpoles' the
+warp layout measured faster than the thread layout at every batch and
+dtype timed, and the thread layout's instantiations there were deleted).
+``layout_for`` picks the layout by shape; any other shape raises.
 
 ``fused_trajqp_solve`` takes the plain PyTorch version
 (``fused_trajqp_solve_reference``, same signature and semantics, any
@@ -27,14 +30,11 @@ from diff_qp_mpc_tpu_torch.utils import cuda_build
 Tensor = torch.Tensor
 
 #: (T, nx, nu) the thread layout serves
-BUILT = ((5, 2, 1), (5, 3, 1), (5, 3, 2), (5, 4, 1), (5, 5, 1), (5, 6, 1),
-         (5, 7, 1))
-#: (T, nx, nu) the warp layout serves: the quadrotor's ip path and its
-#: slew-augmented shape
-WARP_BUILT = ((5, 12, 4), (5, 16, 4))
-#: (T, nx, nu) the warp layout is instantiated at: WARP_BUILT, and (5, 6, 1)
-#: to time it beside the thread layout (``_launch(..., layout="warp")``)
-WARP_SHAPES = ((5, 6, 1),) + WARP_BUILT
+BUILT = ((5, 2, 1), (5, 3, 1), (5, 3, 2), (5, 4, 1))
+#: (T, nx, nu) the warp layout serves: the cartpoles' (cp1's slew shape and
+#: CartpoleCosSin's ip path, cp2's ip path, cp2's slew shape), the
+#: quadrotor's ip path and its slew-augmented shape
+WARP_BUILT = ((5, 5, 1), (5, 6, 1), (5, 7, 1), (5, 12, 4), (5, 16, 4))
 LAYOUTS = ("thread", "warp")
 #: launches of the thread layout since the count was last set to 0
 launches = 0
@@ -77,10 +77,10 @@ def fused_trajqp_solve(C: Tensor, c: Tensor, A: Tensor, B: Tensor, f: Tensor,
 def layout_for(T: int, nx: int, nu: int) -> str:
     """"thread" or "warp", the layout a CUDA solve of this shape takes;
     raises where neither serves it."""
-    if (T, nx, nu) in BUILT:
-        return "thread"
     if (T, nx, nu) in WARP_BUILT:
         return "warp"
+    if (T, nx, nu) in BUILT:
+        return "thread"
     raise ValueError(f"no kernel for T={T}, nx={nx}, nu={nu} (built: "
                      f"(T, nx, nu) in {BUILT + WARP_BUILT})")
 
@@ -239,7 +239,7 @@ def warp_smem(dtype: torch.dtype, T: int, nx: int, nu: int,
     on ``device``: bytes an element (``per_element``) and a block
     (``per_block``), and the most a block may ask of the device
     (``device_max``)."""
-    if (T, nx, nu) not in WARP_SHAPES:
+    if (T, nx, nu) not in WARP_BUILT:
         raise ValueError(f"the warp layout is not built for T={T}, "
                          f"nx={nx}, nu={nu}")
     lib = cuda_build.load(_LIBRARIES["warp"])
@@ -258,11 +258,12 @@ def warp_smem(dtype: torch.dtype, T: int, nx: int, nu: int,
 def _launch(C, c, A, B, f, x0, x_init, u_init, u_lo, u_hi, max_iter, reg,
             min_slack, layout: Optional[str] = None) -> Outputs:
     """Launch the layout ``layout_for`` picks, or ``layout`` where it is
-    instantiated (measurements time the warp layout at (5, 6, 1))."""
+    instantiated (``kernel_layouts.k4_layouts`` times each layout a shape
+    has)."""
     global launches, warp_launches
     Bsz, T, nx, nu = _check(C, c, A, B, f, x0, x_init, u_init, u_lo, u_hi)
     layout = layout or layout_for(T, nx, nu)
-    built = {"thread": BUILT, "warp": WARP_SHAPES}.get(layout, ())
+    built = {"thread": BUILT, "warp": WARP_BUILT}.get(layout, ())
     if (T, nx, nu) not in built:
         raise ValueError(f"the {layout} layout is not built for T={T}, "
                          f"nx={nx}, nu={nu} (layouts: {LAYOUTS})")

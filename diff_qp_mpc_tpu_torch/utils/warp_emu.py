@@ -3,10 +3,12 @@ with g++, one POSIX thread per CUDA thread.
 
     python -m diff_qp_mpc_tpu_torch.utils.warp_emu [--tsan]
 
-holds K1's warp layout (``csrc/btsolve.cu``, n 16, T 5, float64) and K2's
+holds K1's warp layout (``csrc/btsolve.cu``, n 16, T 5, float64), K2's
 warp layout on Cartpole1L (``csrc/al_fused_cartpole1l.cu``, T 5,
-float64) against their plain versions on a few elements and prints the
-errors. ``--tsan`` builds with ThreadSanitizer and reruns itself with its
+float64), K3's warp-layout horizon kernel (``csrc/riccati_horizon_warp.cu``
+at the quadrotor expert's (20, 12, 4), float64) and K4's warp layout
+(``csrc/trajqp_fused_warp.cu`` at cp2's (5, 6, 1), float64) against their
+plain versions on a few elements and prints the errors. ``--tsan`` builds with ThreadSanitizer and reruns itself with its
 runtime preloaded, so that a missing ``__syncwarp`` between lanes that
 share memory is reported as a data race.
 
@@ -279,15 +281,85 @@ def fused_al_solve_warp(model, Cd, c, x0, u_lo, u_hi, x_init, u_init,
     return tuple(outs)
 
 
+def riccati_horizon_warp(args, reg: float = 0.0, sanitize: bool = False):
+    """K3's warp-layout horizon kernel (``riccati_horizon_warp_f32``/
+    ``_f64``) on CPU tensors: ``args`` and the outputs (dx, du, lam) as
+    ``riccati_cuda.batched_lqr_kkt_solve`` takes and gives them."""
+    from diff_qp_mpc_tpu_torch.ops import riccati_cuda
+
+    args = [a.contiguous() for a in args]
+    gx, gu = args[3], args[4]
+    Bsz, T, nx, nu = args[1].shape
+    if (nx, nu) not in riccati_cuda.HORIZON_WARP_BUILT:
+        raise ValueError(f"the warp layout is not built for nx={nx}, "
+                         f"nu={nu}")
+    lib = load("riccati_horizon_warp", sanitize)
+    lib.riccati_horizon_warp_workspace.restype = ctypes.c_int
+    ws = gx.new_empty(T * lib.riccati_horizon_warp_workspace(nx, nu) * Bsz)
+    outs = [torch.empty_like(gx), torch.empty_like(gu), torch.empty_like(gx)]
+    fn = getattr(lib, "riccati_horizon_warp_" + riccati_cuda._BITS[gx.dtype])
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 \
+        + [ctypes.c_double, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*(a.data_ptr() for a in args), *(o.data_ptr() for o in outs),
+             ws.data_ptr(), Bsz, T, nx, nu, float(reg), None)
+    if err:
+        raise RuntimeError(f"emulated riccati_horizon_warp kernel: error "
+                           f"{err}")
+    return tuple(outs)
+
+
+def fused_trajqp_solve_warp(C, c, A, B, f, x0, x_init, u_init, u_lo, u_hi,
+                            max_iter: int = 12, reg: float = 1e-9,
+                            min_slack: float = 1e-8,
+                            sanitize: bool = False):
+    """K4's warp layout (``trajqp_fused_warp_f32``/``_f64``) on CPU
+    tensors, with ``trajqp_fused_cuda.fused_trajqp_solve``'s arguments and
+    outputs."""
+    from diff_qp_mpc_tpu_torch.ops import trajqp_fused_cuda
+
+    ins = [a.contiguous() for a in (C, c, A, B, f, x0, x_init, u_init)]
+    Bsz, Tm1, nx, nu = B.shape
+    if (Tm1 + 1, nx, nu) not in trajqp_fused_cuda.WARP_BUILT:
+        raise ValueError(f"the warp layout is not built for T={Tm1 + 1}, "
+                         f"nx={nx}, nu={nu}")
+    outs = [torch.empty_like(x_init), torch.empty_like(u_init),
+            torch.empty_like(x_init)] + [torch.empty_like(u_init)
+                                         for _ in range(4)] \
+        + [x0.new_empty(Bsz)]
+    lib = load("trajqp_fused_warp", sanitize)
+    fn = getattr(lib, trajqp_fused_cuda._SYMBOLS["warp"][C.dtype])
+    dblu = ctypes.c_double * nu
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 \
+        + [ctypes.c_double] * 2 + [ctypes.POINTER(ctypes.c_double)] * 2 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*(a.data_ptr() for a in ins), *(o.data_ptr() for o in outs),
+             Bsz, Tm1 + 1, nx, nu, int(max_iter), float(reg),
+             float(min_slack), dblu(*u_lo), dblu(*u_hi), None)
+    if err:
+        raise RuntimeError(f"emulated trajqp_fused warp kernel: error {err}")
+    return tuple(outs)
+
+
 def self_check(sanitize: bool = False) -> dict:
-    """K1's warp layout at n 16, T 5, B 3 and K2's on Cartpole1L at T 5,
-    B 2, both float64, against their plain versions: the largest errors
-    (K1's relative to the solution's largest entry)."""
+    """K1's warp layout at n 16, T 5, B 3, K2's on Cartpole1L at T 5, B 2,
+    K3's at (20, 12, 4), B 3, and K4's at (5, 6, 1), B 3, all float64,
+    against their plain versions: the largest errors (K1's and K3's
+    relative to the solution's largest entry, K4's over max(1, each
+    output's largest entry))."""
     from diff_qp_mpc_tpu_torch.benchmarks import k2_models
+    from diff_qp_mpc_tpu_torch.benchmarks import prof_trajqp_fused as prof
     from diff_qp_mpc_tpu_torch.benchmarks.kernel_layouts import (
+        lqr_problem,
         random_bt_spd,
     )
-    from diff_qp_mpc_tpu_torch.ops import al_fused_cuda, btsolve
+    from diff_qp_mpc_tpu_torch.ops import (
+        al_fused_cuda,
+        btsolve,
+        riccati,
+        trajqp_fused_cuda,
+    )
 
     D, O, b = random_bt_spd(3, 5, 16, torch.float64, seed=3, device="cpu")
     x = btsolve_warp(D, O, b, 1e-7, sanitize=sanitize)
@@ -298,10 +370,23 @@ def self_check(sanitize: bool = False) -> dict:
     out = fused_al_solve_warp(*args, **k2_models.BUDGET, sanitize=sanitize)
     plain = al_fused_cuda.fused_al_solve_reference(*args, **k2_models.BUDGET)
     k2 = float(k2_models.element_errors(out, plain).max())
+    lqr = lqr_problem(3, 20, 12, 4, torch.float64, seed=3, device="cpu")
+    k3_out = riccati_horizon_warp(lqr, 1e-9, sanitize=sanitize)
+    sol = riccati.batched_lqr_kkt_solve(*lqr, 1e-9)
+    k3 = max(float((g - w).abs().max() / w.abs().max())
+             for g, w in zip(k3_out, (sol.dx, sol.du, sol.lam)))
+    arrays, box = prof.problem(3, 5, 6, 1, torch.float64, device="cpu")
+    qp = (*arrays, *prof.cold_start(*arrays), box.u_lo, box.u_hi)
+    k4_out = fused_trajqp_solve_warp(*qp, sanitize=sanitize)
+    k4 = max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+             for g, w in zip(k4_out, trajqp_fused_cuda.
+                             fused_trajqp_solve_reference(*qp)))
     return dict(k1_n16_T5_B3_float64_max_rel_err=k1,
                 k2_cartpole1l_T5_B2_float64_max_abs_err_xu=k2,
+                k3_warp_T20_12_4_B3_float64_max_rel_err=k3,
+                k4_warp_T5_6_1_B3_float64_max_scaled_err=k4,
                 finite=all(bool(torch.isfinite(o).all())
-                           for o in (x, *out)))
+                           for o in (x, *out, *k3_out, *k4_out)))
 
 
 def main(argv=None) -> int:

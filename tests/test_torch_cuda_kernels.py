@@ -551,6 +551,86 @@ def test_riccati_horizon_kernel_isolates_elements(cuda, B, poisoned, T, nx,
         assert torch.equal(c[keep], d[keep])
 
 
+# K3's horizon kernel on the warp layout (csrc/riccati_horizon_warp.cu):
+# the quadrotor's ip and expert shapes and its slew shape
+K3_WARP_SHAPES = [(5, 12, 4), (20, 12, 4), (5, 16, 4)]
+
+
+@pytest.mark.parametrize("T,nx,nu", K3_WARP_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_riccati_horizon_warp_matches_plain(cuda, T, nx, nu, dtype):
+    """The shapes of HORIZON_WARP_BUILT route to the warp layout (one warp
+    an element, counted in horizon_launches and horizon_warp_launches):
+    float64 within 1e-10 of the plain version; float32 against the float64
+    solution within F32_VS_F64_RATIO of the plain float32 version's error
+    (or 1e-4)."""
+    assert riccati_cuda.kernel_for(T, nx, nu) == "riccati_horizon_warp"
+    args = _lqr_problem(64, T, nx, nu, dtype, cuda, seed=T + nx + 1)
+    before = (riccati_cuda.launches, riccati_cuda.horizon_launches,
+              riccati_cuda.horizon_warp_launches)
+    out = riccati_cuda.batched_lqr_kkt_solve(*args, 1e-9)
+    assert (riccati_cuda.launches, riccati_cuda.horizon_launches,
+            riccati_cuda.horizon_warp_launches) == (
+        before[0], before[1] + 1, before[2] + 1)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    err, plain_err = _horizon_errors(out, args)
+    if dtype == torch.float64:
+        assert err <= 1e-10
+    else:
+        assert err <= max(1e-4, F32_VS_F64_RATIO * plain_err)
+
+
+# one warp per element, two a block: one element alone, a ragged last
+# block (33), and one more than 64
+@pytest.mark.parametrize("B", [1, 33, 65])
+@pytest.mark.parametrize("T,nx,nu", [(20, 12, 4), (5, 16, 4)])
+def test_riccati_horizon_warp_edge_batches(cuda, B, T, nx, nu):
+    args = _lqr_problem(B, T, nx, nu, torch.float64, cuda, seed=B)
+    out = riccati_cuda.batched_lqr_kkt_solve(*args, 1e-9)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    assert _horizon_errors(out, args)[0] <= 1e-10
+
+
+@pytest.mark.parametrize("B,poisoned", ISOLATION_CASES)
+@pytest.mark.parametrize("poison", [float("nan"), 1e30])
+def test_riccati_horizon_warp_isolates_elements(cuda, B, poisoned, poison):
+    """A non-finite or huge input of some elements leaves every other
+    element's outputs bit-identical (each warp its own shared memory and
+    workspace)."""
+    args = _lqr_problem(B, 5, 16, 4, torch.float32, cuda, seed=16)
+    clean = riccati_cuda.batched_lqr_kkt_solve(*args, 1e-9)
+    bad = [a.clone() for a in args]
+    for a in bad:
+        a[list(poisoned)] = poison
+    dirty = riccati_cuda.batched_lqr_kkt_solve(*bad, 1e-9)
+    keep = _unpoisoned(B, poisoned, cuda)
+    for c, d in zip(clean, dirty):
+        assert torch.equal(c[keep], d[keep])
+
+
+def test_riccati_horizon_warp_shared_memory(cuda):
+    """Each instantiation's block fits the device, an element holds at
+    least its stage's blocks, P and p, and the size does not depend on
+    T."""
+    for nx, nu in riccati_cuda.HORIZON_WARP_BUILT:
+        for dtype in (torch.float32, torch.float64):
+            sm = riccati_cuda.warp_smem(dtype, nx, nu, cuda)
+            stage = (2 * nx * nx + 2 * nx * nu + nu * nu + 3 * nx + nu
+                     + nx * nx + nx)
+            assert sm["per_element"] >= stage * dtype.itemsize
+            assert sm["per_block"] <= sm["device_max"]
+
+
+def test_riccati_horizon_warp_refuses_unbuilt(cuda):
+    """The warp layout cannot be launched, or its shared memory asked, at
+    an (nx, nu) it has no instantiation for."""
+    args = _lqr_problem(4, 5, 6, 1, torch.float32, cuda)
+    with pytest.raises(ValueError, match="not built"):
+        riccati_cuda._launch(args, 1e-9, "riccati_horizon_warp")
+    with pytest.raises(ValueError, match="not built"):
+        riccati_cuda.warp_smem(torch.float32, 6, 1, cuda)
+
+
 def _trajqp_problem(B, T, nx, nu, dtype, device, seed=0):
     """Random box-constrained trajectory QP (tests/test_trajqp_fused.py's
     inputs) and a cold start: u at the box midpoint, x its rollout."""
@@ -1185,10 +1265,11 @@ def test_sl1qp_launches_no_kernel(cuda):
 
 # ------------------------------------------- K4 on the warp layout ----
 # One warp per element, its blocks in shared memory (csrc/
-# trajqp_fused_warp.cu), at the quadrotor's ip shape (5, 12, 4) and its slew
-# shape (5, 16, 4). Its sums over the warp run in another order than the
-# plain version's: float64 within 1e-9 of each output's largest entry (or 1),
-# float32 within 5e-3, as chip_smoke.py holds K4.
+# trajqp_fused_warp.cu), at the cartpoles' shapes (5, 5, 1)-(5, 7, 1), the
+# quadrotor's ip shape (5, 12, 4) and its slew shape (5, 16, 4). Its sums
+# over the warp run in another order than the plain version's: float64
+# within 1e-9 of each output's largest entry (or 1), float32 within 5e-3,
+# as chip_smoke.py holds K4.
 K4_WARP_TOL = {torch.float32: 5e-3, torch.float64: 1e-9}
 
 
@@ -1233,24 +1314,10 @@ def test_trajqp_fused_warp_isolates_elements(cuda, B, poisoned, poison):
         assert torch.equal(c[keep], d[keep])
 
 
-@pytest.mark.parametrize("dtype", list(K4_WARP_TOL))
-def test_trajqp_fused_warp_layout_at_5_6_1(cuda, dtype):
-    """At (5, 6, 1), where the thread layout serves, the warp layout
-    (forced, as it is timed there) solves the same QPs alike."""
-    args = _trajqp_problem(100, 5, 6, 1, dtype, cuda, seed=6)
-    box = ((-1.5,), (1.5,))
-    thread = trajqp_fused_cuda.fused_trajqp_solve(*args, *box)
-    before = trajqp_fused_cuda.warp_launches
-    warp = trajqp_fused_cuda._launch(*args, *box, 12, 1e-9, 1e-8,
-                                     layout="warp")
-    assert trajqp_fused_cuda.warp_launches == before + 1
-    assert max(_trajqp_errors(warp, thread)) <= K4_WARP_TOL[dtype]
-
-
 def test_trajqp_fused_warp_shared_memory(cuda):
     """Each instantiation's block fits the device, and an element holds at
     least its QP's blocks."""
-    for T, nx, nu in trajqp_fused_cuda.WARP_SHAPES:
+    for T, nx, nu in trajqp_fused_cuda.WARP_BUILT:
         for dtype in K4_WARP_TOL:
             sm = trajqp_fused_cuda.warp_smem(dtype, T, nx, nu, cuda)
             n = nx + nu
