@@ -100,9 +100,10 @@ Phases, each of which raises on failure (there is no CPU fallback):
      beyond 1e-6 printed beside the plain version's own change on them
      under one ulp of the inputs; on the group layout (the integrator and
      the CosSin models) every group width bit-identical to G 1 (the
-     cartpoles and the quadrotor run a warp per element with its blocks in
-     shared memory); timed in float32 at B 64 (the quadrotor's also at
-     128) with its bound;
+     cartpoles and the quadrotor run W warps per element with its blocks
+     in shared memory, W per (model, T, dtype) in al_fused_cuda.BUILT);
+     timed in float32 at B 64 (the quadrotor's also at 128) with its
+     bound;
  15. one policy forward in float64 on the card against the CPU on the new
      models' paths: cp1 on the scan path (its checkpoint, T 10) and the
      fused path (T 5, seeded weights: K2 has no float64 T 10 instantiation),
@@ -134,10 +135,10 @@ Phases, each of which raises on failure (there is no CPU fallback):
      exactly 12 K2 and 6 K1 launches a DEQ-MPC step.
  18. the terminal-LQR ip path and the MPC expert, in this order:
      (a) K3 at (T, nx, nu) = (5, 6, 1) (csrc/riccati.cu) and its horizon
-     kernels (csrc/riccati_horizon.cu; at the quadrotor's (20, 12, 4)
-     csrc/riccati_horizon_warp.cu, one warp per element) at every expert
-     planner's shape (K3_HORIZON_SHAPES), B 64, 256 and the dataset's
-     batch (200; the quadrotor's 300), float32 and float64, against the
+     kernel (csrc/riccati_horizon_warp.cu, one warp per element) at every
+     expert planner's shape (K3_HORIZON_SHAPES), B 64, 256 and the
+     dataset's batch (200; the quadrotor's 300), float32 and float64,
+     against the
      plain version: float64 within K3_TOL; float32 at T 5 within K3_TOL,
      over the longer horizons against the float64 solution within
      F32_VS_F64_RATIO of the plain float32 version's error; timed at B 64
@@ -160,8 +161,7 @@ Phases, each of which raises on failure (there is no CPU fallback):
      (e) the MPC expert (learning/datagen.py, float64) on EXPERT_RUNS: the
      cp2 stabilize planner (T 10, terminal LQR) on 64 trajectories × 20
      steps and the quadrotor's (T 20) on 16 × 5, exactly (qp_iter + 1) ×
-     12 × 2 horizon-kernel launches an MPC step (the quadrotor's all on the
-     warp layout, K3hw), ms a step, the success
+     12 × 2 horizon-kernel launches an MPC step, ms a step, the success
      share, its first actions card vs CPU within EXPERT_TOL;
      (f) DAgger through its entry point from the cp1 checkpoint: 8
      episodes × 20 steps, 8 states relabeled × 10 steps by the cp1
@@ -238,11 +238,11 @@ Phases, each of which raises on failure (there is no CPU fallback):
      memory; K4w at the cartpoles' slew shapes (5, 5, 1) and (5, 7, 1)
      within K4_TOL; (d) the slew option on cp1, cp2 and the quadrotor,
      scan and fused, float64, B 64: exactly 72 K3h or 3 K4w a solve and
-     one K3h in its backward (at the quadrotor's (16, 4) every K3h on the
-     warp layout, K3hw), u card vs CPU within SLEW_TOL; K3h at (5, 12, 4),
+     one K3h in its backward, u card vs CPU within SLEW_TOL; K3h at
+     (5, 12, 4),
      (5, 5, 1), (5, 7, 1) and (5, 16, 4) against its plain version and
-     timed beside the dense KKT's torch.linalg.solve (the warp layout at
-     (12, 4) and (16, 4) also by the profiler); (e) both CosSin models
+     timed beside the dense KKT's torch.linalg.solve (the warp layout also
+     by the profiler); (e) both CosSin models
      through
      solve_fused (1 K2, 1 K1 backward) and the AL scan path (8 K1, 1 K1
      backward), float64 card vs CPU. Their K2 (every G against G 1, timed)
@@ -256,10 +256,12 @@ cos counts as the 15 FP32 instructions of its fast path (SINF_FP32_INSTR).
 It prints one JSON line per kernel summary (the quadrotor's K2, and K3 and
 K4 at the slew-augmented pendulum's (5, 3, 1), on rows of their own beside
 the others; K1's warp layout at n 16, its launches those of the warp
-layout's count, ``layout_counts``, and K2 on each cartpole on rows of
-their own, each with its launches in the main-path runs that take it and
-required to be positive), the card's name and power limit, and as its
-last line {"ok": true, "device": {...}}.
+layout's count, ``layout_counts``; K3's horizon kernel at (20, 12, 4),
+(10, 6, 1) and (60, 4, 1) and K2 on each cartpole on rows of their own,
+each K2 row with its warps per element, each with its
+launches in the main-path runs that take it and required to be positive),
+the card's name and power limit, and as its last line {"ok": true,
+"device": {...}}.
 """
 import dataclasses
 import json
@@ -546,7 +548,7 @@ K3_HORIZON_SHAPES = ((10, 6, 1), (20, 2, 1), (40, 2, 1), (30, 2, 1),
 # the datasets' batch by (nx, nu): 200 trajectories, the quadrotor's 300
 K3_DATASET_B = {(12, 4): 300}
 # the device ms of the terminal-LQR kernel rows (K3 at (5, 6, 1), the
-# horizon kernels, K4 at (5, 6, 1)) come from CUDA events queued
+# horizon kernel, K4 at (5, 6, 1)) come from CUDA events queued
 # behind a spin kernel (timing.queued_events_ms), not from torch.profiler:
 # on one card machine the profiler saw no time of the horizon kernel in
 # three windows running, where on another it saw every launch; the
@@ -1257,12 +1259,10 @@ def kernel_wrappers():
 def layout_counts():
     """The counts of the warp layouts within their kernel's count: K1's
     (K1w, n 16, at the horizons whose block fits the card's shared memory)
-    within K1's, K3's warp-layout horizon kernel (K3hw, the quadrotor's
-    (nx, nu)) within K3h's."""
-    from diff_qp_mpc_tpu_torch.ops import btsolve_cuda, riccati_cuda
+    within K1's."""
+    from diff_qp_mpc_tpu_torch.ops import btsolve_cuda
 
-    return {"K1w": (btsolve_cuda, "warp_launches"),
-            "K3hw": (riccati_cuda, "horizon_warp_launches")}
+    return {"K1w": (btsolve_cuda, "warp_launches")}
 
 
 def reset_launches():
@@ -2019,7 +2019,7 @@ def phase_k3_horizon():
             _plain_k3(args, reg))[0]
         if T_ == T:
             rows[key]["horizon_kernel"] = k3_timing(args, reg,
-                                                    "riccati_horizon")
+                                                    "riccati_horizon_warp")
         log("K3 horizon timing", json.dumps(
             {k: v for k, v in rows[key].items() if k != "checks"}))
     return rows
@@ -2227,12 +2227,11 @@ def phase_cp2_ip_main_path():
     return runs
 
 
-def expert_run(name, env, num_traj, max_steps, per_step, warp):
+def expert_run(name, env, num_traj, max_steps, per_step):
     """The MPC expert (datagen.mpc_expert_rollouts, float64, the default)
     on ``env`` from its reset draw: the launch counts set to 0 before every
     MPC step and read after it, exactly ``per_step`` horizon-kernel (K3h)
-    launches and no other kernel, all of them on the warp layout (K3hw)
-    where ``warp``, none otherwise; ms per step (host clock, each step ends
+    launches and no other kernel; ms per step (host clock, each step ends
     in a copy to the host), the success share of the trajectories' last
     states; its first step's actions against the CPU expert's on the first
     EXPERT_CPU_ROWS initial states, within EXPERT_TOL of their largest; and
@@ -2247,17 +2246,15 @@ def expert_run(name, env, num_traj, max_steps, per_step, warp):
 
     want = {k: 0 for k in kernel_wrappers()}
     want["K3h"] = per_step
-    want_layouts = {k: 0 for k in layout_counts()}
-    want_layouts["K3hw"] = per_step if warp else 0
     times, bad = [], []
     t_prev = [time.perf_counter()]
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = {}
 
     def on_step(step):
-        counts, layouts = read_launches(), read_layout_launches()
-        if counts != want or layouts != want_layouts:
-            bad.append((step, counts, layouts))
+        counts = read_launches()
+        if counts != want:
+            bad.append((step, counts))
         reset_launches()
         now = time.perf_counter()
         times.append((now - t_prev[0]) * 1e3)
@@ -2285,7 +2282,7 @@ def expert_run(name, env, num_traj, max_steps, per_step, warp):
     busy, kernels = _trace_device_time(trace)
     if bad:
         raise RuntimeError(f"{name}: launches per MPC step {bad[:3]}, "
-                           f"expected {want} and {want_layouts}")
+                           f"expected {want}")
     finals = torch.as_tensor(np.stack([t[-1][0] for t in trajs]))
     # the reset draw the card run started from (drawn on the CPU, float64)
     x0 = env._sample_init(torch.Generator().manual_seed(0), num_traj)
@@ -2307,9 +2304,7 @@ def expert_run(name, env, num_traj, max_steps, per_step, warp):
                device_busy_share=sum(busy.values()) / window["wall_us"],
                device_launches_per_step=sum(
                    c for _, c in kernels.values()) / 2,
-               launches_total={"K3h": per_step * len(times)},
-               layout_launches_total={"K3hw": want_layouts["K3hw"]
-                                      * len(times)})
+               launches_total={"K3h": per_step * len(times)})
     log("expert", json.dumps(row))
     if not (all(np.isfinite(p).all() for t in trajs for s in t for p in s)
             and row["first_action_card_vs_cpu"] <= row["tol"]):
@@ -2320,20 +2315,17 @@ def expert_run(name, env, num_traj, max_steps, per_step, warp):
 def phase_experts():
     """(e) the cp2 stabilize expert (terminal LQR, T 10, K3h at (10, 6, 1))
     on 64 trajectories cut to 20 steps, and the quadrotor's (T 20, K3h at
-    (20, 12, 4) on the warp layout) on 16 × 5; per MPC step (qp_iter + 1)
-    QPs × max_iter 12 × 2 Riccati solves."""
+    (20, 12, 4)) on 16 × 5; per MPC step (qp_iter + 1) QPs × max_iter 12
+    × 2 Riccati solves."""
     from diff_qp_mpc_tpu_torch.envs import make_env
     from diff_qp_mpc_tpu_torch.learning import datagen
-    from diff_qp_mpc_tpu_torch.ops import riccati_cuda
 
     out = {}
     for name, env_name, kw, n, steps in EXPERT_RUNS:
         env = make_env(env_name, **kw)
         planner = datagen.planner_settings(env)
         per_step = (planner["qp_iter"] + 1) * IP_BUDGET["max_iter"] * 2
-        warp = riccati_cuda.kernel_for(planner["T"], env.nx, env.nu) == \
-            "riccati_horizon_warp"
-        out[name] = expert_run(name, env, n, steps, per_step, warp)
+        out[name] = expert_run(name, env, n, steps, per_step)
     return out
 
 
@@ -3301,17 +3293,11 @@ def phase_deq_family():
 # ------------------------------------ every model on every solver path --
 def coverage_quad_ip():
     """(a) DEQ-MPC training with the quadrotor checkpoint's meta flags on
-    the ip fused path (K4w forward, K3h backward, every K3h on the warp
-    layout), cut; (b) its checkpoint closed-loop through the evaluate entry
+    the ip fused path (K4w forward, K3h backward), cut; (b) its checkpoint
+    closed-loop through the evaluate entry
     point (18 K4w a step)."""
     train = phase_model_train("quad-ip-fused", QUAD_META, QUAD_IP_PRETRAIN,
                               QUAD_IP_DEQMPC, extra=["--solver_type", "ip"])
-    if train["layout_launches_total"]["K3hw"] != \
-            train["launches_total"]["K3h"]:
-        raise RuntimeError(f"quad-ip-fused training: K3h "
-                           f"{train['launches_total']['K3h']}, of them on "
-                           f"the warp layout "
-                           f"{train['layout_launches_total']['K3hw']}")
     ckpt = os.path.join(TRAIN_LOGDIR, "quad-ip-fused", "ckpt.msgpack")
     loop = closed_loops(
         [("quad-ip-fused", ["--ckpt", ckpt, "--fused", "--episodes",
@@ -3445,21 +3431,19 @@ def coverage_slew():
                                 requires_grad=True)
             sync()
             ms = 1e3 * (time.perf_counter() - t0)
-            fwd, fwd_layouts = read_launches(), read_layout_launches()
+            fwd = read_launches()
             reset_launches()
             (res.u ** 2).sum().backward()
-            bwd, bwd_layouts = read_launches(), read_layout_launches()
+            bwd = read_launches()
             ref, _ = _model_sqp(name, kernel, torch.float64, slew=True,
                                 device="cpu")
             row = dict(model=name, shape=shape, kernel=kernel,
                        ms_per_solve=ms, launches=fwd, backward_launches=bwd,
-                       layout_launches=fwd_layouts,
-                       backward_layout_launches=bwd_layouts,
                        u_card_vs_cpu=float((res.u.detach().cpu()
                                             - ref.u).abs().max()))
             log("coverage slew", json.dumps(row))
             out["runs"].append(row)
-            for counts in (fwd, bwd, fwd_layouts, bwd_layouts):
+            for counts in (fwd, bwd):
                 for k, v in counts.items():
                     if v:
                         key = f"{k} {shape}"
@@ -3467,12 +3451,7 @@ def coverage_slew():
             others = {k: v for k, v in fwd.items() if k != kid and v}
             bad_bwd = {k: v for k, v in bwd.items()
                        if v != (1 if k == k3 else 0)}
-            # every K3h of a warp-layout shape on the warp layout
-            warp = riccati_cuda.kernel_for(*shape) == "riccati_horizon_warp"
-            bad_layout = (fwd_layouts["K3hw"] != (fwd["K3h"] if warp else 0)
-                          or bwd_layouts["K3hw"] != (bwd["K3h"] if warp
-                                                     else 0))
-            if (fwd[kid] != per_solve or others or bad_bwd or bad_layout
+            if (fwd[kid] != per_solve or others or bad_bwd
                     or not row["u_card_vs_cpu"] <= SLEW_TOL):
                 raise RuntimeError(f"coverage slew: {row}, expected "
                                    f"{per_solve} {kid} launches and one "
@@ -3616,14 +3595,12 @@ def coverage_kernel_rows(cov):
             shape=f"B={EPISODES} T={shape[0]} nx={shape[1]} nu={shape[2]} "
                   "float32"))
     for shape, row in cov["slew"]["K3h"].items():
-        warp = row["kernel"] == "riccati_horizon_warp"
-        kid = "K3hw" if warp else "K3h"
         by_run = ({"quad-ip-fused training": cov["quad_ip"]["train"][
-            "layout_launches_total"]["K3hw"]} if shape == (5, 12, 4)
-                  else {"coverage slew": slew.get(f"{kid} {shape}", 0)})
+            "launches_total"]["K3h"]} if shape == (5, 12, 4)
+                  else {"coverage slew": slew.get(f"K3h {shape}", 0)})
         rows.append(dict(
-            name=f"{row['kernel']} (K3) {shape}" + (
-                ", one warp per element" if warp else ""), route="cuda",
+            name=f"{row['kernel']} (K3) {shape}, one warp per element",
+            route="cuda",
             source=f"diff_qp_mpc_tpu_torch/csrc/{row['kernel']}.cu",
             replaces="diff_qp_mpc_tpu/ops/riccati_pallas.py:219",
             launches=sum(by_run.values()), launches_by_run=by_run,
@@ -3668,6 +3645,9 @@ def k3_by_shape(k3_horizon, cp2_qps, cp2_runs, training, experts):
             entry["horizon_kernel_ms"] = row["horizon_kernel"]["ms"]
         entry["launches"] = sum(n for _, n in runs_at.get(key, []))
         entry["launches_by_run"] = dict(runs_at.get(key, []))
+        if row["kernel"] == "riccati_horizon_warp":
+            entry["shared_memory"] = row["shared_memory"]
+            entry["ms_profiler"] = row["ms_profiler"]
         out[key] = entry
     worst = lambda rows: max(r.get("kernel_vs_f64", r["max_rel_err"])
                              for r in rows if r["dtype"] == "torch.float32")
@@ -3679,36 +3659,48 @@ def k3_by_shape(k3_horizon, cp2_qps, cp2_runs, training, experts):
 
 
 def new_warp_rows(k3_horizon, cp2_qps, cp2_runs, training, experts):
-    """The kernels line's rows of the warp layouts this PR's phases time
-    outside the coverage phase: K3's horizon kernel at the quadrotor
-    expert's (20, 12, 4) (float32 ms at B 64 with plain, library and bound,
-    its checks' largest errors, the expert's launches, all on the warp
-    layout) and K4 at (5, 6, 1) (the same on the K4 profiler's random QPs,
-    its checkpoint-QP check, the cp2 ip fused runs' launches)."""
-    k3 = k3_horizon["T20 nx12 nu4"]
-    worst = {dt: max(c.get("kernel_vs_f64", c["max_rel_err"])
-                     for c in k3["checks"] if c["dtype"] == f"torch.{dt}")
-             for dt in ("float32", "float64")}
-    k3_runs = {"quadrotor expert": experts["quadrotor"][
-        "layout_launches_total"]["K3hw"]}
+    """The kernels line's rows of the warp layouts timed outside the
+    coverage phase: K3's horizon kernel at the quadrotor expert's (20, 12,
+    4), the cp2 stabilize expert's (10, 6, 1) and DAgger's cp1 stabilize
+    planner's (60, 4, 1) (float32 ms at B 64 by queued events and by the
+    profiler, with plain, library and bound, its checks' largest errors,
+    its launches in the runs that take it) and K4 at
+    (5, 6, 1) (the same on the K4 profiler's random QPs, its checkpoint-QP
+    check, the cp2 ip fused runs' launches)."""
+    rows = []
+    for key, shape, run, expert in (
+            ("T20 nx12 nu4", "(20, 12, 4)", "quadrotor expert", "quadrotor"),
+            ("T10 nx6 nu1", "(10, 6, 1)", "cp2-stabilize expert",
+             "cp2-stabilize"),
+            ("T60 nx4 nu1", "(60, 4, 1)", "cp1 DAgger relabeling",
+             "dagger")):
+        k3 = k3_horizon[key]
+        worst = {dt: max(c.get("kernel_vs_f64", c["max_rel_err"])
+                         for c in k3["checks"]
+                         if c["dtype"] == f"torch.{dt}")
+                 for dt in ("float32", "float64")}
+        k3_runs = {run: experts[expert]["launches_total"]["K3h"]}
+        T_, nx, nu = (int(v) for v in shape.strip("()").split(", "))
+        rows.append(dict(
+            name=f"{k3['kernel']} (K3) {shape}, one warp per element",
+            route="cuda",
+            source=f"diff_qp_mpc_tpu_torch/csrc/{k3['kernel']}.cu",
+            replaces="diff_qp_mpc_tpu/ops/riccati_pallas.py:219",
+            launches=sum(k3_runs.values()), launches_by_run=k3_runs,
+            max_rel_err_float32=worst["float32"],
+            max_rel_err_float64=worst["float64"],
+            **{k: k3[k] for k in ("max_abs_err", "ms", "ms_profiler",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "library_max_rel_err",
+                                  "shared_memory")},
+            shape=f"B={EPISODES} T={T_} nx={nx} nu={nu} float32"))
     t = cp2_qps["timing"]
     rand = cp2_qps["K4 random"]
     ckpt = cp2_qps["K4 checkpoint QPs"]
     k4_runs = {"cp2-ip-fused closed loop": cp2_runs["cp2-ip-fused"][
         "launches"]["K4w"], "cp2-ip-fused training": training[
         "cp2-ip-fused"]["launches_total"]["K4w"]}
-    rows = [dict(
-        name=f"{k3['kernel']} (K3) (20, 12, 4), one warp per element",
-        route="cuda", source=f"diff_qp_mpc_tpu_torch/csrc/{k3['kernel']}.cu",
-        replaces="diff_qp_mpc_tpu/ops/riccati_pallas.py:219",
-        launches=sum(k3_runs.values()), launches_by_run=k3_runs,
-        max_rel_err_float32=worst["float32"],
-        max_rel_err_float64=worst["float64"],
-        **{k: k3[k] for k in ("max_abs_err", "ms", "ms_profiler",
-                              "plain_ms", "bound_ms", "bound_by",
-                              "library_ms", "library_max_rel_err",
-                              "shared_memory")},
-        shape=f"B={EPISODES} T=20 nx=12 nu=4 float32"), dict(
+    rows.append(dict(
         name="trajqp_fused (K4) (5, 6, 1), one warp per element",
         route="cuda",
         source="diff_qp_mpc_tpu_torch/csrc/trajqp_fused_warp.cu",
@@ -3726,7 +3718,7 @@ def new_warp_rows(k3_horizon, cp2_qps, cp2_runs, training, experts):
                                          for r in ckpt),
         checkpoint_qps_plain_vs_f64=max(max(r["plain_vs_f64"].values())
                                         for r in ckpt),
-        shape=f"B={EPISODES} T=5 nx=6 nu=1 float32")]
+        shape=f"B={EPISODES} T=5 nx=6 nu=1 float32"))
     for row in rows:
         if row["launches"] <= 0:
             raise RuntimeError(f"{row['name']}: launched no time on the "
@@ -3769,7 +3761,7 @@ def k2_by_model(k2_models, model_runs, training):
             if "ms" in r and r["B"] == EPISODES:
                 entry.update({k: r[k] for k in (
                     "ms", "ms_events", "plain_ms", "bound_ms", "bound_by",
-                    "group")})
+                    "group", "warps") if k in r})
             elif "ms" in r:
                 entry[f"ms_B{r['B']}"] = r["ms"]
                 entry[f"bound_ms_B{r['B']}"] = r["bound_ms"]
@@ -3845,7 +3837,7 @@ def warp_kernel_rows(k1_models, k2_models, model_runs, training):
         main_t = horizons[-1]
         t = timed[main_t]
         rows.append({
-            "name": f"al_fused {name} (K2, one warp per element)",
+            "name": f"al_fused {name} (K2, {t['warps']} warps per element)",
             "route": "cuda",
             "source": f"diff_qp_mpc_tpu_torch/csrc/al_fused_{name}.cu",
             "replaces": "diff_qp_mpc_tpu/ops/al_fused_pallas.py:340",
@@ -3859,6 +3851,7 @@ def warp_kernel_rows(k1_models, k2_models, model_runs, training):
                           for dt, tol in k2_models_mod.TOL.items()},
             "ms": t["ms"],
             "ms_by_horizon": {T_: r["ms"] for T_, r in timed.items()},
+            "warps_by_horizon": {T_: r["warps"] for T_, r in timed.items()},
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "shared_memory": t["shared_memory"],
@@ -3882,7 +3875,7 @@ def main():
 
     t0 = time.perf_counter()
     logs = cuda_build.build(["btsolve", *al_fused_cuda.LIBRARIES, "riccati",
-                             "riccati_horizon", "trajqp_fused",
+                             "riccati_horizon_warp", "trajqp_fused",
                              "trajqp_fused_warp", "sin_chain"])
     log(f"build: {time.perf_counter() - t0:.1f} s")
     log("build seconds by source", json.dumps(cuda_build.build_seconds))
@@ -4055,8 +4048,11 @@ def main():
         k2["launches_coverage"] = cossin.get(f"K2 {name}", 0)
         k2["launches"] += k2["launches_coverage"]
     quad = kernels[1]["by_model"]["quadrotor T5"]
+    quad_timing = next(r for r in k2_models["quadrotor T5 float32"]
+                       if "shared_memory" in r)
     kernels.append({
-        "name": "al_fused quadrotor (K2, one warp per element)",
+        "name": f"al_fused quadrotor (K2, {quad_timing['warps']} warps per "
+                f"element)",
         "route": "cuda",
         "source": "diff_qp_mpc_tpu_torch/csrc/al_fused_warp.cuh",
         "replaces": "diff_qp_mpc_tpu/ops/al_fused_pallas.py:340",
@@ -4069,8 +4065,8 @@ def main():
         "ms_B128": quad["ms_B128"], "plain_ms": quad["plain_ms"],
         "bound_ms": quad["bound_ms"], "bound_by": quad["bound_by"],
         "library_ms": None,
-        "shared_memory": next(r["shared_memory"] for r in k2_models[
-            "quadrotor T5 float32"] if "shared_memory" in r),
+        "warps": quad_timing["warps"],
+        "shared_memory": quad_timing["shared_memory"],
         "shape": f"B={main_b} T=5 nx=12 nu=4 float32"})
     kernels.extend(warp_kernel_rows(k1_models, k2_models, model_runs,
                                     training))

@@ -1,6 +1,7 @@
 """The closed loops, trainings and expert runs that the warp layouts serve
-(K1 at n 16, K2 on the cartpoles, K3's horizon kernel at the quadrotor's
-shapes, K4 at cp2's), on two checkouts of the repo in turns, on one card.
+(K1 at n 16, K2 on the cartpoles and the quadrotor, K3's horizon kernel at
+the quadrotor's and the experts' shapes, K4 at cp2's), on two checkouts of
+the repo in turns, on one card.
 
     PYTHONPATH=$PWD python -m diff_qp_mpc_tpu_torch.benchmarks.ab_trees \\
         --trees A_DIR B_DIR [--order ABBA] [--runs NAME,...] \\
@@ -44,15 +45,18 @@ CP1 = "logs/deqmpc_cp1_fused_v10_T10/ckpt_best.msgpack"
 CP2_V8 = "logs/deqmpc_cp2_fused_v8_T10/ckpt_best.msgpack"
 QUAD = "logs/deqmpc_quadrotor_fused_v8/ckpt_best.msgpack"
 CP2_IP = "logs/deqmpc_cp2_ip_term_v1/ckpt_best.msgpack"
-#: (run, evaluate's flags): cp1's and cp2 v8's fused paths (K2 on the warp
-#: layout), the quadrotor's scan path (K1 at n 16), the last cut to 3 steps
-#: (host-bound, ~3 s a step); the cp2 ip checkpoint's fused path (18 K4 at
-#: (5, 6, 1) a step), cut to 15 steps as chip_smoke.py cuts it
+#: (run, evaluate's flags): cp1's, cp2 v8's and the quadrotor's fused paths
+#: (K2 on the warp layout; the quadrotor over its env's 100 steps), the
+#: quadrotor's scan path (K1 at n 16), the last cut to 3 steps (host-bound,
+#: ~3 s a step); the cp2 ip checkpoint's fused path (18 K4 at (5, 6, 1) a
+#: step), cut to 15 steps as chip_smoke.py cuts it
 CLOSED_LOOPS = (
     ("cp1-fused", ["--ckpt", CP1, "--fused", "--episodes", "64",
                    "--max_steps", "200"]),
     ("cp2-v8-fused", ["--ckpt", CP2_V8, "--fused", "--episodes", "64",
                       "--max_steps", "200"]),
+    ("quad-fused", ["--ckpt", QUAD, "--fused", "--episodes", "64",
+                    "--max_steps", "100"]),
     ("quad-scan", ["--ckpt", QUAD, "--episodes", "64", "--max_steps", "3"]),
     ("cp2-ip-fused", ["--ckpt", CP2_IP, "--fused", "--episodes", "64",
                       "--max_steps", "15"]))
@@ -67,11 +71,17 @@ TRAININGS = (("cp1-train", CP1 + ".meta.json", [], 30),
              ("cp2-ip-train", CP2_IP + ".meta.json", [], 20))
 PRETRAIN = 5
 #: (run, datagen's flags): the quadrotor's MPC expert (T 20, 144 K3h at
-#: (20, 12, 4) an MPC step), 16 trajectories × 5 steps as chip_smoke.py
+#: (20, 12, 4) an MPC step), 16 trajectories × 5 steps as chip_smoke.py;
+#: the cp2 stabilize expert (T 10, terminal LQR, 120 K3h at (10, 6, 1) an
+#: MPC step), 64 trajectories × 10 steps
 EXPERTS = (("quad-expert", ["--env", "rexquadrotor", "--num_traj", "16",
                             "--max_steps", "5", "--out",
                             os.path.join("build", "ab_trees",
-                                         "quad_expert.pkl")]),)
+                                         "quad_expert.pkl")]),
+           ("cp2-expert", ["--env", "cartpole2link", "--stabilization",
+                           "--num_traj", "64", "--max_steps", "10", "--out",
+                           os.path.join("build", "ab_trees",
+                                        "cp2_expert.pkl")]))
 #: the kernel sources whose libraries the runs launch (those a checkout has)
 LIBRARIES = ("btsolve", "al_fused_cartpole1l", "al_fused_cartpole2l",
              "al_fused_quadrotor", "riccati", "riccati_horizon",

@@ -25,6 +25,15 @@ A failed check raises. Without a card it raises. ``chip_smoke.py`` runs
 the same checks. ``--plain`` prints, on the CPU, the plain version's own
 float32-vs-float64 and one-ulp spreads over seeds, from which ``TOL`` and
 ``SHARE_LIMIT`` are set.
+
+``--layouts`` instead times every (model, T, dtype) of the warp layout,
+the kernel at its table's warps per element, at ``LAYOUT_BATCHES``
+(``layouts``): queued-event ms per launch, within ``TOL`` of the plain
+version (float32 by the share limit). ``--against DIR`` adds the kernel
+of another checkout's sources (``DIR/diff_qp_mpc_tpu_torch/csrc``, built
+with the same flags; its entry called with one warp per element) in turns
+(table, against, against, table; the mean of each one's two readings),
+with its bits beside the table kernel's.
 """
 from __future__ import annotations
 
@@ -41,7 +50,11 @@ from diff_qp_mpc_tpu_torch.benchmarks.flops import (
     k2_bytes,
     k2_ops_with_sin,
 )
-from diff_qp_mpc_tpu_torch.benchmarks.timing import device_kernel_ms, events_ms
+from diff_qp_mpc_tpu_torch.benchmarks.timing import (
+    device_kernel_ms,
+    events_ms,
+    queued_events_ms,
+)
 from diff_qp_mpc_tpu_torch.envs import make_env
 from diff_qp_mpc_tpu_torch.models import CartpoleCosSin, PendulumCosSin
 from diff_qp_mpc_tpu_torch.ops import al_fused_cuda
@@ -304,8 +317,10 @@ def timing(name, T, B=64) -> dict:
         B * k2_bytes(T, model.nx, model.nu),
         B * k2_ops_with_sin(T, model.nx, model.nu, **n_budget,
                             sin_fp32_instr=SINF_FP32_INSTR, model=name))
-    if al_fused_cuda.built_for(model).layout == "warp":
+    built = al_fused_cuda.built_for(model)
+    if built.layout == "warp":
         layout = dict(group=32, kernel="al_warp_kernel",
+                      warps=built.warps,
                       shared_memory=al_fused_cuda.warp_smem(
                           torch.float32, T, args[1].device, model))
     else:
@@ -320,6 +335,81 @@ def timing(name, T, B=64) -> dict:
                                    fused_al_solve_reference(*args, **bud),
                                    2, warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+#: the batches ``layouts`` times: the paths' 64, 128 (the quadrotor's
+#: training) and 256, and 512 to 4096, beyond any path's default
+LAYOUT_BATCHES = (64, 128, 256, 512, 1024, 2048, 4096)
+#: every (model, T, dtype) on the warp layout
+WARP_CASES = tuple(c for c in CASES if al_fused_cuda.built_for(
+    model(c[0])).layout == "warp")
+
+
+def layouts(batches=LAYOUT_BATCHES, against=None, reps=10,
+            log=print) -> list:
+    """The warp layout's kernel per (model, T, dtype, B), and another
+    checkout's beside it in turns (see the module docstring); raises where
+    the table kernel disagrees with the plain version."""
+    libs = {}
+    rows = []
+    for name, T, dtype in WARP_CASES:
+        for B in batches:
+            bud = budget(name)
+            args = problem(name, B, T, dtype, seed=B)
+            mdl, Cd = args[0], args[1]
+            built = al_fused_cuda.built_for(mdl)
+            lam = al_fused_cuda._fill_warm_start(B, T, mdl.nx, mdl.nu, Cd,
+                                                 None, None, None, None)
+            full = (*args, *(bud[k] for k in (
+                "al_iter", "n_newton", "n_ls", "rho_factor", "rho_max",
+                "reg")), *lam)
+            table = f"W{built.warps}"
+            fns = {table: lambda: al_fused_cuda._launch(*full)}
+            if against is not None:
+                if built.library not in libs:
+                    libs[built.library] = cuda_build.load_from(
+                        against, built.library)
+                outs = [torch.empty_like(a) for a in (Cd, *lam)]
+                stream = torch.cuda.current_stream().cuda_stream
+
+                def old(lib=libs[built.library], outs=outs):
+                    err = al_fused_cuda.call_entry(
+                        getattr(lib, built.symbol(dtype)),
+                        (Cd, args[2], args[3], args[6], args[7], *lam,
+                         *outs), B, 5, T, bud["al_iter"], bud["n_newton"],
+                        bud["n_ls"], bud["rho_factor"], bud["rho_max"],
+                        bud["reg"], built.params(mdl), args[4], args[5],
+                        stream)
+                    cuda_build.check(lib, err, "K2 of the other checkout")
+                    return tuple(outs)
+
+                fns["against"] = old
+            got = {k: tuple(o.clone() for o in f()) for k, f in fns.items()}
+            ref = al_fused_cuda.fused_al_solve_reference(*args, **bud)
+            torch.cuda.synchronize()
+            el = element_errors(got[table], ref)
+            row = dict(model=name, T=T, dtype=str(dtype), B=B,
+                       warps=built.warps,
+                       max_abs_err_xu=float(el.max()),
+                       share_over_tol=float((el > TOL[dtype]).double()
+                                            .mean()),
+                       shared_memory=al_fused_cuda.warp_smem(
+                           dtype, T, Cd.device, mdl))
+            if against is not None:
+                row["against_identical"] = _same(got["against"], got[table])
+            order = list(fns) + list(reversed(fns))
+            ms = {k: 0.0 for k in fns}
+            for k in order:
+                ms[k] += queued_events_ms(fns[k], reps) / 2
+            row["ms"] = ms
+            row["faster"] = min(ms, key=ms.get)
+            ok = (all(bool(torch.isfinite(o).all()) for o in got[table])
+                  and row["share_over_tol"] <= share_limit(name, dtype))
+            log("K2 layouts", json.dumps(row))
+            if not ok:
+                raise RuntimeError(f"K2 layouts on {name}: {row}")
+            rows.append(row)
+    return rows
 
 
 def plain_spread(name, T, B, seed, device="cpu") -> dict:
@@ -367,6 +457,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, default=8,
                     help="--plain: seeds 0 .. SEEDS-1 beside the card "
                          "checks' seed B")
+    ap.add_argument("--layouts", action="store_true",
+                    help="only the warp layout's kernel at LAYOUT_BATCHES "
+                         "(layouts)")
+    ap.add_argument("--against", type=Path, default=None,
+                    help="--layouts: another checkout whose kernel joins "
+                         "the turns")
     args = ap.parse_args(argv)
     if args.plain:
         for name, T in sorted({(n, t) for n, t, _ in CASES}):
@@ -377,8 +473,14 @@ def main(argv=None) -> int:
         return 0
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: these checks are of the card")
-    cuda_build.build(al_fused_cuda.LIBRARIES)
-    result = run()
+    cuda_build.build(sorted({al_fused_cuda.built_for(model(n)).library
+                             for n, _, _ in WARP_CASES}) if args.layouts
+                     else al_fused_cuda.LIBRARIES)
+    if args.layouts:
+        result = dict(card=torch.cuda.get_device_name(0),
+                      layouts=layouts(against=args.against))
+    else:
+        result = run()
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
     return 0

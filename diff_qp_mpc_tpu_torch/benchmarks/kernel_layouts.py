@@ -22,13 +22,17 @@ pendulum, n 3):
     the plain float32 version's own error; and the warp layout's float32
     computation on the quadrotor's systems over ``K1_RULE_SEEDS`` draws
     (``k1_compute_rule``), the check that sets its compute type;
-  - K3's horizon kernels at the quadrotor's (nx, nu) (``k3_layouts``): the
-    warp layout and, where it is still built, the one-thread layout, at
-    ``K3_WARP_SHAPES`` × ``K3_WARP_BATCHES``, both dtypes: queued-event ms
-    in turns (thread, warp, warp, thread), the profiler's ms of the warp
-    kernel, errors against the plain version (float64 within
+  - K3's horizon kernel (one warp per element) at the quadrotor's (nx, nu)
+    (``k3_layouts``: ``K3_WARP_SHAPES`` × ``K3_WARP_BATCHES``) and at every
+    path shape with one control (``k3_thread_shapes``: ``K3_THREAD_SHAPES``
+    × ``K3_THREAD_BATCHES``), both dtypes: queued-event ms, the profiler's
+    ms, errors against the plain version (float64 within
     ``K3_LAYOUT_TOL``; float32 against the float64 solution within
-    ``F32_VS_F64_RATIO`` of the plain float32 version's error);
+    ``F32_VS_F64_RATIO`` of the plain float32 version's error); with
+    ``--against DIR``, the one-thread horizon kernel of another checkout
+    (``DIR/diff_qp_mpc_tpu_torch/csrc/riccati_horizon.cu``, built with
+    this tree's flags) beside it where that source builds the shape, held
+    to the same errors and timed in turns (thread, warp, warp, thread);
   - K4 at the cartpoles' shapes (``k4_layouts``): the warp layout and,
     where it is still built, the thread layout, at ``K4_WARP_BATCHES``,
     both dtypes, timed in the same turns, each within ``K4W_TOL`` of the
@@ -121,6 +125,13 @@ K4W_TOL = {torch.float32: 5e-3, torch.float64: 1e-9}
 #: the dataset's 300 and a filled card's 4096
 K3_WARP_SHAPES = ((5, 12, 4), (20, 12, 4), (5, 16, 4))
 K3_WARP_BATCHES = (16, 64, 128, 300, 4096)
+#: K3's horizon kernel at every path shape with one control (the MPC
+#: experts' planners, the slew shapes), at the paths' batches 8 (DAgger's
+#: relabeling in chip_smoke.py), 16, 64 (the experts in chip_smoke.py),
+#: 200 (the datasets, and DAgger's default relabeling) and 4096
+K3_THREAD_SHAPES = ((60, 4, 1), (80, 4, 1), (10, 6, 1), (120, 6, 1),
+                    (20, 2, 1), (30, 2, 1), (40, 2, 1), (5, 5, 1), (5, 7, 1))
+K3_THREAD_BATCHES = (8, 16, 64, 200, 4096)
 #: K4's layouts at the cartpoles' shapes, at the paths' 64 and 256 and 4096
 K4_WARP_SHAPES = ((5, 5, 1), (5, 6, 1), (5, 7, 1))
 K4_WARP_BATCHES = (64, 256, 4096)
@@ -493,12 +504,42 @@ def _rel(got, want):
                      / w.double().abs().max()) for g, w in zip(got, want))
 
 
+def _one_thread_k3(lib, args, reg):
+    """The one-thread horizon kernel of another checkout (``lib``, its
+    ``csrc/riccati_horizon.cu``) on ``args``: (dx, du, lam); raises where
+    it is not built for the shape."""
+    import ctypes
+
+    gx, gu = args[3], args[4]
+    Bsz, T_, nx, nu = args[1].shape
+    lib.riccati_horizon_workspace.restype = ctypes.c_int
+    width = lib.riccati_horizon_workspace(nx, nu)
+    if width == 0:
+        raise ValueError(f"the one-thread kernel is not built for nx={nx}, "
+                         f"nu={nu}")
+    ws = gx.new_empty(T_ * width * Bsz)
+    outs = [torch.empty_like(gx), torch.empty_like(gu), torch.empty_like(gx)]
+    bits = "f32" if gx.dtype == torch.float32 else "f64"
+    fn = getattr(lib, f"riccati_horizon_{bits}")
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 \
+        + [ctypes.c_double, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*(a.data_ptr() for a in args), *(o.data_ptr() for o in outs),
+             ws.data_ptr(), Bsz, T_, nx, nu, float(reg),
+             torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(lib, err, "the other checkout's riccati_horizon")
+    return tuple(outs)
+
+
 def k3_layouts(shapes=K3_WARP_SHAPES, batches=K3_WARP_BATCHES,
-               reg=K4_BUDGET["reg"]) -> list:
-    """K3's horizon kernels per (shape, dtype, B): each built layout's
-    error (raises above tolerance), queued-event ms of both in turns where
-    both are built, the profiler's ms of the warp layout, the bound, and
-    the faster layout."""
+               against=None, reg=K4_BUDGET["reg"]) -> list:
+    """K3's horizon kernel per (shape, dtype, B): its error (raises above
+    tolerance), queued-event ms, the profiler's ms, shared memory and the
+    bound; with ``against`` (another checkout's root) its one-thread
+    horizon kernel beside it where built (error, both timed in turns) and
+    the faster."""
+    thread_lib = (cuda_build.load_from(against, "riccati_horizon")
+                  if against is not None else None)
     rows = []
     for T_, nx, nu in shapes:
         for dtype in (torch.float32, torch.float64):
@@ -516,34 +557,35 @@ def k3_layouts(shapes=K3_WARP_SHAPES, batches=K3_WARP_BATCHES,
                             if dtype == torch.float32 else 0.0)
                 row = dict(T=T_, nx=nx, nu=nu, B=B, dtype=str(dtype),
                            limit=limit, ms={})
-                names = [n for n, built in riccati_cuda._HORIZON_KERNELS
-                         .items() if (nx, nu) in built]
-                fns = {}
-                for name in names:
-                    fns[name] = lambda name=name: riccati_cuda._launch(
-                        args, reg, name)
-                    out = fns[name]()
+                fns = {"riccati_horizon_warp": lambda: riccati_cuda._launch(
+                    args, reg, "riccati_horizon_warp")}
+                if thread_lib is not None and \
+                        thread_lib.riccati_horizon_workspace(nx, nu):
+                    fns["riccati_horizon"] = lambda: _one_thread_k3(
+                        thread_lib, args, reg)
+                for name, fn in fns.items():
+                    out = fn()
                     row[f"err_{name}"] = _rel(out, ref)
                     if not (all(bool(torch.isfinite(o).all()) for o in out)
                             and row[f"err_{name}"] <= limit):
                         raise RuntimeError(f"K3 ({name}) disagrees with its "
                                            f"plain version: {row}")
-                if len(names) == 2:
+                if len(fns) == 2:
                     row["ms"]["riccati_horizon"], \
                         row["ms"]["riccati_horizon_warp"] = _turns(
                             (fns["riccati_horizon"],
                              fns["riccati_horizon_warp"]), 20)
                 else:
-                    row["ms"][names[0]] = queued_events_ms(fns[names[0]], 20)
-                if "riccati_horizon_warp" in fns:
-                    try:  # the profiler has missed K3h on one machine
-                        row["ms_profiler_warp"] = device_kernel_ms(
-                            fns["riccati_horizon_warp"], 20,
-                            "riccati_horizon_warp_kernel")
-                    except RuntimeError as err:
-                        row["ms_profiler_warp"] = str(err)
-                    row["warp_shared_memory"] = riccati_cuda.warp_smem(
-                        dtype, nx, nu, args[0].device)
+                    row["ms"]["riccati_horizon_warp"] = queued_events_ms(
+                        fns["riccati_horizon_warp"], 20)
+                try:  # the profiler has missed K3h on one machine
+                    row["ms_profiler_warp"] = device_kernel_ms(
+                        fns["riccati_horizon_warp"], 20,
+                        "riccati_horizon_warp_kernel")
+                except RuntimeError as err:
+                    row["ms_profiler_warp"] = str(err)
+                row["warp_shared_memory"] = riccati_cuda.warp_smem(
+                    dtype, nx, nu, args[0].device)
                 row["faster"] = min(row["ms"], key=row["ms"].get)
                 row["kernel_for"] = riccati_cuda.kernel_for(T_, nx, nu)
                 row["bound_ms"], row["bound_by"] = bound(
@@ -612,12 +654,15 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="comma-separated measurements to run (default: "
                          "all): " + ", ".join(MEASUREMENTS))
+    ap.add_argument("--against", type=Path, default=None,
+                    help="k3_layouts, k3_thread_shapes: another checkout "
+                         "whose one-thread horizon kernel joins the turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: these measurements are of the "
                            "card only")
-    logs = cuda_build.build(["btsolve", "al_fused", "riccati_horizon",
-                             "riccati_horizon_warp", "trajqp_fused",
+    logs = cuda_build.build(["btsolve", "al_fused", "riccati_horizon_warp",
+                             "trajqp_fused",
                              "trajqp_fused_warp"])
     result = dict(ptxas={k: [ln.strip() for ln in v.splitlines()
                              if "registers" in ln or "spill" in ln
@@ -626,7 +671,8 @@ def main(argv=None) -> int:
                   device=torch.cuda.get_device_name(0))
     only = [m for m in args.only.split(",") if m] or list(MEASUREMENTS)
     for name in only:
-        result[name] = MEASUREMENTS[name]()
+        result[name] = (MEASUREMENTS[name](against=args.against)
+                        if name in _K3_MEASUREMENTS else MEASUREMENTS[name]())
         print(name, json.dumps(result[name]), flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
@@ -641,7 +687,11 @@ MEASUREMENTS = {
         if (n, T_) != (N, T) for row in k1_layouts((64, 4096), n=n, T_=T_)],
     "k1_warp": lambda: k1_layouts(K1_WARP_BATCHES, n=16, T_=T),
     "k1_compute_rule": k1_compute_rule, "k3_layouts": k3_layouts,
+    "k3_thread_shapes": lambda against=None: k3_layouts(
+        K3_THREAD_SHAPES, K3_THREAD_BATCHES, against),
     "k4_layouts": k4_layouts}
+#: the measurements that take ``--against``
+_K3_MEASUREMENTS = ("k3_layouts", "k3_thread_shapes")
 
 
 if __name__ == "__main__":

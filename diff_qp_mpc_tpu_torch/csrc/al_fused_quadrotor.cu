@@ -1,7 +1,8 @@
 // K2 for the Rex quadrotor (diff_qp_mpc_tpu/models/quadrotor.py,
 // RexQuadrotor): its functor and its instantiations, float32 and float64 at
-// T 5, on the warp layout of al_fused_warp.cuh (one warp per element, its
-// blocks in shared memory). Built for the host by utils/k2_host.py
+// T 5, on the warp layout of al_fused_warp.cuh (four warps per element, the
+// fastest of W 1, 2 and 4 at B 64-256 on the card, PERF.md; its blocks in
+// shared memory). Built for the host by utils/k2_host.py
 // (K2_HOST defined), the same functor runs al_fused_common.cuh's one-lane
 // kernel at G 1 instead, to bisect the functor's and the merit's rounding
 // off the card.
@@ -164,14 +165,13 @@ using QuadrotorDyn = Rk4Dyn<QuadrotorSys, F>;
 
 #ifndef K2_HOST
 AL_WARP_ENTRY(al_fused_quadrotor_f32, float,
-              AL_WARP_CASE(5, dqmpc::QuadrotorSys, float))
+              AL_WARP_CASE(5, dqmpc::QuadrotorSys, float, 4))
 AL_WARP_ENTRY(al_fused_quadrotor_f64, double,
-              AL_WARP_CASE(5, dqmpc::QuadrotorSys, double))
-
+              AL_WARP_CASE(5, dqmpc::QuadrotorSys, double, 4))
 AL_WARP_SMEM_ENTRY(al_fused_quadrotor_smem_f32,
-                   AL_WARP_SMEM_CASE(5, dqmpc::QuadrotorSys, float))
+                   AL_WARP_SMEM_CASE(5, dqmpc::QuadrotorSys, float, 4))
 AL_WARP_SMEM_ENTRY(al_fused_quadrotor_smem_f64,
-                   AL_WARP_SMEM_CASE(5, dqmpc::QuadrotorSys, double))
+                   AL_WARP_SMEM_CASE(5, dqmpc::QuadrotorSys, double, 4))
 #else
 // the host build: the one-lane kernel at G 1 only
 AL_FUSED_ENTRY(al_fused_quadrotor_f32, float,

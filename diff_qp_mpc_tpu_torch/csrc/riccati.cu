@@ -131,8 +131,8 @@ int dispatch(const RiccatiArgs& a, int Bsz, int T, int nx, int nu,
 // gu [B,T,nu], A [B,T-1,nx,nx], B [B,T-1,nx,nu], r [B,T-1,nx], dx0 [B,nx]
 // -> dx [B,T,nx], du [B,T,nu], lam [B,T,nx]; all contiguous. Built for
 // (T, nx, nu) = (5, 2, 1), (5, 3, 1), (5, 3, 2), (5, 4, 1) and (5, 6, 1);
-// cudaErrorInvalidValue otherwise (riccati_horizon.cu takes longer
-// horizons).
+// cudaErrorInvalidValue otherwise (riccati_horizon_warp.cu takes
+// longer horizons).
 // Returns a cudaError_t code.
 #define RICCATI_ENTRY(NAME, F)                                                \
   extern "C" int NAME(const void* Cxx, const void* Cxu, const void* Cuu,     \

@@ -3,19 +3,26 @@
 // stage in shared memory.
 //
 // Replaces the TPU kernel diff_qp_mpc_tpu/ops/riccati_pallas.py::
-// batched_lqr_kkt_solve (_riccati_kernel) at the quadrotor's (nx, nu) =
-// (12, 4) (its MPC expert's planner, T 20; its ip path's scan IPM and every
-// ip backward, T 5) and its slew-augmented (16, 4) (T 5). There
-// riccati_horizon.cu's one thread per element holds P, PA, Aᵀ(PA), the Q
-// blocks and K in more than a lane's 255 registers and spills them to
-// local memory, each thread reads its stage's blocks from global memory
-// T·nx² values apart from its neighbours', and a launch of B 64-128
-// occupies one SM of 132. Same function as riccati_horizon.cu: the
-// backward Riccati recursion over the dense stage blocks, reg added to
-// Quu's diagonal before its Cholesky factorization, P symmetrized, then the
-// forward rollout from dx0, returning (dx, du, λ = −(P·dx + p)). Every entry
-// is summed in riccati_common.cuh's order (riccati_solve's, which
-// riccati_horizon.cu runs too), so the two kernels agree to rounding.
+// batched_lqr_kkt_solve (_riccati_kernel) at every horizon shape that
+// csrc/riccati.cu's unrolled T 5 kernel does not serve: the quadrotor's
+// (nx, nu) = (12, 4) (its MPC expert's planner, T 20; its ip path's scan
+// IPM and every ip backward, T 5) and its slew-augmented (16, 4) (T 5); the
+// one-control shapes (4, 1) to (7, 1): cp1's stabilize planner (T 60,
+// DAgger's relabeling) and swing-up (T 80), cp2's (T 10 and 120), the
+// cartpoles' slew shapes and CartpoleCosSin's ip path (T 5); and (2, 1), the
+// pendulum's and the integrator's expert planners (T 20 to 40). A kernel of
+// one thread per element reads its stage's blocks from global memory T·nx²
+// values apart from its neighbours', a launch of B 64-128 occupies one SM
+// of 132, and at (12, 4) and (16, 4) it holds P, PA, Aᵀ(PA), the Q blocks
+// and K in more than a lane's 255 registers and spills them to local
+// memory. At (2, 1) to (7, 1) most lanes of a phase idle, and the warp
+// layout still measured faster than one thread per element at the paths'
+// batches (PERF.md). The backward Riccati recursion over the dense stage
+// blocks, reg added to Quu's diagonal before its Cholesky factorization, P
+// symmetrized, then the forward rollout from dx0, returning
+// (dx, du, λ = −(P·dx + p)). Every entry is summed in riccati_common.cuh's
+// order (riccati_solve's, which riccati.cu runs too), so the two kernels
+// agree to rounding at T 5.
 //
 // Design: kHorizonWarps elements (warps) a block, so a launch of B elements
 // spreads over B / kHorizonWarps blocks. Each warp keeps one stage in
@@ -52,7 +59,7 @@ namespace dqmpc {
 constexpr int kHorizonWarps = 2;
 
 // Values a stage keeps in the workspace: K (NU·NX), k (NU), P (NX·NX), p
-// (NX); riccati_horizon.cu's HorizonLayout.
+// (NX).
 template <int NX, int NU>
 struct HorizonWarpLayout {
   static constexpr int kK = 0;
@@ -359,8 +366,11 @@ int launch(const HorizonWarpArgs& a, int Bsz, int T, double reg,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiations: the quadrotor's (nx, nu) and its slew-augmented one.
-#define RICCATI_HORIZON_WARP_SHAPES(X) X(12, 4) X(16, 4)
+// The instantiations: the quadrotor's (nx, nu) and its slew-augmented one,
+// the one-control shapes of the cartpoles' expert planners, slew option
+// and CartpoleCosSin's ip path, and the pendulum's and the integrator's.
+#define RICCATI_HORIZON_WARP_SHAPES(X) \
+  X(12, 4) X(16, 4) X(2, 1) X(4, 1) X(5, 1) X(6, 1) X(7, 1)
 
 template <typename F>
 int dispatch(const HorizonWarpArgs& a, int Bsz, int T, int nx, int nu,
@@ -398,9 +408,11 @@ extern "C" int riccati_horizon_warp_workspace(int nx, int nu) {
   return 0;
 }
 
-// Inputs and outputs as riccati_horizon.cu's entry points (contiguous,
-// batch-major); ws holds B·T·W scalars (riccati_horizon_warp_workspace).
-// Built for (nx, nu) = (12, 4) and (16, 4), any T ≥ 1;
+// Cxx [B,T,nx,nx], Cxu [B,T,nx,nu], Cuu [B,T,nu,nu], gx [B,T,nx],
+// gu [B,T,nu], A [B,T-1,nx,nx], B [B,T-1,nx,nu], r [B,T-1,nx], dx0 [B,nx]
+// -> dx [B,T,nx], du [B,T,nu], lam [B,T,nx], all contiguous; ws holds
+// B·T·W scalars (riccati_horizon_warp_workspace). Built for (nx, nu) =
+// (12, 4), (16, 4), (2, 1), (4, 1), (5, 1), (6, 1) and (7, 1), any T ≥ 1;
 // cudaErrorInvalidValue otherwise, cudaErrorInvalidConfiguration when a
 // block's shared memory exceeds what the device allows. Returns a
 // cudaError_t code.

@@ -3,8 +3,8 @@
 
 Each episode step solves the expert's plan from the current states (the
 SQP MPC of ``solvers.sqp_mpc`` over the scan IPM, whose Riccati solves are
-kernel K3: ``csrc/riccati.cu`` at T 5, ``csrc/riccati_horizon.cu`` at the
-planners' horizons), applies its first action, and shifts the plan one
+kernel K3: ``csrc/riccati.cu`` at T 5, ``csrc/riccati_horizon_warp.cu``
+at the planners' horizons), applies its first action, and shifts the plan one
 stage as the next step's warm start. Output is the reference pickle format
 (a list of trajectories, each a list of (state, action) float32 numpy
 pairs), written by ``data.save_expert_pickle`` to

@@ -12,17 +12,28 @@ Two layouts, one per model (``Built.layout``). "group"
 (``GROUPS``) that share its line search, each lane holding the element in
 its registers; the outputs are bit-identical at every G, and
 ``choose_group`` is the rule that picks G from the batch. "warp"
-(``al_fused_warp.cuh``): one warp per element, its blocks in shared memory;
-it raises on a launch whose blocks ask for more shared memory than the
-device allows. The quadrotor (n 16, whose element does not fit one lane)
-and the cartpoles (n 5 and 7, whose elements spill 0.9-12 KB a lane) run
-the warp layout. The cartpoles ran the group layout before; one card call
-timed both layouts on every cartpole (T, dtype) at B 64, 256 and 4096
-(float32 ms a launch at B 64, group / warp, on an NVIDIA H100 80GB HBM3 at
-700 W: cp1 T 5 0.467 / 0.199, T 10 1.238 / 0.392, cp2 T 5 2.047 / 0.403,
-T 10 4.938 / 0.804; PERF.md), and the warp layout was 2.3-7.2× faster in
-every case, so it replaced the group layout there. The warp layout takes
-``group`` None or 32.
+(``al_fused_warp.cuh``): W warps per element (``Built.warps``), its
+blocks in shared memory; it raises on a launch whose
+blocks ask for more shared memory than the device allows. The quadrotor
+(n 16, whose element does not fit one lane) and the cartpoles (n 5 and 7,
+whose elements spill 0.9-12 KB a lane) run the warp layout. The cartpoles
+ran the group layout before; one card call timed both layouts on every
+cartpole (T, dtype) at B 64, 256 and 4096 (float32 ms a launch at B 64,
+group / warp, on an NVIDIA H100 80GB HBM3 at 700 W: cp1 T 5 0.467 /
+0.199, T 10 1.238 / 0.392, cp2 T 5 2.047 / 0.403, T 10 4.938 / 0.804;
+PERF.md), and the warp layout was 2.3-7.2× faster in every case, so it
+replaced the group layout there. Its header takes W 1, 2 or 4 as a
+template parameter (the same bits at every W); one card call timed the
+three in turns on every (model, T, dtype) at B 64, 128, 256 and 4096, and
+W 4 was the fastest at B 64-256 in every case (float32 ms at B 64, W 1 /
+2 / 4, on the same card: the quadrotor 0.520 / 0.425 / 0.392, cp2 T 10
+0.658 / 0.488 / 0.459, cp1 T 10 0.316 / 0.262 / 0.252; the kernel before,
+one warp per element, 0.590 / 0.807 / 0.396; PERF.md), so the sources
+build W 4 alone. The paths feed these models B 64 (the closed loops and
+DAgger, ``--episodes``) to 256 (training, ``--bsz``: 256 by default and at
+the cp1 checkpoint, 128 at the quadrotor's); at B 4096 W 4 is 1.5-2.7×
+slower than one warp per element was (PERF.md gives the crossover). The
+warp layout takes ``group`` None or 32.
 
 ``BUILT`` names the models the kernel is built for, each with its
 source(s), its functor's constants, its horizons per dtype and its layout:
@@ -71,6 +82,9 @@ class Built:
     params: Callable[[object], Tuple[float, ...]]
     horizons: Mapping[torch.dtype, Tuple[int, ...]]
     layout: str = "group"
+    #: the "warp" layout's warps per element (1, 2 or 4) at every horizon
+    #: and dtype: its source's instantiation
+    warps: int = 1
 
     def symbol(self, dtype: torch.dtype, resident: bool = False,
                smem: bool = False) -> str:
@@ -92,13 +106,15 @@ BUILT = {
                       lambda m: (m.dt,),
                       {torch.float32: (5,), torch.float64: (5,)}),
     Cartpole1L: Built("al_fused_cartpole1l", "cartpole1l", 4, 1,
-                      lambda m: m.kernel_params(), _T5_10, layout="warp"),
+                      lambda m: m.kernel_params(), _T5_10, layout="warp",
+                      warps=4),
     Cartpole2L: Built("al_fused_cartpole2l", "cartpole2l", 6, 1,
-                      lambda m: m.kernel_params(), _T5_10, layout="warp"),
+                      lambda m: m.kernel_params(), _T5_10, layout="warp",
+                      warps=4),
     RexQuadrotor: Built("al_fused_quadrotor", "quadrotor", 12, 4,
                         lambda m: m.kernel_params(),
                         {torch.float32: (5,), torch.float64: (5,)},
-                        layout="warp"),
+                        layout="warp", warps=4),
     PendulumCosSin: Built("al_fused_cossin", "pendulum_cossin", 3, 1,
                           lambda m: m.kernel_params(), _T5_10),
     CartpoleCosSin: Built("al_fused_cossin", "cartpole_cossin", 5, 1,
@@ -338,22 +354,24 @@ def warp_smem(dtype: torch.dtype, T: int, device: torch.device,
               model) -> Dict[str, int]:
     """Shared memory of ``model``'s "warp" kernel for (dtype, T) on
     ``device``: bytes an element (``per_element``) and a block
-    (``per_block``), and the most a block may ask of the device
-    (``device_max``)."""
+    (``per_block``: two elements at one warp each, one element above), and
+    the most a block may ask of the device (``device_max``)."""
     built = built_for(model)
     if built.layout != "warp":
         raise ValueError(f"the {built.name} kernel keeps its elements in "
                          f"registers, not in shared memory")
+    W = built.warps
     index = _device_index(device)
     key = (built.name, index, dtype, T)
     if key not in _smem:
         lib = cuda_build.load(built.library)
         fn = getattr(lib, built.symbol(dtype, smem=True))
-        fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
         fn.restype = ctypes.c_int
         out = [ctypes.c_int(0) for _ in range(3)]
         with torch.cuda.device(index):
-            err = fn(T, *(ctypes.byref(o) for o in out))
+            err = fn(T, 5 + W.bit_length() - 1,
+                     *(ctypes.byref(o) for o in out))
         cuda_build.check(lib, err, "al_fused shared-memory query")
         _smem[key] = dict(zip(("per_element", "per_block", "device_max"),
                               (o.value for o in out)))
@@ -379,6 +397,7 @@ def call_entry(fn, tensors, B, log2G, T, al_iter, n_newton, n_ls,
 def _launch(model, Cd, c, x0, u_lo, u_hi, x_init, u_init, al_iter, n_newton,
             n_ls, rho_factor, rho_max, reg, lam_dyn, lam_hi, lam_lo,
             rho0, group=None) -> Outputs:
+    """Launch the kernel."""
     global launches
     built, B, T, n, nx, nu = _check(model, Cd, c, x0, u_lo, u_hi, x_init,
                                     u_init, lam_dyn, lam_hi, lam_lo, rho0)
@@ -387,16 +406,17 @@ def _launch(model, Cd, c, x0, u_lo, u_hi, x_init, u_init, al_iter, n_newton,
     lamh_o = torch.empty_like(lam_hi)
     laml_o = torch.empty_like(lam_lo)
     res = torch.empty_like(rho0)
+    if built.layout == "warp" and group not in (None, 32):
+        raise ValueError(f"the {built.name} kernel runs whole warps per "
+                         f"element ({built.warps}): group must be None or "
+                         f"32, not {group}")
     if B == 0:
         return w, lamd_o, lamh_o, laml_o, res
     if built.layout == "warp":
-        if group not in (None, 32):
-            raise ValueError(f"the {built.name} kernel runs one warp per "
-                             f"element: group must be None or 32, not "
-                             f"{group}")
-        # the entry refuses (invalid configuration) a block whose shared
-        # memory exceeds the device's; check raises on its code
-        group = 32
+        # the element's threads, 32·W; the entry refuses (invalid
+        # configuration) a block whose shared memory exceeds the device's;
+        # check raises on its code
+        group = 32 * built.warps
     elif group is None:
         group = choose_group(B, resident_threads(Cd.dtype, T, Cd.device,
                                                  model))

@@ -1,29 +1,34 @@
 """K3: batched Riccati LQR-KKT solve as hand-written CUDA kernels, the port
 of diff_qp_mpc_tpu.ops.riccati_pallas.
 
-Three kernels compute it:
+Two kernels compute it:
 - ``csrc/riccati.cu`` at the (T, nx, nu) of ``BUILT``: one thread per
   element, every stage loop unrolled, the element in registers (the
   DEQ-MPC tracker's horizon, T 5);
-- ``csrc/riccati_horizon_warp.cu`` at the (nx, nu) of
-  ``HORIZON_WARP_BUILT`` and any T: one warp per element, the stage's
-  blocks and the recursion's temporaries in shared memory (``warp_smem``),
-  each stage's K, k, P and p in a workspace this wrapper allocates (the
+- ``csrc/riccati_horizon_warp.cu``, the horizon kernel, at the (nx, nu) of
+  ``HORIZON_WARP_BUILT`` and any T: one warp per element, the stage's blocks
+  and the recursion's temporaries in shared memory (``warp_smem``), each
+  stage's K, k, P and p in a workspace this wrapper allocates (the
   quadrotor: its MPC expert's planner, T 20; its ip path and every ip
-  backward, T 5; its slew-augmented (16, 4));
-- ``csrc/riccati_horizon.cu`` at the (nx, nu) of ``HORIZON_BUILT`` and any
-  T: one thread per element, the stage loop rolled, P and p carried in
-  registers, the same workspace (the MPC expert's other planners, T 10 to
-  120; and at T 5 the shapes the unrolled kernel lacks: CartpoleCosSin's
-  (5, 1) and the slew-augmented models' (5, 1) and (7, 1)).
+  backward, T 5; its slew-augmented (16, 4); the cartpoles', the
+  pendulum's and the integrator's expert planners, T 10 to 120; and at T 5
+  the shapes the unrolled kernel lacks: CartpoleCosSin's (5, 1) and the
+  slew-augmented cartpoles' (5, 1) and (7, 1)).
+
+A kernel of one thread per element served the horizons with one control
+before; one card call timed it and the warp kernel in turns at every path
+shape with one control, B 8-4096, both dtypes (NVIDIA H100 80GB HBM3 at
+700 W; PERF.md): the warp kernel was faster at (4, 1) to (7, 1), e.g.
+float32 at B 64 (60, 4, 1) 0.216 → 0.090 ms and (10, 6, 1) 0.048 → 0.026,
+and at (2, 1) at the expert planners' batches (float64, B 64-200: (30, 2,
+1) B 200 0.070 → 0.053 ms), so it replaced the one-thread kernel.
 
 ``batched_lqr_kkt_solve`` takes the plain PyTorch version
 (``ops.riccati.batched_lqr_kkt_solve``) for CPU tensors. On CUDA tensors
 it launches the kernel ``kernel_for`` names and raises where none is built;
 it never falls back to the plain version. Each launch adds one to
-``launches`` (the unrolled kernel) or ``horizon_launches`` (either horizon
-kernel); a launch of the warp-layout horizon kernel also adds one to
-``horizon_warp_launches``.
+``launches`` (the unrolled kernel) or ``horizon_launches`` (the horizon
+kernel).
 """
 from __future__ import annotations
 
@@ -39,22 +44,15 @@ Tensor = torch.Tensor
 
 #: (T, nx, nu) with an instantiation of the unrolled kernel
 BUILT = ((5, 2, 1), (5, 3, 1), (5, 3, 2), (5, 4, 1), (5, 6, 1))
-#: (nx, nu) with an instantiation of the one-thread horizon kernel (any T)
-HORIZON_BUILT = ((2, 1), (4, 1), (5, 1), (6, 1), (7, 1))
-#: (nx, nu) with an instantiation of the warp-layout horizon kernel (any T)
-HORIZON_WARP_BUILT = ((12, 4), (16, 4))
+#: (nx, nu) with an instantiation of the horizon kernel (any T)
+HORIZON_WARP_BUILT = ((12, 4), (16, 4), (2, 1), (4, 1), (5, 1), (6, 1),
+                      (7, 1))
 #: launches of the unrolled kernel since the count was last set to 0
 launches = 0
-#: launches of either horizon kernel since the count was last set to 0
+#: launches of the horizon kernel since the count was last set to 0
 horizon_launches = 0
-#: launches of the warp-layout horizon kernel (counted in horizon_launches
-#: too) since the count was last set to 0
-horizon_warp_launches = 0
 
 _SYMBOLS = {torch.float32: "riccati_f32", torch.float64: "riccati_f64"}
-#: each horizon kernel's library and the (nx, nu) it is built for
-_HORIZON_KERNELS = {"riccati_horizon_warp": HORIZON_WARP_BUILT,
-                    "riccati_horizon": HORIZON_BUILT}
 _BITS = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -72,28 +70,26 @@ def batched_lqr_kkt_solve(Cxx: Tensor, Cxu: Tensor, Cuu: Tensor, gx: Tensor,
 
 
 def kernel_for(T: int, nx: int, nu: int) -> str:
-    """"riccati", "riccati_horizon_warp" or "riccati_horizon", the kernel
-    a CUDA solve of this shape launches; raises where none is built for
-    it."""
+    """"riccati" or "riccati_horizon_warp", the kernel a CUDA solve of this
+    shape launches; raises where none is built for it."""
     if (T, nx, nu) in BUILT:
         return "riccati"
-    for name, built in _HORIZON_KERNELS.items():
-        if (nx, nu) in built and T >= 1:
-            return name
+    if (nx, nu) in HORIZON_WARP_BUILT and T >= 1:
+        return "riccati_horizon_warp"
     raise ValueError(f"no kernel for T={T}, nx={nx}, nu={nu} (built: "
                      f"(T, nx, nu) in {BUILT}, and (nx, nu) in "
-                     f"{HORIZON_WARP_BUILT + HORIZON_BUILT} at any T)")
+                     f"{HORIZON_WARP_BUILT} at any T)")
 
 
 def warp_smem(dtype: torch.dtype, nx: int, nu: int,
               device: torch.device) -> Dict[str, int]:
-    """Shared memory of the warp-layout horizon kernel's (nx, nu, dtype)
+    """Shared memory of the horizon kernel's (nx, nu, dtype)
     instantiation on ``device``: bytes an element (``per_element``) and a
     block (``per_block``), and the most a block may ask of the device
     (``device_max``)."""
     if (nx, nu) not in HORIZON_WARP_BUILT:
-        raise ValueError(f"the warp-layout horizon kernel is not built for "
-                         f"nx={nx}, nu={nu}")
+        raise ValueError(f"the horizon kernel is not built for nx={nx}, "
+                         f"nu={nu}")
     lib = cuda_build.load("riccati_horizon_warp")
     fn = getattr(lib, f"riccati_horizon_warp_smem_{_BITS[dtype]}")
     fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
@@ -137,12 +133,12 @@ def _check(args):
 def _launch(args, reg: float, name: Optional[str] = None
             ) -> Tuple[Tensor, Tensor, Tensor]:
     """Launch the kernel ``kernel_for`` names, or ``name``; measurements
-    pass "riccati_horizon" to time the horizon kernel where the unrolled
-    one serves."""
-    global launches, horizon_launches, horizon_warp_launches
+    pass "riccati_horizon_warp" to time the horizon kernel where the
+    unrolled one serves."""
+    global launches, horizon_launches
     Bsz, T, nx, nu = _check(args)
     name = name or kernel_for(T, nx, nu)
-    if name != "riccati" and (nx, nu) not in _HORIZON_KERNELS[name]:
+    if name != "riccati" and (nx, nu) not in HORIZON_WARP_BUILT:
         raise ValueError(f"the {name} kernel is not built for nx={nx}, "
                          f"nu={nu}")
     gx, gu = args[3], args[4]
@@ -158,11 +154,11 @@ def _launch(args, reg: float, name: Optional[str] = None
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
             + [ctypes.c_double, ctypes.c_void_p]
     else:
-        workspace = getattr(lib, f"{name}_workspace")
-        workspace.restype = ctypes.c_int
-        ws = gx.new_empty(T * workspace(nx, nu) * Bsz)
+        lib.riccati_horizon_warp_workspace.restype = ctypes.c_int
+        ws = gx.new_empty(T * lib.riccati_horizon_warp_workspace(nx, nu)
+                          * Bsz)
         outs.append(ws.data_ptr())
-        fn = getattr(lib, f"{name}_{_BITS[gx.dtype]}")
+        fn = getattr(lib, f"riccati_horizon_warp_{_BITS[gx.dtype]}")
         fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 \
             + [ctypes.c_double, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -174,6 +170,4 @@ def _launch(args, reg: float, name: Optional[str] = None
         launches += 1
     else:
         horizon_launches += 1
-        if name == "riccati_horizon_warp":
-            horizon_warp_launches += 1
     return dx, du, lam

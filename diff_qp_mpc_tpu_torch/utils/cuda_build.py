@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds). Libraries go to
 ``build/kernels/`` at the root of the checkout, named by a hash of the
 sources and flags, and are built at first use; ``build`` compiles several
-sources in parallel, one nvcc process each.
+sources in parallel, one nvcc process each. ``load_from`` builds and loads
+another checkout's source with the same flags, for timing a kernel beside
+that checkout's.
 """
 from __future__ import annotations
 
@@ -98,6 +100,22 @@ def load(name: str) -> ctypes.CDLL:
         lib.kernel_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
     return _loaded[name]
+
+
+def load_from(tree: Path, name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` of the checkout at ``tree``, built
+    with this tree's flags into ``build/against/`` and loaded."""
+    src = Path(tree) / "diff_qp_mpc_tpu_torch" / "csrc" / f"{name}.cu"
+    out = BUILD_DIR.parent / "against" / f"lib{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

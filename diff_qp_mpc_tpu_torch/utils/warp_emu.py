@@ -5,18 +5,23 @@ with g++, one POSIX thread per CUDA thread.
 
 holds K1's warp layout (``csrc/btsolve.cu``, n 16, T 5, float64), K2's
 warp layout on Cartpole1L (``csrc/al_fused_cartpole1l.cu``, T 5,
-float64), K3's warp-layout horizon kernel (``csrc/riccati_horizon_warp.cu``
-at the quadrotor expert's (20, 12, 4), float64) and K4's warp layout
-(``csrc/trajqp_fused_warp.cu`` at cp2's (5, 6, 1), float64) against their
-plain versions on a few elements and prints the errors. ``--tsan`` builds with ThreadSanitizer and reruns itself with its
-runtime preloaded, so that a missing ``__syncwarp`` between lanes that
+float64) and on the quadrotor (``csrc/al_fused_quadrotor.cu``, T 5,
+float64) at its warps per element and at W 1, K3's warp-layout horizon
+kernel (``csrc/riccati_horizon_warp.cu`` at the quadrotor expert's
+(20, 12, 4), float64) and K4's warp layout (``csrc/trajqp_fused_warp.cu``
+at cp2's (5, 6, 1), float64) against their plain versions on a few
+elements and prints the errors. ``--tsan`` builds with ThreadSanitizer
+and reruns itself with its runtime preloaded, so that a missing ``__syncwarp`` between lanes that
 share memory is reported as a data race.
 
 The build stubs the CUDA names (``stub.h`` below) and rewrites two
 constructs with a regular expression: ``extern __shared__`` arrays become
 a pointer to the block's shared memory, and a ``kernel<<<config>>>(args)``
 launch becomes ``emu::launch``, which runs the grid's blocks one after
-another, each block's threads as ``std::thread``s. ``__syncwarp`` and
+another, each block's threads as ``std::thread``s. With ``with_w1`` it
+also instantiates K2's warp layout at one warp per element (W 1) beside
+each W its source names (``AL_WARP_CASE`` and ``AL_WARP_SMEM_CASE``), so
+that the source's W can be held to W 1's bits. ``__syncwarp`` and
 ``__syncthreads`` are barriers of the warp's and the block's threads; a
 shuffle is a rendezvous of the warp's 32 lanes (each writes its value to a
 slot, a barrier, each reads its source lane's slot, a barrier). A shuffle
@@ -179,6 +184,8 @@ T __shfl_xor_sync(unsigned mask, T v, int s) {
 _SHARED = re.compile(r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?"
                      r"unsigned\s+char\s+(\w+)\[\];")
 _LAUNCH = re.compile(r"(\w+(?:<[^;<>]*>)?)<<<([^;]*?)>>>\(")
+_AL_CASE = re.compile(r"(AL_WARP(?:_SMEM)?_CASE)\((\d+), ([\w:]+), (\w+), "
+                      r"(\d)\)")
 _loaded: Dict[tuple, ctypes.CDLL] = {}
 _MODULE = "diff_qp_mpc_tpu_torch.utils.warp_emu"
 
@@ -190,10 +197,18 @@ def rewrite(text: str) -> str:
     return _LAUNCH.sub(r"emu::launch(\1, emu::Config(\2), ", text)
 
 
-def build(library: str, sanitize: bool = False) -> Path:
+def with_w1(text: str) -> str:
+    """``text`` with each K2 warp-layout case at W also a case at W 1."""
+    return _AL_CASE.sub(lambda m: " ".join(
+        f"{m.group(1)}({m.group(2)}, {m.group(3)}, {m.group(4)}, {W})"
+        for W in sorted({1, int(m.group(5))})), text)
+
+
+def build(library: str, sanitize: bool = False,
+          w1: bool = False) -> Path:
     """The emulation's build of ``csrc/<library>.cu`` (with ThreadSanitizer
-    if ``sanitize``) in a new directory under ``build/warp_emu/`` that the
-    caller removes."""
+    if ``sanitize``; K2 also at W 1 if ``w1``) in a new directory under
+    ``build/warp_emu/`` that the caller removes."""
     if shutil.which("g++") is None:
         raise RuntimeError("g++ not found: the emulation builds with it")
     BUILD.mkdir(parents=True, exist_ok=True)
@@ -203,7 +218,8 @@ def build(library: str, sanitize: bool = False) -> Path:
     (src / "inc" / "cuda_runtime.h").write_text("")
     (src / "stub.h").write_text(_STUB)
     for f in list(CSRC.glob("*.cuh")) + [CSRC / f"{library}.cu"]:
-        (src / f.name).write_text(rewrite(f.read_text()))
+        text = rewrite(f.read_text())
+        (src / f.name).write_text(with_w1(text) if w1 else text)
     so = out / f"lib{library}.so"
     flags = ["-fsanitize=thread", "-O1", "-g"] if sanitize else ["-O1"]
     proc = subprocess.run(
@@ -217,12 +233,13 @@ def build(library: str, sanitize: bool = False) -> Path:
     return so
 
 
-def load(library: str, sanitize: bool = False) -> ctypes.CDLL:
+def load(library: str, sanitize: bool = False,
+         w1: bool = False) -> ctypes.CDLL:
     """The loaded emulation build of ``csrc/<library>.cu``, built once per
     process."""
-    key = (library, sanitize)
+    key = (library, sanitize, w1)
     if key not in _loaded:
-        so = build(library, sanitize)
+        so = build(library, sanitize, w1)
         _loaded[key] = ctypes.CDLL(str(so))
         shutil.rmtree(so.parent)  # loaded; the mapping stays
     return _loaded[key]
@@ -255,10 +272,12 @@ def btsolve_warp(D, O, b, reg: float = 0.0,
 def fused_al_solve_warp(model, Cd, c, x0, u_lo, u_hi, x_init, u_init,
                         al_iter=2, n_newton=4, n_ls=20, rho_factor=10.0,
                         rho_max=1e4, reg=1e-5, lam_dyn=None, lam_hi=None,
-                        lam_lo=None, rho0=None, sanitize: bool = False):
+                        lam_lo=None, rho0=None, warps=None,
+                        sanitize: bool = False):
     """K2's warp layout for ``model`` (a model on that layout) on CPU
     tensors, with ``al_fused_cuda.fused_al_solve``'s arguments and
-    outputs."""
+    outputs, at its table's warps per element or at ``warps``, the
+    table's or 1 (where given, from the build that has both)."""
     from diff_qp_mpc_tpu_torch.ops import al_fused_cuda
 
     built = al_fused_cuda.built_for(model)
@@ -271,10 +290,15 @@ def fused_al_solve_warp(model, Cd, c, x0, u_lo, u_hi, x_init, u_init,
                                     lam_hi, lam_lo, rho0)]
     outs = [torch.empty_like(a) for a in (Cd, lam_dyn, lam_hi, lam_lo,
                                           rho0)]
-    lib = load(built.library, sanitize)
+    W = built.warps if warps is None else warps
+    if W not in (1, built.warps):
+        raise ValueError(f"the {built.name} kernel is built at W "
+                         f"{built.warps} (and W 1 here), not {W}")
+    lib = load(built.library, sanitize, w1=warps is not None)
     err = al_fused_cuda.call_entry(
         getattr(lib, built.symbol(Cd.dtype)), ins + outs, B,
-        5, T, al_iter, n_newton, n_ls, rho_factor, rho_max, reg,
+        5 + W.bit_length() - 1, T, al_iter, n_newton, n_ls, rho_factor,
+        rho_max, reg,
         built.params(model), u_lo, u_hi, None)
     if err:
         raise RuntimeError(f"emulated al_fused warp kernel: error {err}")
@@ -343,10 +367,12 @@ def fused_trajqp_solve_warp(C, c, A, B, f, x0, x_init, u_init, u_lo, u_hi,
 
 
 def self_check(sanitize: bool = False) -> dict:
-    """K1's warp layout at n 16, T 5, B 3, K2's on Cartpole1L at T 5, B 2,
-    K3's at (20, 12, 4), B 3, and K4's at (5, 6, 1), B 3, all float64,
-    against their plain versions: the largest errors (K1's and K3's
-    relative to the solution's largest entry, K4's over max(1, each
+    """K1's warp layout at n 16, T 5, B 3, K2's on Cartpole1L at T 5, B 2
+    and on the quadrotor at T 5, B 2 at its W and at W 1 (the bits of
+    one against the other's), K3's at (20, 12, 4), B 3, and K4's at
+    (5, 6, 1), B 3, all
+    float64, against their plain versions: the largest errors (K1's and
+    K3's relative to the solution's largest entry, K4's over max(1, each
     output's largest entry))."""
     from diff_qp_mpc_tpu_torch.benchmarks import k2_models
     from diff_qp_mpc_tpu_torch.benchmarks import prof_trajqp_fused as prof
@@ -370,6 +396,13 @@ def self_check(sanitize: bool = False) -> dict:
     out = fused_al_solve_warp(*args, **k2_models.BUDGET, sanitize=sanitize)
     plain = al_fused_cuda.fused_al_solve_reference(*args, **k2_models.BUDGET)
     k2 = float(k2_models.element_errors(out, plain).max())
+    args = k2_models.problem("quadrotor", 2, 5, torch.float64, seed=2,
+                             device="cpu")
+    bud = k2_models.budget("quadrotor")
+    quad = {W: fused_al_solve_warp(*args, **bud, warps=W, sanitize=sanitize)
+            for W in {1, al_fused_cuda.built_for(args[0]).warps}}
+    k2q = float(k2_models.element_errors(
+        quad[1], al_fused_cuda.fused_al_solve_reference(*args, **bud)).max())
     lqr = lqr_problem(3, 20, 12, 4, torch.float64, seed=3, device="cpu")
     k3_out = riccati_horizon_warp(lqr, 1e-9, sanitize=sanitize)
     sol = riccati.batched_lqr_kkt_solve(*lqr, 1e-9)
@@ -383,10 +416,13 @@ def self_check(sanitize: bool = False) -> dict:
                              fused_trajqp_solve_reference(*qp)))
     return dict(k1_n16_T5_B3_float64_max_rel_err=k1,
                 k2_cartpole1l_T5_B2_float64_max_abs_err_xu=k2,
+                k2_quadrotor_T5_B2_float64_max_abs_err_xu=k2q,
+                k2_quadrotor_table_w_bits_of_w1=all(
+                    k2_models._same(o, quad[1]) for o in quad.values()),
                 k3_warp_T20_12_4_B3_float64_max_rel_err=k3,
                 k4_warp_T5_6_1_B3_float64_max_scaled_err=k4,
                 finite=all(bool(torch.isfinite(o).all())
-                           for o in (x, *out, *k3_out, *k4_out)))
+                           for o in (x, *out, *quad[1], *k3_out, *k4_out)))
 
 
 def main(argv=None) -> int:

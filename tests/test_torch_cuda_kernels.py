@@ -511,12 +511,12 @@ def test_riccati_horizon_kernel_matches_plain(cuda, T, nx, nu, B, dtype):
                                        (torch.float64, 1e-10)])
 def test_riccati_horizon_kernel_matches_unrolled_at_T5(cuda, dtype, tol):
     """At (5, 6, 1), where the unrolled kernel serves, the horizon kernel
-    (launched by name, as chip_smoke.py times it) solves the same systems
-    alike."""
+    built for (6, 1) (launched by name, as chip_smoke.py times it) solves
+    the same systems alike."""
     args = _lqr_problem(100, 5, 6, 1, dtype, cuda, seed=6)
     unrolled = riccati_cuda.batched_lqr_kkt_solve(*args, 1e-9)
     before = riccati_cuda.horizon_launches
-    horizon = riccati_cuda._launch(args, 1e-9, "riccati_horizon")
+    horizon = riccati_cuda._launch(args, 1e-9, "riccati_horizon_warp")
     assert riccati_cuda.horizon_launches == before + 1
     for a, b in zip(horizon, unrolled):
         assert float((a - b).abs().max() / b.abs().max()) <= tol
@@ -560,18 +560,16 @@ K3_WARP_SHAPES = [(5, 12, 4), (20, 12, 4), (5, 16, 4)]
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_riccati_horizon_warp_matches_plain(cuda, T, nx, nu, dtype):
     """The shapes of HORIZON_WARP_BUILT route to the warp layout (one warp
-    an element, counted in horizon_launches and horizon_warp_launches):
+    an element, counted in horizon_launches):
     float64 within 1e-10 of the plain version; float32 against the float64
     solution within F32_VS_F64_RATIO of the plain float32 version's error
     (or 1e-4)."""
     assert riccati_cuda.kernel_for(T, nx, nu) == "riccati_horizon_warp"
     args = _lqr_problem(64, T, nx, nu, dtype, cuda, seed=T + nx + 1)
-    before = (riccati_cuda.launches, riccati_cuda.horizon_launches,
-              riccati_cuda.horizon_warp_launches)
+    before = (riccati_cuda.launches, riccati_cuda.horizon_launches)
     out = riccati_cuda.batched_lqr_kkt_solve(*args, 1e-9)
-    assert (riccati_cuda.launches, riccati_cuda.horizon_launches,
-            riccati_cuda.horizon_warp_launches) == (
-        before[0], before[1] + 1, before[2] + 1)
+    assert (riccati_cuda.launches, riccati_cuda.horizon_launches) == (
+        before[0], before[1] + 1)
     assert all(bool(torch.isfinite(o).all()) for o in out)
     err, plain_err = _horizon_errors(out, args)
     if dtype == torch.float64:
@@ -624,11 +622,39 @@ def test_riccati_horizon_warp_shared_memory(cuda):
 def test_riccati_horizon_warp_refuses_unbuilt(cuda):
     """The warp layout cannot be launched, or its shared memory asked, at
     an (nx, nu) it has no instantiation for."""
-    args = _lqr_problem(4, 5, 6, 1, torch.float32, cuda)
+    args = _lqr_problem(4, 5, 3, 1, torch.float32, cuda)
     with pytest.raises(ValueError, match="not built"):
         riccati_cuda._launch(args, 1e-9, "riccati_horizon_warp")
     with pytest.raises(ValueError, match="not built"):
-        riccati_cuda.warp_smem(torch.float32, 6, 1, cuda)
+        riccati_cuda.warp_smem(torch.float32, 3, 1, cuda)
+
+
+# the one-control shapes that the warp-layout horizon kernel took over from
+# the one-thread kernel (riccati_cuda.kernel_for)
+K3_MOVED_SHAPES = [s for s in HORIZON_SHAPES if s[2] == 1
+                   and riccati_cuda.kernel_for(*s) == "riccati_horizon_warp"]
+
+
+@pytest.mark.parametrize("T,nx,nu", K3_MOVED_SHAPES)
+@pytest.mark.parametrize("B", [8, 64, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_riccati_horizon_warp_moved_shapes_match_plain(cuda, T, nx, nu, B,
+                                                       dtype):
+    """The warp layout at the one-control planner and slew shapes, each
+    launch counted in horizon_launches: float64
+    within 1e-13 of the plain version (relative to each output's largest
+    entry); float32 against the float64 solution within F32_VS_F64_RATIO
+    of the plain float32 version's error."""
+    args = _lqr_problem(B, T, nx, nu, dtype, cuda, seed=T + nx + B)
+    before = riccati_cuda.horizon_launches
+    out = riccati_cuda.batched_lqr_kkt_solve(*args, 1e-9)
+    assert riccati_cuda.horizon_launches == before + 1
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    err, plain_err = _horizon_errors(out, args)
+    if dtype == torch.float64:
+        assert err <= 1e-13
+    else:
+        assert err <= F32_VS_F64_RATIO * plain_err
 
 
 def _trajqp_problem(B, T, nx, nu, dtype, device, seed=0):
@@ -988,14 +1014,33 @@ def test_cartpole1l_f32_breakdown_through_k2(cuda):
 # (csrc/al_fused_cartpole1l.cu, al_fused_cartpole2l.cu), which ran the
 # group layout before; its sums over the warp and its upper solves run in
 # another order, so it is held to the plain version as the group layout was
-# (k2_models.TOL, the share limit), not to the group layout's bits.
+# (k2_models.TOL, the share limit), not to the group layout's bits. Each
+# (T, dtype) runs at its table's warps per element (al_fused_cuda.BUILT).
 CARTPOLES = ("cartpole1l", "cartpole2l")
 CARTPOLE_CASES = [c for c in k2_models.CASES if c[0] in CARTPOLES]
 
 
+def _warp_smem_values(nx, nu, T):
+    """Values of WarpElement (al_fused_warp.cuh) but its line-search pick:
+    Cd, cv, w, grad, d; x0; λ; G; f; L; S; the candidates' steps."""
+    n = nx + nu
+    return (5 * T * n + nx + (T - 1) * nx + 2 * T * nu
+            + (T - 1) * nx * n + (T - 1) * nx + T * n * (n + 1) // 2
+            + (T - 1) * n * n + 32 * (T - 1) * nx)
+
+
+def _warp_smem_bytes(nx, nu, T, dtype):
+    """sizeof(WarpElement): the values, then the pick (a value and an
+    int), padded to the value's alignment."""
+    size = dtype.itemsize
+    raw = _warp_smem_values(nx, nu, T) * size + size + 4
+    return -(-raw // size) * size
+
+
+@pytest.mark.parametrize("B", (64, 128, 4096))
 @pytest.mark.parametrize("name,T,dtype", CARTPOLE_CASES, ids=str)
-def test_al_fused_cartpoles_warp_matches_plain(cuda, name, T, dtype):
-    args = k2_models.problem(name, 64, T, dtype, seed=64)
+def test_al_fused_cartpoles_warp_matches_plain(cuda, name, T, dtype, B):
+    args = k2_models.problem(name, B, T, dtype, seed=B)
     before = al_fused_cuda.launches
     out = al_fused_cuda.fused_al_solve(*args, **K2_KW)
     assert al_fused_cuda.launches == before + 1
@@ -1008,12 +1053,12 @@ def test_al_fused_cartpoles_warp_matches_plain(cuda, name, T, dtype):
 
 
 @pytest.mark.parametrize("B", (1, 3, 65))
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("name", CARTPOLES)
-def test_al_fused_cartpoles_warp_edge_batches(cuda, name, dtype, B):
-    """The warp layout at T 5 with a ragged last block (two elements a
-    block), group None and 32 alike."""
-    args = k2_models.problem(name, B, 5, dtype, seed=B)
+@pytest.mark.parametrize("name,T,dtype", CARTPOLE_CASES, ids=str)
+def test_al_fused_cartpoles_warp_edge_batches(cuda, name, T, dtype, B):
+    """The warp layout with one element, and with a ragged last block
+    where two one-warp elements share a block; group None and 32
+    alike."""
+    args = k2_models.problem(name, B, T, dtype, seed=B)
     out = al_fused_cuda.fused_al_solve(*args, **K2_KW)
     ref = al_fused_cuda.fused_al_solve_reference(*args, **K2_KW)
     assert all(bool(torch.isfinite(o).all()) for o in out)
@@ -1051,29 +1096,27 @@ def test_al_fused_cartpoles_warp_isolates_elements(cuda, name, B, poisoned,
 
 def test_al_fused_cartpoles_warp_shared_memory(cuda):
     """WarpElement's sizes (al_fused_warp.cuh) at the cartpoles' (nx, nu)
-    and horizons, two elements a block, within what the card allows."""
+    and horizons, at the table's warps per element (two elements a block
+    at one warp, one above), within what the card allows."""
     for name, T, dtype in CARTPOLE_CASES:
         model = k2_models.model(name)
-        nx, nu = model.nx, model.nu
-        n = nx + nu
-        values = (5 * T * n + nx + (T - 1) * nx + 2 * T * nu
-                  + (T - 1) * nx * n + 2 * (T - 1) * nx + T * nu
-                  + T * n * (n + 1) // 2 + (T - 1) * n * n)
-        size = 4 if dtype == torch.float32 else 8
+        W = al_fused_cuda.built_for(model).warps
+        size = _warp_smem_bytes(model.nx, model.nu, T, dtype)
         smem = al_fused_cuda.warp_smem(dtype, T, cuda, model)
-        assert smem["per_element"] == values * size
-        assert smem["per_block"] == 2 * values * size <= smem["device_max"]
+        assert smem["per_element"] == size
+        assert smem["per_block"] == (2 if W == 1 else 1) * size \
+            <= smem["device_max"]
 
 
 @pytest.mark.parametrize("name", CARTPOLES)
 def test_al_fused_cartpoles_layout_rule_on_card(cuda, name):
     """Every launch of a cartpole takes the warp layout: group None or 32,
-    one warp per element; other group widths, and the group layout's
+    whole warps per element; other group widths, and the group layout's
     occupancy query, are refused before any launch."""
     args = k2_models.problem(name, 4, 5, torch.float32, seed=0)
     before = al_fused_cuda.launches
     for group in (1, 8):
-        with pytest.raises(ValueError, match="one warp per element"):
+        with pytest.raises(ValueError, match="warps per element"):
             al_fused_cuda.fused_al_solve(*args, group=group)
     with pytest.raises(ValueError):
         al_fused_cuda.resident_threads(torch.float32, 5, cuda, args[0])
@@ -1081,14 +1124,15 @@ def test_al_fused_cartpoles_layout_rule_on_card(cuda, name):
 
 
 # ------------------------------------------------ K2 on the quadrotor ----
-@pytest.mark.parametrize("B", k2_models.batches("quadrotor"))
+@pytest.mark.parametrize("B", (1,) + k2_models.batches("quadrotor")
+                         + (4096,))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_al_fused_quadrotor_matches_plain(cuda, B, dtype):
-    """The warp layout against its plain version on hover problems at the
-    checkpoint's budget, B 64 and 128 and the batch edge 65 (two elements
-    a block): float64 every element within TOL; float32 the share of
-    elements beyond TOL from the plain float64 result within
-    F32_SHARE_VS_F64. One launch."""
+    """The warp layout, at its table's warps per element, against its
+    plain version on hover problems at the checkpoint's budget, B 64 and
+    128, the batch edges 1 and 65, and 4096: float64 every element within
+    TOL; float32 the share of elements beyond TOL from the plain float64
+    result within F32_SHARE_VS_F64. One launch."""
     before = al_fused_cuda.launches
     row = k2_models.check("quadrotor", 5, dtype, B)
     assert al_fused_cuda.launches == before + 1
@@ -1097,19 +1141,18 @@ def test_al_fused_quadrotor_matches_plain(cuda, B, dtype):
 
 def test_al_fused_quadrotor_shared_memory(cuda):
     """An element's blocks in shared memory: the sizes of WarpElement
-    (al_fused_warp.cuh) at nx 12, nu 4, T 5, two elements a block, within
-    what the card allows a block."""
+    (al_fused_warp.cuh) at nx 12, nu 4, T 5, at the table's warps per
+    element (two elements a block at one warp, one above), within what the
+    card allows a block."""
     from diff_qp_mpc_tpu_torch.models import RexQuadrotor
 
-    nx, nu, T = 12, 4, 5
-    n = nx + nu
-    values = (5 * T * n + nx + (T - 1) * nx + 2 * T * nu
-              + (T - 1) * nx * n + 2 * (T - 1) * nx + T * nu
-              + T * n * (n + 1) // 2 + (T - 1) * n * n)
-    for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
-        smem = al_fused_cuda.warp_smem(dtype, T, cuda, RexQuadrotor())
-        assert smem["per_element"] == values * size
-        assert smem["per_block"] == 2 * values * size
+    model = RexQuadrotor()
+    for dtype in (torch.float32, torch.float64):
+        W = al_fused_cuda.built_for(model).warps
+        size = _warp_smem_bytes(12, 4, 5, dtype)
+        smem = al_fused_cuda.warp_smem(dtype, 5, cuda, model)
+        assert smem["per_element"] == size
+        assert smem["per_block"] == (2 if W == 1 else 1) * size
         assert smem["per_block"] <= smem["device_max"]
 
 
@@ -1119,7 +1162,7 @@ def test_al_fused_quadrotor_refuses_groups(cuda):
     args = k2_models.problem("quadrotor", 4, 5, torch.float32, seed=0)
     before = al_fused_cuda.launches
     for group in (1, 8):
-        with pytest.raises(ValueError, match="one warp per element"):
+        with pytest.raises(ValueError, match="warps per element"):
             al_fused_cuda.fused_al_solve(*args, group=group)
     with pytest.raises(ValueError):
         al_fused_cuda.resident_threads(torch.float32, 5, cuda,

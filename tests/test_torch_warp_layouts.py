@@ -67,7 +67,7 @@ def test_k2_cartpoles_take_the_warp_layout():
 
 
 def _warp_cases(library):
-    """{(T, dtype)} of the AL_WARP_CASEs in csrc/<library>.cu's launch
+    """{(T, dtype, W)} of the AL_WARP_CASEs in csrc/<library>.cu's launch
     entries, and of the AL_WARP_SMEM_CASEs in its shared-memory entries."""
     text = (CSRC / f"{library}.cu").read_text()
     out = {"AL_WARP_ENTRY": set(), "AL_WARP_SMEM_ENTRY": set()}
@@ -79,8 +79,8 @@ def _warp_cases(library):
         dtype = torch.float32 if m.group(2).endswith("f32") else \
             torch.float64
         case = m.group(1).replace("ENTRY", "CASE")
-        out[m.group(1)] |= {(int(T), dtype) for T in re.findall(
-            case + r"\((\d+),", text[m.end():i])}
+        out[m.group(1)] |= {(int(T), dtype, int(W)) for T, W in re.findall(
+            case + r"\((\d+), [\w:]+, \w+, (\d+)\)", text[m.end():i])}
     return out
 
 
@@ -91,12 +91,14 @@ WARP_MODELS = [name for name in k2_models.ENVS if al_fused_cuda.built_for(
 @pytest.mark.parametrize("name", WARP_MODELS)
 def test_every_warp_table_entry_has_an_al_warp_case(name):
     """Each (T, dtype) of the wrapper's table for a model on the warp
-    layout (the cartpoles and the quadrotor) is an AL_WARP_CASE (and an
-    AL_WARP_SMEM_CASE) of its source, under the entry names the wrapper
-    calls."""
+    layout (the cartpoles and the quadrotor), at the table's warps per
+    element, is an AL_WARP_CASE (and an AL_WARP_SMEM_CASE) of its source,
+    under the entry names the wrapper calls, and the source instantiates
+    no other (T, dtype, W)."""
     built = al_fused_cuda.built_for(k2_models.model(name))
-    table = {(T, dtype) for dtype, hs in built.horizons.items()
-             for T in hs}
+    table = {(T, dtype, built.warps)
+             for dtype, hs in built.horizons.items() for T in hs}
+    assert built.warps in (1, 2, 4)
     cases = _warp_cases(built.library)
     assert cases["AL_WARP_ENTRY"] == cases["AL_WARP_SMEM_ENTRY"] == table
     text = (CSRC / f"{built.library}.cu").read_text()
@@ -153,3 +155,33 @@ def test_warp_emulation_k2_cartpole_matches_plain():
     assert all(bool(torch.isfinite(o).all()) for o in out)
     el = k2_models.element_errors(out, ref)
     assert float(el.max()) <= k2_models.TOL[torch.float64]
+
+
+@pytest.mark.parametrize("name,T,dtype", [
+    ("quadrotor", 5, torch.float64), ("cartpole2l", 10, torch.float32)],
+    ids=str)
+def test_warp_emulation_k2_warps_match_w1(name, T, dtype):
+    """K2's warp layout at its source's W warps per element (each element a
+    block of its own) against W 1 (two elements a block) in the emulation,
+    built at both: the same bits, since every entry keeps its expression
+    and its order of summation. B 3: a ragged last block at W 1. Against the plain
+    version: the quadrotor (float64) every element within k2_models.TOL;
+    cp2 at T 10, which has no float64 instantiation, in float32 within the
+    card's rule (TOL but for the share limit, the median within
+    MEDIAN_LIMIT)."""
+    _needs_gxx()
+    from diff_qp_mpc_tpu_torch.utils import warp_emu
+
+    args = k2_models.problem(name, 3, T, dtype, seed=3, device="cpu")
+    bud = k2_models.budget(name)
+    W = al_fused_cuda.built_for(args[0]).warps
+    assert W > 1
+    w1 = warp_emu.fused_al_solve_warp(*args, **bud, warps=1)
+    out = warp_emu.fused_al_solve_warp(*args, **bud, warps=W)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    assert k2_models._same(out, w1)
+    el = k2_models.element_errors(
+        out, al_fused_cuda.fused_al_solve_reference(*args, **bud))
+    assert float((el > k2_models.TOL[dtype]).double().mean()) <= \
+        k2_models.share_limit(name, dtype)
+    assert float(el.median()) <= k2_models.MEDIAN_LIMIT[dtype]

@@ -1,7 +1,8 @@
 """K3's horizon kernel on the warp layout (csrc/riccati_horizon_warp.cu, the
-quadrotor's (nx, nu) = (12, 4) and (16, 4)) and K4's warp layout at the
-cartpoles' shapes (csrc/trajqp_fused_warp.cu) on the CPU: the dispatch
-rules as plain Python, each source's instantiations against its wrapper's
+quadrotor's (nx, nu) = (12, 4) and (16, 4) and the one-control shapes (2, 1)
+and (4, 1) to (7, 1)) and K4's warp layout at the cartpoles' shapes
+(csrc/trajqp_fused_warp.cu) on the CPU: the dispatch rules as plain
+Python, each source's instantiations against its wrapper's
 table, and both kernels in the pthread emulation of a warp
 (``utils.warp_emu``: one thread per lane, g++) against their plain
 versions, and K3's against the JAX package's plain Riccati solve.
@@ -51,6 +52,20 @@ def test_k3_rule_takes_the_warp_layout_at_the_quadrotor_shapes(T, nx, nu):
     assert riccati_cuda.kernel_for(T, nx, nu) == "riccati_horizon_warp"
 
 
+# the one-control shapes of the cartpoles' expert planners (T 60, 80, 10,
+# 120), their slew shapes and CartpoleCosSin's ip path (T 5), and the
+# pendulum's and the integrator's planners (T 20, 30, 40): the warp layout
+# measured faster than one thread per element there at the paths' batches
+ONE_CONTROL_WARP_SHAPES = ((60, 4, 1), (80, 4, 1), (10, 6, 1), (120, 6, 1),
+                           (5, 5, 1), (5, 7, 1), (20, 2, 1), (30, 2, 1),
+                           (40, 2, 1))
+
+
+@pytest.mark.parametrize("T,nx,nu", ONE_CONTROL_WARP_SHAPES)
+def test_k3_rule_takes_the_warp_layout_at_the_one_control_shapes(T, nx, nu):
+    assert riccati_cuda.kernel_for(T, nx, nu) == "riccati_horizon_warp"
+
+
 @pytest.mark.parametrize("shape", CARTPOLE_SHAPES)
 def test_k4_rule_takes_the_warp_layout_at_the_cartpole_shapes(shape):
     assert trajqp_fused_cuda.layout_for(*shape) == "warp"
@@ -72,21 +87,16 @@ def _dispatch_shapes(text, fields):
 
 
 def test_each_source_instantiates_its_wrappers_table():
-    """The warp sources' shape lists and the thread sources' dispatch lists
-    are the wrappers' tables, and no (nx, nu) has both K3 horizon
-    kernels."""
+    """The warp sources' shape lists and the thread source's dispatch list
+    are the wrappers' tables, and no shape has both K4 layouts."""
     read = lambda name: (CSRC / f"{name}.cu").read_text()
     assert _shapes(read("riccati_horizon_warp"),
                    "RICCATI_HORIZON_WARP_SHAPES") == set(
         riccati_cuda.HORIZON_WARP_BUILT)
     assert _shapes(read("trajqp_fused_warp"), "TRAJQP_WARP_SHAPES") == set(
         trajqp_fused_cuda.WARP_BUILT)
-    assert _dispatch_shapes(read("riccati_horizon"), ("nx", "nu")) == set(
-        riccati_cuda.HORIZON_BUILT)
     assert _dispatch_shapes(read("trajqp_fused"), ("T", "nx", "nu")) == set(
         trajqp_fused_cuda.BUILT)
-    assert not set(riccati_cuda.HORIZON_BUILT) & set(
-        riccati_cuda.HORIZON_WARP_BUILT)
     assert not set(trajqp_fused_cuda.BUILT) & set(
         trajqp_fused_cuda.WARP_BUILT)
 
@@ -95,14 +105,12 @@ def test_k3_warp_shape_on_the_cpu_takes_the_plain_version():
     """CPU tensors at a warp-layout shape take the plain version, bit for
     bit, and launch nothing."""
     args = lqr_problem(2, 20, 12, 4, torch.float64, seed=1, device="cpu")
-    before = (riccati_cuda.launches, riccati_cuda.horizon_launches,
-              riccati_cuda.horizon_warp_launches)
+    before = (riccati_cuda.launches, riccati_cuda.horizon_launches)
     out = riccati_cuda.batched_lqr_kkt_solve(*args, REG)
     ref = riccati.batched_lqr_kkt_solve(*args, REG)
     assert all(torch.equal(a, b) for a, b in zip(out, (ref.dx, ref.du,
                                                         ref.lam)))
-    assert (riccati_cuda.launches, riccati_cuda.horizon_launches,
-            riccati_cuda.horizon_warp_launches) == before
+    assert (riccati_cuda.launches, riccati_cuda.horizon_launches) == before
 
 
 def _needs_gxx():
@@ -129,6 +137,27 @@ def test_warp_emulation_k3_matches_plain(T, nx, nu):
         sol = jax.jit(jax_riccati.batched_lqr_kkt_solve)(
             *(jnp.asarray(a.numpy()) for a in args), REG)
         assert _rel(out, (sol.dx, sol.du, sol.lam)) <= 1e-10
+
+
+@pytest.mark.parametrize("T,nx,nu", [(60, 4, 1), (10, 6, 1), (30, 2, 1)])
+def test_warp_emulation_k3_one_control_matches_plain(T, nx, nu):
+    """K3's warp-layout horizon kernel at the one-control shapes it took
+    over from the one-thread kernel (the cp1 stabilize planner's (60, 4, 1),
+    the cp2 expert's (10, 6, 1) and the integrator expert's (30, 2, 1)),
+    float64, B 3 (two blocks of two
+    warps, the last one ragged), in the emulation: within 1e-13 of the
+    port's plain version, relative to each output's largest entry (the
+    same sums in the same order, so rounding differs only where the plain
+    version's batched matmuls order a sum otherwise)."""
+    _needs_gxx()
+    from diff_qp_mpc_tpu_torch.utils import warp_emu
+
+    args = lqr_problem(3, T, nx, nu, torch.float64, seed=T + nx,
+                       device="cpu")
+    out = warp_emu.riccati_horizon_warp(args, REG)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    ref = riccati.batched_lqr_kkt_solve(*args, REG)
+    assert _rel(out, (ref.dx, ref.du, ref.lam)) <= 1e-13
 
 
 def test_warp_emulation_k4_cartpole_matches_plain():
