@@ -36,7 +36,23 @@ pendulum, n 3):
   - K4 at the cartpoles' shapes (``k4_layouts``): the warp layout and,
     where it is still built, the thread layout, at ``K4_WARP_BATCHES``,
     both dtypes, timed in the same turns, each within ``K4W_TOL`` of the
-    plain version on all eight outputs.
+    plain version on all eight outputs;
+  - K3's unrolled kernel (``k3_unrolled``) at every shape of
+    ``riccati_cuda.BUILT``, both dtypes, ``K3_UNROLLED_BATCHES``: with
+    ``--against DIR`` beside the unrolled kernel of another checkout
+    (``DIR/diff_qp_mpc_tpu_torch/csrc/riccati.cu``), both timed in turns by
+    the profiler's device time (forward, then backward), the bound's share,
+    the errors against the plain version (as ``k3_layouts``) and whether
+    every output is bit-identical to the other checkout's;
+  - K4's thread layout (``k4_thread``) at every shape of
+    ``trajqp_fused_cuda.BUILT``, both dtypes, ``K4_THREAD_BATCHES``, on the
+    profiler benchmark's random box QPs: within ``K4_TOL`` of the plain
+    version on all eight outputs, float32 also against the float64
+    solution within ``F32_VS_F64_RATIO`` of the plain float32 version's
+    error (its one-ulp envelope decides; the share of the limit taken from
+    its bare error is printed beside it);
+    with ``--against DIR`` the other checkout's ``trajqp_fused.cu``
+    beside it, held to the same, both timed in turns by the profiler.
 A mismatch, or an error above tolerance, raises. Without a card it raises.
 ``chip_smoke.py`` runs the same K1 and K2 checks.
 """
@@ -137,6 +153,15 @@ K4_WARP_SHAPES = ((5, 5, 1), (5, 6, 1), (5, 7, 1))
 K4_WARP_BATCHES = (64, 256, 4096)
 #: K4's budget on the ip path (TrajQPConfig defaults)
 K4_BUDGET = dict(max_iter=12, reg=1e-9, min_slack=1e-8)
+#: K4 (the thread layout) against its plain version, each output's error
+#: over max(1, its largest entry); chip_smoke.py holds K4 to it (the reason
+#: for its values is there)
+K4_TOL = {torch.float32: 1e-3, torch.float64: 1e-8}
+#: K3's unrolled kernel is timed at the paths' 64 and 256, 4096, and a
+#: filled card's 262144
+K3_UNROLLED_BATCHES = (64, 256, 4096, 262144)
+#: K4's thread layout at the paths' 64 and 256 and 4096
+K4_THREAD_BATCHES = (64, 256, 4096)
 
 
 def _reps(B: int) -> int:
@@ -647,6 +672,215 @@ def k4_layouts(shapes=K4_WARP_SHAPES, batches=K4_WARP_BATCHES) -> list:
     return rows
 
 
+def _other_k3(lib, args, reg):
+    """Another checkout's unrolled K3 (``lib``, its ``csrc/riccati.cu``)
+    on ``args``: (dx, du, lam)."""
+    import ctypes
+
+    gx, gu = args[3], args[4]
+    Bsz, T_, nx, nu = args[1].shape
+    outs = [torch.empty_like(gx), torch.empty_like(gu), torch.empty_like(gx)]
+    bits = "f32" if gx.dtype == torch.float32 else "f64"
+    fn = getattr(lib, f"riccati_{bits}")
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
+        + [ctypes.c_double, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*(a.data_ptr() for a in args), *(o.data_ptr() for o in outs),
+             Bsz, T_, nx, nu, float(reg),
+             torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(lib, err, "the other checkout's riccati")
+    return tuple(outs)
+
+
+def _profiled_turns(fns, B, name):
+    """The profiler's device ms per launch of each of ``fns`` (a dict),
+    timed in turns: every one in order, then every one in reverse; the mean
+    of each one's two readings."""
+    order = list(fns) + list(fns)[::-1]
+    ms = {k: [] for k in fns}
+    for k in order:
+        ms[k].append(device_kernel_ms(fns[k], _reps(B), name))
+    return {k: sum(v) / len(v) for k, v in ms.items()}
+
+
+def k3_unrolled(shapes=riccati_cuda.BUILT, batches=K3_UNROLLED_BATCHES,
+                against=None, reg=K4_BUDGET["reg"]) -> list:
+    """K3's unrolled kernel per (shape, dtype, B), with ``against``
+    another checkout's unrolled kernel beside it: errors against the plain
+    version (raises above tolerance), bits against the other checkout's,
+    the profiler's ms in turns, the bound and its share."""
+    other = (cuda_build.load_from(against, "riccati")
+             if against is not None else None)
+    rows = []
+    for T_, nx, nu in shapes:
+        for dtype in (torch.float32, torch.float64):
+            for B in batches:
+                args = lqr_problem(B, T_, nx, nu, dtype, seed=B + nx)
+                sol = riccati.batched_lqr_kkt_solve(*args, reg)
+                plain = (sol.dx, sol.du, sol.lam)
+                ref = plain
+                if dtype == torch.float32:
+                    sol = riccati.batched_lqr_kkt_solve(
+                        *(a.double() for a in args), reg)
+                    ref = (sol.dx, sol.du, sol.lam)
+                limit = max(K3_LAYOUT_TOL[dtype],
+                            F32_VS_F64_RATIO * _rel(plain, ref)
+                            if dtype == torch.float32 else 0.0)
+                row = dict(T=T_, nx=nx, nu=nu, B=B, dtype=str(dtype),
+                           limit=limit)
+                fns = {"kernel": lambda: riccati_cuda._launch(args, reg)}
+                if other is not None:
+                    fns["against"] = lambda: _other_k3(other, args, reg)
+                outs = {k: f() for k, f in fns.items()}
+                for k, out in outs.items():
+                    row[f"err_{k}"] = _rel(out, ref)
+                    if not (all(bool(torch.isfinite(o).all()) for o in out)
+                            and row[f"err_{k}"] <= limit):
+                        raise RuntimeError(f"K3 ({k}) disagrees with its "
+                                           f"plain version: {row}")
+                if other is not None:
+                    row["bit_identical_to_against"] = _same(
+                        outs["kernel"], outs["against"])
+                row["ms"] = _profiled_turns(fns, B, "riccati_kernel")
+                row["faster"] = min(row["ms"], key=row["ms"].get)
+                row["bound_ms"], row["bound_by"] = bound(
+                    B * k3_bytes(T_, nx, nu), B * k3_ops(T_, nx, nu))
+                row["bound_share"] = {k: row["bound_ms"] / m
+                                      for k, m in row["ms"].items()}
+                row["shared_memory"] = riccati_cuda.staged_smem(
+                    dtype, T_, nx, nu, args[0].device)
+                print("k3_unrolled", json.dumps(row), flush=True)
+                rows.append(row)
+                del args, sol, plain, ref, outs
+    return rows
+
+
+def _other_k4(lib, args):
+    """Another checkout's K4 thread layout (``lib``, its
+    ``csrc/trajqp_fused.cu``) on ``args`` as ``trajqp_fused_cuda._launch``
+    takes them: the eight outputs."""
+    import ctypes
+
+    C, c, A, Bm, f, x0, xi, ui, lo, hi, max_iter, reg, min_slack = args
+    Bsz, Tm1, nx, nu = Bm.shape
+    outs = [torch.empty_like(xi), torch.empty_like(ui), torch.empty_like(xi)] \
+        + [torch.empty_like(ui) for _ in range(4)] + [x0.new_empty(Bsz)]
+    bits = "f32" if C.dtype == torch.float32 else "f64"
+    fn = getattr(lib, f"trajqp_fused_{bits}")
+    dblu = ctypes.c_double * nu
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 \
+        + [ctypes.c_double] * 2 + [ctypes.POINTER(ctypes.c_double)] * 2 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*(a.data_ptr() for a in (C, c, A, Bm, f, x0, xi, ui)),
+             *(o.data_ptr() for o in outs), Bsz, Tm1 + 1, nx, nu, max_iter,
+             reg, min_slack, dblu(*lo), dblu(*hi),
+             torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(lib, err, "the other checkout's trajqp_fused")
+    return tuple(outs)
+
+
+def _k4_errs(got, want):
+    """Per output, max |got − want| over max(1, max |want|), in float64."""
+    return [float((g.double() - w.double()).abs().max())
+            / max(1.0, float(w.double().abs().max()))
+            for g, w in zip(got, want)]
+
+
+def _k4_plain_envelope(args, ref64):
+    """Per output, the plain float32 version's error against the float64
+    solution ``ref64``: the largest over the QP ``args`` and its four
+    one-ulp nudges of c and x0 (its rounding envelope, as chip_smoke.py's
+    ``k4_check`` takes it)."""
+    errs = _k4_errs(trajqp_fused_cuda.fused_trajqp_solve_reference(*args),
+                    ref64)
+    for i in (1, 5):  # c, x0
+        for to in (float("inf"), -float("inf")):
+            nudged = list(args)
+            nudged[i] = torch.nextafter(args[i], torch.full_like(args[i],
+                                                                 to))
+            errs = [max(a, b) for a, b in zip(errs, _k4_errs(
+                trajqp_fused_cuda.fused_trajqp_solve_reference(*nudged),
+                ref64))]
+    return errs
+
+
+def k4_thread(shapes=trajqp_fused_cuda.BUILT, batches=K4_THREAD_BATCHES,
+              against=None) -> list:
+    """K4's thread layout per (shape, dtype, B) on the profiler benchmark's
+    random box QPs, cold-started, at the ip path's budget: within K4_TOL of
+    the plain version on all eight outputs, float32 also against the
+    float64 solution within F32_VS_F64_RATIO of the plain float32
+    version's error (its one-ulp envelope, ``_k4_plain_envelope``) or
+    K4_TOL; with ``against`` another checkout's thread layout beside it
+    (the same errors, and the bits compared), both timed in turns by the
+    profiler; the bound. Raises where the thread layout misses a limit,
+    after every kernel of the row is checked."""
+    from diff_qp_mpc_tpu_torch.benchmarks import prof_trajqp_fused as prof
+
+    other = (cuda_build.load_from(against, "trajqp_fused")
+             if against is not None else None)
+    budget = (K4_BUDGET["max_iter"], K4_BUDGET["reg"],
+              K4_BUDGET["min_slack"])
+    rows = []
+    for shape in shapes:
+        for dtype in (torch.float32, torch.float64):
+            for B in batches:
+                arrays, box = prof.problem(B, *shape, dtype)
+                args = (*arrays, *prof.cold_start(*arrays), box.u_lo,
+                        box.u_hi, *budget)
+                plain = trajqp_fused_cuda.fused_trajqp_solve_reference(*args)
+                ref64 = trajqp_fused_cuda.fused_trajqp_solve_reference(
+                    *(a.double() for a in args[:8]), *args[8:])
+                row = dict(shape=shape, B=B, dtype=str(dtype),
+                           tol=K4_TOL[dtype])
+                fns = {"thread": lambda: trajqp_fused_cuda._launch(
+                    *args, layout="thread")}
+                if other is not None:
+                    fns["against"] = lambda: _other_k4(other, args)
+                outs = {k: f() for k, f in fns.items()}
+                base = bare = None
+                if dtype == torch.float32:
+                    base = _k4_plain_envelope(args, ref64)
+                    bare = _k4_errs(plain, ref64)
+                    row["plain_vs_f64"] = max(base)
+                    row["plain_vs_f64_bare"] = max(bare)
+                for k, out in outs.items():
+                    errs = _k4_errs(out, plain)
+                    row[f"err_{k}"] = max(errs)
+                    ok = all(bool(torch.isfinite(o).all()) for o in out) \
+                        and max(errs) <= K4_TOL[dtype]
+                    if base is not None:
+                        mine = _k4_errs(out, ref64)
+                        row[f"vs_f64_{k}"] = max(mine)
+                        # the most of the rule's limit any output uses,
+                        # the limit taken from the plain version's envelope
+                        # (which decides here) and from its bare error
+                        for name, b in (("envelope", base), ("bare", bare)):
+                            row[f"rule_{name}_{k}"] = max(
+                                m / max(K4_TOL[dtype], F32_VS_F64_RATIO * p)
+                                for m, p in zip(mine, b))
+                        ok = ok and all(
+                            m <= max(K4_TOL[dtype], F32_VS_F64_RATIO * b)
+                            for m, b in zip(mine, base))
+                    row[f"ok_{k}"] = ok
+                if not row["ok_thread"]:
+                    raise RuntimeError(f"K4 (thread) disagrees with its "
+                                       f"plain version: {row}")
+                if other is not None:
+                    row["bit_identical_to_against"] = _same(
+                        outs["thread"], outs["against"])
+                row["ms"] = _profiled_turns(fns, B, "trajqp_fused_kernel")
+                row["bound_ms"], row["bound_by"] = bound(
+                    B * k4_bytes(*shape),
+                    B * k4_ops(*shape, K4_BUDGET["max_iter"]))
+                row["bound_share"] = {k: row["bound_ms"] / m
+                                      for k, m in row["ms"].items()}
+                print("k4_thread", json.dumps(row), flush=True)
+                rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path,
@@ -655,14 +889,16 @@ def main(argv=None) -> int:
                     help="comma-separated measurements to run (default: "
                          "all): " + ", ".join(MEASUREMENTS))
     ap.add_argument("--against", type=Path, default=None,
-                    help="k3_layouts, k3_thread_shapes: another checkout "
-                         "whose one-thread horizon kernel joins the turns")
+                    help="k3_layouts, k3_thread_shapes, k3_unrolled, "
+                         "k4_thread: another checkout whose kernel (the "
+                         "one-thread horizon kernel, the unrolled K3, K4's "
+                         "thread layout) joins the turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: these measurements are of the "
                            "card only")
-    logs = cuda_build.build(["btsolve", "al_fused", "riccati_horizon_warp",
-                             "trajqp_fused",
+    logs = cuda_build.build(["btsolve", "al_fused", "riccati",
+                             "riccati_horizon_warp", "trajqp_fused",
                              "trajqp_fused_warp"])
     result = dict(ptxas={k: [ln.strip() for ln in v.splitlines()
                              if "registers" in ln or "spill" in ln
@@ -689,9 +925,11 @@ MEASUREMENTS = {
     "k1_compute_rule": k1_compute_rule, "k3_layouts": k3_layouts,
     "k3_thread_shapes": lambda against=None: k3_layouts(
         K3_THREAD_SHAPES, K3_THREAD_BATCHES, against),
-    "k4_layouts": k4_layouts}
+    "k4_layouts": k4_layouts, "k3_unrolled": k3_unrolled,
+    "k4_thread": k4_thread}
 #: the measurements that take ``--against``
-_K3_MEASUREMENTS = ("k3_layouts", "k3_thread_shapes")
+_K3_MEASUREMENTS = ("k3_layouts", "k3_thread_shapes", "k3_unrolled",
+                    "k4_thread")
 
 
 if __name__ == "__main__":

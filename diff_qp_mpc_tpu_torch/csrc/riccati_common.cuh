@@ -56,7 +56,12 @@ __device__ __forceinline__ void matvec(GA a, const F (&v)[K], F (&out)[R]) {
 // prob.Cxu, Cuu), gradients (gx, gu), dynamics (prob.A, prob.B, r) and
 // initial value dx0. Cuu is separate from prob because the interior-point
 // iteration changes it every solve.
-template <int T, int NX, int NU, typename F>
+//
+// kScalarPivot (NU 1 only): K and k from one correctly rounded reciprocal
+// of max(Quu + reg, 1e-30) and multiplies, where the default runs the
+// Cholesky's square root and two divisions per column. The results differ
+// by rounding only; K4 takes it, K3 keeps the default and its bits.
+template <int T, int NX, int NU, typename F, bool kScalarPivot = false>
 __device__ __forceinline__ void riccati_solve(
     const LQRProblem<T, NX, NU, F>& prob, const F (&Cuu)[T][NU][NU],
     const F (&gx)[T][NX], const F (&gu)[T][NU], const F (&r)[T - 1][NX],
@@ -123,20 +128,26 @@ __device__ __forceinline__ void riccati_solve(
     }
 #pragma unroll
     for (int i = 0; i < NU; ++i) Quu[i][i] = Quu[i][i] + reg;
-    F Lc[NU][NU];
-    chol<NU, F>(Quu, Lc);
-    // K = −Quu⁻¹ Qxuᵀ column by column, k = −Quu⁻¹ qu
+    if constexpr (kScalarPivot) {
+      static_assert(NU == 1, "the scalar pivot is Quu at one control");
+      const F inv = F(1) / max_keep_nan(Quu[0][0], F(1e-30));
 #pragma unroll
-    for (int c = 0; c < NX; ++c) {
-      F col[NU], y[NU], sol[NU];
+      for (int c = 0; c < NX; ++c) Ks[t][0][c] = -(Qxu[c][0] * inv);
+      ks[t][0] = -(qu[0] * inv);
+    } else {
+      F Lc[NU][NU];
+      chol<NU, F>(Quu, Lc);
+      // K = −Quu⁻¹ Qxuᵀ column by column, k = −Quu⁻¹ qu
 #pragma unroll
-      for (int i = 0; i < NU; ++i) col[i] = Qxu[c][i];
-      solve_lower_vec<NU, F>(Lc, col, y);
-      solve_upper_vec<NU, F>(Lc, y, sol);
+      for (int c = 0; c < NX; ++c) {
+        F col[NU], y[NU], sol[NU];
 #pragma unroll
-      for (int i = 0; i < NU; ++i) Ks[t][i][c] = -sol[i];
-    }
-    {
+        for (int i = 0; i < NU; ++i) col[i] = Qxu[c][i];
+        solve_lower_vec<NU, F>(Lc, col, y);
+        solve_upper_vec<NU, F>(Lc, y, sol);
+#pragma unroll
+        for (int i = 0; i < NU; ++i) Ks[t][i][c] = -sol[i];
+      }
       F y[NU], sol[NU];
       solve_lower_vec<NU, F>(Lc, qu, y);
       solve_upper_vec<NU, F>(Lc, y, sol);

@@ -16,12 +16,32 @@
 // comparison after the loop. Returns x, u, λ, z_hi, z_lo, s_hi, s_lo and the
 // best residual total.
 //
+// The arithmetic's chain: each IEEE division and square root is a sequence
+// with a slow-path branch that the compiler does not schedule other work
+// across, and they set this kernel's time (-use_fast_math took it from 0.089
+// to 0.021 ms at (5, 2, 1), float32, B 64, on an NVIDIA H100 80GB HBM3 at
+// 700 W; PERF.md, Findings). So the iteration divides as little as its
+// results allow (at every shape and dtype but float32 (5, 3, 2), which
+// FewDivisions names), each division still correctly rounded: one
+// reciprocal of each slack per iteration (s does not change between the
+// predictor's and the corrector's KKT step), so the z/s terms, the
+// (z r_p − r_s)/s terms and the dz recovery are multiplies; one division
+// per ratio test (max_step: the blocking entry chosen by a tree of cross
+// products); and at one control the Riccati recursion's scalar pivot
+// (riccati_solve's kScalarPivot: one reciprocal of Quu + reg a stage
+// instead of a square root and 2·(nx + 1) divisions). The results differ
+// from dividing each term by rounding only. In float64 at (5, 3, 1),
+// (5, 3, 2) and (5, 4, 1) the element's working state does not fit the
+// registers: there it lives in shared memory (SharedWork), which costs
+// less time than the spilled copies in local memory did.
+//
 // Semantics kept from the Pallas kernel (line numbers in
 // trajqp_fused_pallas.py), which differ from the scan IPM of
 // solvers/trajqp.py: u clipped to [u_lo + 1e-3, u_hi − 1e-3] again inside
 // (:64), the clip constants folded in double precision as the reference's
-// Python floats are; `big` = float32's max in every dtype (:60), also the
-// initial best total (:270); σ's denominator floored at 1e-30 (:233); the
+// Python floats are; `big` = float32's max in every dtype (:60: the
+// step of an entry with dv ≥ 0, which never blocks), also the initial best
+// total (:270); σ's denominator floored at 1e-30 (:233); the
 // best total replaced with a select, not a minimum (:213), the output total
 // a NaN-propagating minimum (:281). min and max keep NaNs as jnp's do.
 //
@@ -32,16 +52,14 @@
 // Bound on the H100: ~2.2·10⁴ flops and ~0.6 KB (float32) per element at the
 // ip path's budget (T 5, nx 2, nu 1, max_iter 12), so the card's bound is
 // the operations; at 64 elements a launch occupies one SM and each thread
-// runs one long serial chain, so it is latency-bound. The state and the
-// stage blocks exceed the 255 registers a thread may hold, so part of them
-// lives in local memory (L1). Serving an element with a group of lanes, its
-// state in shared memory, removes the spills but was measured slower at every
-// batch timed: three quarters of this kernel's time is the chain of IEEE
-// divisions and square roots, which the lanes do not shorten (PERF.md,
-// Findings).
+// runs one long serial chain, so it is latency-bound. Serving an element
+// with a group of lanes, its state in shared memory, was measured slower at
+// every batch timed: the lanes do not shorten the chain of divisions and
+// square roots (PERF.md, Findings).
 #include <cfloat>
 #include <cmath>
 #include <cstddef>
+#include <type_traits>
 
 #include "riccati_common.cuh"
 
@@ -190,11 +208,106 @@ __device__ __forceinline__ F resid_norm(const IPResiduals<T, NX, NU, F>& r,
   return pri + dual + n_comp * fabs(mu);
 }
 
-// Eliminate the box rows, solve the Riccati KKT system, recover (ds, dz).
+// 1/s_hi and 1/s_lo, correctly rounded: the divisions of an iteration's
+// two KKT steps.
+template <int T, int NU, typename F>
+struct InvSlack {
+  F hi[T][NU], lo[T][NU];
+};
+
 template <int T, int NX, int NU, typename F>
+__device__ __forceinline__ void inv_slack(const IPState<T, NX, NU, F>& s,
+                                          InvSlack<T, NU, F>& is) {
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      is.hi[t][i] = F(1) / s.sh[t][i];
+      is.lo[t][i] = F(1) / s.sl[t][i];
+    }
+  }
+}
+
+// Which (shape, dtype) takes the arithmetic with few divisions (R in the
+// functions below): every one but float32 (5, 3, 2), which keeps a division
+// per term: there the kernel's error against the float64 solution on the
+// profiler's random QPs at B 4096 was 2.04 times the plain float32
+// version's, past the 2× rule (NVIDIA H100 80GB HBM3 at 700 W; PERF.md,
+// Findings).
+template <int T, int NX, int NU, typename F>
+struct FewDivisions : std::true_type {};
+template <>
+struct FewDivisions<5, 3, 2, float> : std::false_type {};
+
+// An element's working state: the iterate, the best one, the residuals and
+// the steps (the predictor's and the combined one).
+template <int T, int NX, int NU, typename F>
+struct IPWork {
+  IPState<T, NX, NU, F> s, best;
+  IPResiduals<T, NX, NU, F> r, rc;
+  IPStep<T, NX, NU, F> da, d;
+};
+
+// Where the element's IPWork lives: in registers and local memory, or
+// (SharedWork) in shared memory, one record a thread kWorkStride scalars
+// apart (odd, so that the 32 lanes reading the same entry hit 32 banks),
+// in blocks of 32 threads (float64 (5, 3, 2): 120 KB a block). In float64
+// at (5, 3, 1), (5, 3, 2) and (5, 4, 1) the registers held too little of
+// it: with few divisions a thread spilled 4.7-26.5 KB, and the few-division
+// arithmetic lost to the division per term at (5, 3, 1) and (5, 3, 2).
+// With the work in shared memory and few divisions, B 64: 0.2250 →
+// 0.1714 ms, 0.5919 → 0.4108 and 0.7219 → 0.3607 against the kernel
+// before (a division per term at the first two, few divisions in
+// registers at (5, 4, 1)) in one call (NVIDIA H100 80GB HBM3 at 700 W;
+// PERF.md, Findings).
+template <int T, int NX, int NU, typename F>
+struct SharedWork : std::false_type {};
+template <>
+struct SharedWork<5, 3, 1, double> : std::true_type {};
+template <>
+struct SharedWork<5, 3, 2, double> : std::true_type {};
+template <>
+struct SharedWork<5, 4, 1, double> : std::true_type {};
+
+template <int T, int NX, int NU, typename F>
+constexpr int kWorkStride =
+    static_cast<int>(sizeof(IPWork<T, NX, NU, F>) / sizeof(F)) | 1;
+
+template <int T, int NX, int NU, typename F>
+constexpr int block_threads() {
+  return SharedWork<T, NX, NU, F>::value ? 32 : 64;
+}
+
+// Bytes of dynamic shared memory a block takes.
+template <int T, int NX, int NU, typename F>
+constexpr int work_smem_bytes() {
+  return SharedWork<T, NX, NU, F>::value
+             ? block_threads<T, NX, NU, F>() * kWorkStride<T, NX, NU, F> *
+                   static_cast<int>(sizeof(F))
+             : 0;
+}
+
+// One part of the work: a local X, or with S the X at p in shared memory.
+template <bool S, class X>
+struct Home {
+  X v;
+  __device__ __forceinline__ explicit Home(X*) {}
+  __device__ __forceinline__ X& operator*() { return v; }
+};
+template <class X>
+struct Home<true, X> {
+  X* p;
+  __device__ __forceinline__ explicit Home(X* q) : p(q) {}
+  __device__ __forceinline__ X& operator*() { return *p; }
+};
+
+// Eliminate the box rows, solve the Riccati KKT system, recover (ds, dz);
+// with R, is holds the reciprocals of s's slacks, else each term divides.
+template <int T, int NX, int NU, typename F, bool R>
 __device__ __forceinline__ void kkt_step(
     const IPProblem<T, NX, NU, F>& P, const IPState<T, NX, NU, F>& s,
-    const IPResiduals<T, NX, NU, F>& r, F reg, IPStep<T, NX, NU, F>& d) {
+    const InvSlack<T, NU, F>& is, const IPResiduals<T, NX, NU, F>& r,
+    F reg, IPStep<T, NX, NU, F>& d) {
   F Cuu_eff[T][NU][NU], gu[T][NU], neg_rdyn[T - 1][NX], neg_rinit[NX];
 #pragma unroll
   for (int t = 0; t < T; ++t) {
@@ -202,11 +315,17 @@ __device__ __forceinline__ void kkt_step(
     for (int i = 0; i < NU; ++i) {
 #pragma unroll
       for (int j = 0; j < NU; ++j) Cuu_eff[t][i][j] = P.Cuu[t][i][j];
-      const F dd = s.zh[t][i] / s.sh[t][i] + s.zl[t][i] / s.sl[t][i];
+      F dd, extra;
+      if constexpr (R) {
+        dd = s.zh[t][i] * is.hi[t][i] + s.zl[t][i] * is.lo[t][i];
+        extra = (s.zh[t][i] * r.rph[t][i] - r.rsh[t][i]) * is.hi[t][i] -
+                (s.zl[t][i] * r.rpl[t][i] - r.rsl[t][i]) * is.lo[t][i];
+      } else {
+        dd = s.zh[t][i] / s.sh[t][i] + s.zl[t][i] / s.sl[t][i];
+        extra = (s.zh[t][i] * r.rph[t][i] - r.rsh[t][i]) / s.sh[t][i] -
+                (s.zl[t][i] * r.rpl[t][i] - r.rsl[t][i]) / s.sl[t][i];
+      }
       Cuu_eff[t][i][i] = Cuu_eff[t][i][i] + dd;
-      const F extra =
-          (s.zh[t][i] * r.rph[t][i] - r.rsh[t][i]) / s.sh[t][i] -
-          (s.zl[t][i] * r.rpl[t][i] - r.rsl[t][i]) / s.sl[t][i];
       gu[t][i] = r.ru[t][i] + extra;
     }
   }
@@ -217,41 +336,98 @@ __device__ __forceinline__ void kkt_step(
   }
 #pragma unroll
   for (int i = 0; i < NX; ++i) neg_rinit[i] = -r.rinit[i];
-  riccati_solve<T, NX, NU, F>(P.lqr, Cuu_eff, r.rx, gu, neg_rdyn, neg_rinit,
-                              reg, d.dx, d.du, d.dl);
+  riccati_solve<T, NX, NU, F, R && NU == 1>(
+      P.lqr, Cuu_eff, r.rx, gu, neg_rdyn, neg_rinit, reg, d.dx, d.du, d.dl);
 #pragma unroll
   for (int t = 0; t < T; ++t) {
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
       d.dsh[t][i] = -r.rph[t][i] - d.du[t][i];
       d.dsl[t][i] = -r.rpl[t][i] + d.du[t][i];
-      d.dzh[t][i] = -(r.rsh[t][i] + s.zh[t][i] * d.dsh[t][i]) / s.sh[t][i];
-      d.dzl[t][i] = -(r.rsl[t][i] + s.zl[t][i] * d.dsl[t][i]) / s.sl[t][i];
+      if constexpr (R) {
+        d.dzh[t][i] = -(r.rsh[t][i] + s.zh[t][i] * d.dsh[t][i]) * is.hi[t][i];
+        d.dzl[t][i] = -(r.rsl[t][i] + s.zl[t][i] * d.dsl[t][i]) * is.lo[t][i];
+      } else {
+        d.dzh[t][i] = -(r.rsh[t][i] + s.zh[t][i] * d.dsh[t][i]) / s.sh[t][i];
+        d.dzl[t][i] = -(r.rsl[t][i] + s.zl[t][i] * d.dsl[t][i]) / s.sl[t][i];
+      }
     }
   }
 }
 
-// Largest step in (0, 1] keeping v + a·dv ≥ 0, over s_hi, s_lo, z_hi, z_lo.
-template <int T, int NX, int NU, typename F>
+// An entry's ratio v/(−dv), dv < 0, as its two terms.
+template <typename F>
+struct Ratio {
+  F v, dv;
+};
+
+// The lesser of two ratios, by cross products (both denominators positive):
+// a when a.v·(−b.dv) ≤ b.v·(−a.dv).
+template <typename F>
+__device__ __forceinline__ Ratio<F> lesser(const Ratio<F>& a,
+                                           const Ratio<F>& b) {
+  return a.v * (-b.dv) <= b.v * (-a.dv) ? a : b;
+}
+
+// Largest step in (0, 1] keeping v + a·dv ≥ 0, over s_hi, s_lo, z_hi, z_lo:
+// min(1, the least −v/dv over dv < 0). With R, only an entry with v < −dv
+// can block (its ratio is below 1); every other entry stands as the cap,
+// 1/(−(−1)). The least ratio is found by a tree of cross-product comparisons
+// and divided once. Without R each entry with dv < 0 divides and a
+// NaN-keeping minimum takes them in order. Either way a NaN v where dv < 0
+// gives NaN, and a NaN dv is skipped.
+template <int T, int NX, int NU, typename F, bool R>
 __device__ __forceinline__ F max_step(const IPState<T, NX, NU, F>& s,
                                       const IPStep<T, NX, NU, F>& d) {
-  const F big = F(FLT_MAX);
-  F a = F(1);
-  auto pair = [&](const F (&v)[T][NU], const F (&dv)[T][NU]) {
+  if constexpr (!R) {
+    const F big = F(FLT_MAX);
+    F a = F(1);
+    auto pair = [&](const F (&v)[T][NU], const F (&dv)[T][NU]) {
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+#pragma unroll
+        for (int i = 0; i < NU; ++i) {
+          const F step = dv[t][i] < F(0) ? -v[t][i] / dv[t][i] : big;
+          a = min_keep_nan(a, step);
+        }
+      }
+    };
+    pair(s.sh, d.dsh);
+    pair(s.sl, d.dsl);
+    pair(s.zh, d.dzh);
+    pair(s.zl, d.dzl);
+    return a;
+  }
+  constexpr int M = 4 * T * NU;
+  Ratio<F> r[M];
+  bool has_nan = false;
+  F nan = F(0);
+  auto fill = [&](int base, const F (&v)[T][NU], const F (&dv)[T][NU]) {
 #pragma unroll
     for (int t = 0; t < T; ++t) {
 #pragma unroll
       for (int i = 0; i < NU; ++i) {
-        const F step = dv[t][i] < F(0) ? -v[t][i] / dv[t][i] : big;
-        a = min_keep_nan(a, step);
+        const F vi = v[t][i], di = dv[t][i];
+        const bool blocks = di < F(0) && vi < -di;
+        r[base + t * NU + i] =
+            blocks ? Ratio<F>{vi, di} : Ratio<F>{F(1), F(-1)};
+        if (di < F(0) && vi != vi) {
+          has_nan = true;
+          nan = vi;
+        }
       }
     }
   };
-  pair(s.sh, d.dsh);
-  pair(s.sl, d.dsl);
-  pair(s.zh, d.dzh);
-  pair(s.zl, d.dzl);
-  return a;
+  fill(0, s.sh, d.dsh);
+  fill(T * NU, s.sl, d.dsl);
+  fill(2 * T * NU, s.zh, d.dzh);
+  fill(3 * T * NU, s.zl, d.dzl);
+#pragma unroll
+  for (int w = 1; w < M; w *= 2) {
+#pragma unroll
+    for (int k = 0; k + w < M; k += 2 * w) r[k] = lesser(r[k], r[k + w]);
+  }
+  return has_nan ? nan : -r[0].v / r[0].dv;
 }
 
 template <int T, int NX, int NU, typename F>
@@ -266,9 +442,20 @@ trajqp_fused_kernel(const F* __restrict__ C_g, const F* __restrict__ c_g,
                     F* __restrict__ sl_out, F* __restrict__ res_out, int Bsz,
                     int max_iter, F reg, F min_slack, IPBox<F, NU> box) {
   constexpr int N = NX + NU;
+  constexpr bool R = FewDivisions<T, NX, NU, F>::value;
+  constexpr bool S = SharedWork<T, NX, NU, F>::value;
+  using W = IPWork<T, NX, NU, F>;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= Bsz) return;
   const size_t E = static_cast<size_t>(e);
+  W* w = nullptr;  // this thread's record in shared memory, with S
+  if constexpr (S) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    w = reinterpret_cast<W*>(reinterpret_cast<F*>(smem) +
+                             threadIdx.x * kWorkStride<T, NX, NU, F>);
+  }
+  // the record's member m with S, else none (the part is a local)
+  auto part = [&](auto W::*m) { return S ? &(w->*m) : nullptr; };
 
   // ---- load the QP ----
   IPProblem<T, NX, NU, F> P;
@@ -308,7 +495,8 @@ trajqp_fused_kernel(const F* __restrict__ C_g, const F* __restrict__ c_g,
   for (int i = 0; i < NX; ++i) P.x0[i] = x0_g[E * NX + i];
 
   // ---- initialization: interior (s, z) > 0, u clipped into the box ----
-  IPState<T, NX, NU, F> s;
+  Home<S, IPState<T, NX, NU, F>> s_home(part(&W::s));
+  IPState<T, NX, NU, F>& s = *s_home;
 #pragma unroll
   for (int t = 0; t < T; ++t) {
 #pragma unroll
@@ -327,12 +515,15 @@ trajqp_fused_kernel(const F* __restrict__ C_g, const F* __restrict__ c_g,
       s.zl[t][i] = F(1);
     }
   }
-  IPState<T, NX, NU, F> best = s;
+  Home<S, IPState<T, NX, NU, F>> best_home(part(&W::best));
+  IPState<T, NX, NU, F>& best = *best_home;
+  best = s;
   F b_tot = F(FLT_MAX);
   const F n_comp = F(2 * T * NU);
 
   for (int it = 0; it < max_iter; ++it) {
-    IPResiduals<T, NX, NU, F> r;
+    Home<S, IPResiduals<T, NX, NU, F>> r_home(part(&W::r));
+    IPResiduals<T, NX, NU, F>& r = *r_home;
     residuals(P, box, s, r);
     F mu;
     const F total = resid_norm(r, mu);
@@ -340,10 +531,14 @@ trajqp_fused_kernel(const F* __restrict__ C_g, const F* __restrict__ c_g,
     if (better) best = s;
     b_tot = better ? total : b_tot;
 
+    InvSlack<T, NU, F> is;
+    if constexpr (R) inv_slack(s, is);
+
     // ---- affine (predictor) ----
-    IPStep<T, NX, NU, F> da;
-    kkt_step(P, s, r, reg, da);
-    const F a_aff = max_step(s, da);
+    Home<S, IPStep<T, NX, NU, F>> da_home(part(&W::da));
+    IPStep<T, NX, NU, F>& da = *da_home;
+    kkt_step<T, NX, NU, F, R>(P, s, is, r, reg, da);
+    const F a_aff = max_step<T, NX, NU, F, R>(s, da);
     F mu_aff = F(0);
 #pragma unroll
     for (int t = 0; t < T; ++t) {
@@ -360,7 +555,8 @@ trajqp_fused_kernel(const F* __restrict__ C_g, const F* __restrict__ c_g,
     const F smu = ratio * ratio * ratio * mu;
 
     // ---- centering-corrector: zero residuals but complementarity ----
-    IPResiduals<T, NX, NU, F> rc;
+    Home<S, IPResiduals<T, NX, NU, F>> rc_home(part(&W::rc));
+    IPResiduals<T, NX, NU, F>& rc = *rc_home;
 #pragma unroll
     for (int t = 0; t < T; ++t) {
 #pragma unroll
@@ -381,8 +577,9 @@ trajqp_fused_kernel(const F* __restrict__ C_g, const F* __restrict__ c_g,
     }
 #pragma unroll
     for (int i = 0; i < NX; ++i) rc.rinit[i] = F(0);
-    IPStep<T, NX, NU, F> d;
-    kkt_step(P, s, rc, reg, d);
+    Home<S, IPStep<T, NX, NU, F>> d_home(part(&W::d));
+    IPStep<T, NX, NU, F>& d = *d_home;
+    kkt_step<T, NX, NU, F, R>(P, s, is, rc, reg, d);
 
     // ---- combined step ----
 #pragma unroll
@@ -401,7 +598,7 @@ trajqp_fused_kernel(const F* __restrict__ C_g, const F* __restrict__ c_g,
         d.dzl[t][i] = da.dzl[t][i] + d.dzl[t][i];
       }
     }
-    const F alpha = F(0.99) * max_step(s, d);
+    const F alpha = F(0.99) * max_step<T, NX, NU, F, R>(s, d);
 #pragma unroll
     for (int t = 0; t < T; ++t) {
 #pragma unroll
@@ -421,7 +618,8 @@ trajqp_fused_kernel(const F* __restrict__ C_g, const F* __restrict__ c_g,
   }
 
   // ---- final best-iterate comparison ----
-  IPResiduals<T, NX, NU, F> r;
+  Home<S, IPResiduals<T, NX, NU, F>> r_home(part(&W::r));
+  IPResiduals<T, NX, NU, F>& r = *r_home;
   residuals(P, box, s, r);
   F mu;
   const F total = resid_norm(r, mu);
@@ -463,9 +661,16 @@ int launch(const TrajQPArgs& a, int Bsz, int max_iter, double reg,
     box.lo_clip[i] = static_cast<F>(u_lo[i] + 1e-3);
     box.hi_clip[i] = static_cast<F>(u_hi[i] - 1e-3);
   }
-  const int threads = 64;
+  constexpr int bytes = work_smem_bytes<T, NX, NU, F>();
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        trajqp_fused_kernel<T, NX, NU, F>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  constexpr int threads = block_threads<T, NX, NU, F>();
   const int blocks = (Bsz + threads - 1) / threads;
-  trajqp_fused_kernel<T, NX, NU, F><<<blocks, threads, 0, s>>>(
+  trajqp_fused_kernel<T, NX, NU, F><<<blocks, threads, bytes, s>>>(
       static_cast<const F*>(a.C), static_cast<const F*>(a.c),
       static_cast<const F*>(a.A), static_cast<const F*>(a.B),
       static_cast<const F*>(a.f), static_cast<const F*>(a.x0),

@@ -4,7 +4,10 @@ of diff_qp_mpc_tpu.ops.riccati_pallas.
 Two kernels compute it:
 - ``csrc/riccati.cu`` at the (T, nx, nu) of ``BUILT``: one thread per
   element, every stage loop unrolled, the element in registers (the
-  DEQ-MPC tracker's horizon, T 5);
+  DEQ-MPC tracker's horizon, T 5); a block of ``ELEMENTS_PER_BLOCK``
+  elements stages its inputs through shared memory with bulk asynchronous
+  copies, and each thread stores its element from registers
+  (``staged_smem`` reads its sizes);
 - ``csrc/riccati_horizon_warp.cu``, the horizon kernel, at the (nx, nu) of
   ``HORIZON_WARP_BUILT`` and any T: one warp per element, the stage's blocks
   and the recursion's temporaries in shared memory (``warp_smem``), each
@@ -44,6 +47,12 @@ Tensor = torch.Tensor
 
 #: (T, nx, nu) with an instantiation of the unrolled kernel
 BUILT = ((5, 2, 1), (5, 3, 1), (5, 3, 2), (5, 4, 1), (5, 6, 1))
+#: the elements a block of the unrolled kernel serves at every shape and
+#: dtype, fixed at compile time (``kElementsPerBlock`` in
+#: ``csrc/riccati.cu``, which this mirrors and ``staged_smem`` reports): of
+#: 16, 32 and 64 the fastest at every shape and dtype at the paths' B 64
+#: and 256, timed in turns on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
+ELEMENTS_PER_BLOCK = 16
 #: (nx, nu) with an instantiation of the horizon kernel (any T)
 HORIZON_WARP_BUILT = ((12, 4), (16, 4), (2, 1), (4, 1), (5, 1), (6, 1),
                       (7, 1))
@@ -79,6 +88,28 @@ def kernel_for(T: int, nx: int, nu: int) -> str:
     raise ValueError(f"no kernel for T={T}, nx={nx}, nu={nu} (built: "
                      f"(T, nx, nu) in {BUILT}, and (nx, nu) in "
                      f"{HORIZON_WARP_BUILT} at any T)")
+
+
+def staged_smem(dtype: torch.dtype, T: int, nx: int, nu: int,
+                device: torch.device) -> Dict[str, int]:
+    """Shared memory of the unrolled kernel's (T, nx, nu, dtype)
+    instantiation on ``device``: the elements a block it serves
+    (``elements_per_block``), bytes an element's inputs (``per_element``)
+    and a block (``per_block``), and the most a block may ask of the device
+    (``device_max``)."""
+    if (T, nx, nu) not in BUILT:
+        raise ValueError(f"the unrolled kernel is not built for T={T}, "
+                         f"nx={nx}, nu={nu}")
+    lib = cuda_build.load("riccati")
+    fn = getattr(lib, f"riccati_smem_{_BITS[dtype]}")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device):
+        err = fn(T, nx, nu, *(ctypes.byref(o) for o in out))
+    cuda_build.check(lib, err, "riccati shared-memory query")
+    return dict(zip(("elements_per_block", "per_element", "per_block",
+                     "device_max"), (o.value for o in out)))
 
 
 def warp_smem(dtype: torch.dtype, nx: int, nu: int,

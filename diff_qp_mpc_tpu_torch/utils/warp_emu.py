@@ -10,9 +10,15 @@ float64) at its warps per element and at W 1, K3's warp-layout horizon
 kernel (``csrc/riccati_horizon_warp.cu`` at the quadrotor expert's
 (20, 12, 4), float64) and K4's warp layout (``csrc/trajqp_fused_warp.cu``
 at cp2's (5, 6, 1), float64) against their plain versions on a few
-elements and prints the errors. ``--tsan`` builds with ThreadSanitizer
-and reruns itself with its runtime preloaded, so that a missing ``__syncwarp`` between lanes that
-share memory is reported as a data race.
+elements, K3's unrolled kernel (``csrc/riccati.cu``, its block staged
+through shared memory) bit for bit against the same source's unstaged
+solve, and K4's thread layout (``csrc/trajqp_fused.cu``) against its plain
+version, and prints the errors. ``--tsan`` builds with ThreadSanitizer
+and reruns itself with its runtime preloaded, so that a missing
+``__syncwarp`` or ``__syncthreads`` between threads that share memory is
+reported as a data race. K3's bulk copies into shared memory are a
+``memcpy`` by the issuing thread here, and their mbarrier's wait is the
+block's barrier that follows it.
 
 The build stubs the CUDA names (``stub.h`` below) and rewrites two
 constructs with a regular expression: ``extern __shared__`` arrays become
@@ -59,12 +65,14 @@ _STUB = r"""#pragma once
 #include <cfloat>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstdlib>
 #include <cstring>
 #include <thread>
 #include <vector>
 using std::atan2;
 using std::cos;
+using std::fabs;
 using std::min;
 using std::sin;
 using std::sqrt;
@@ -205,10 +213,11 @@ def with_w1(text: str) -> str:
 
 
 def build(library: str, sanitize: bool = False,
-          w1: bool = False) -> Path:
+          w1: bool = False, harness: str = "") -> Path:
     """The emulation's build of ``csrc/<library>.cu`` (with ThreadSanitizer
-    if ``sanitize``; K2 also at W 1 if ``w1``) in a new directory under
-    ``build/warp_emu/`` that the caller removes."""
+    if ``sanitize``; K2 also at W 1 if ``w1``; with the C++ of ``harness``
+    appended to the source) in a new directory under ``build/warp_emu/``
+    that the caller removes."""
     if shutil.which("g++") is None:
         raise RuntimeError("g++ not found: the emulation builds with it")
     BUILD.mkdir(parents=True, exist_ok=True)
@@ -219,6 +228,8 @@ def build(library: str, sanitize: bool = False,
     (src / "stub.h").write_text(_STUB)
     for f in list(CSRC.glob("*.cuh")) + [CSRC / f"{library}.cu"]:
         text = rewrite(f.read_text())
+        if f.suffix == ".cu":
+            text += harness
         (src / f.name).write_text(with_w1(text) if w1 else text)
     so = out / f"lib{library}.so"
     flags = ["-fsanitize=thread", "-O1", "-g"] if sanitize else ["-O1"]
@@ -234,12 +245,12 @@ def build(library: str, sanitize: bool = False,
 
 
 def load(library: str, sanitize: bool = False,
-         w1: bool = False) -> ctypes.CDLL:
+         w1: bool = False, harness: str = "") -> ctypes.CDLL:
     """The loaded emulation build of ``csrc/<library>.cu``, built once per
     process."""
-    key = (library, sanitize, w1)
+    key = (library, sanitize, w1, harness)
     if key not in _loaded:
-        so = build(library, sanitize, w1)
+        so = build(library, sanitize, w1, harness)
         _loaded[key] = ctypes.CDLL(str(so))
         shutil.rmtree(so.parent)  # loaded; the mapping stays
     return _loaded[key]
@@ -366,6 +377,229 @@ def fused_trajqp_solve_warp(C, c, A, B, f, x0, x_init, u_init, u_lo, u_hi,
     return tuple(outs)
 
 
+# One thread per element solving straight from the inputs in global memory,
+# as K3's kernel loaded them before it staged its block through shared
+# memory: riccati_solve of the same source, unstaged, for the bit-for-bit
+# check of the staged kernel.
+_RICCATI_UNSTAGED = r"""
+namespace dqmpc {
+template <int T, int NX, int NU, typename F>
+void riccati_unstaged(const F* Cxx_g, const F* Cxu_g, const F* Cuu_g,
+                      const F* gx_g, const F* gu_g, const F* A_g,
+                      const F* B_g, const F* r_g, const F* dx0_g, F* dx_g,
+                      F* du_g, F* lam_g, int Bsz, F reg) {
+  for (size_t E = 0; E < static_cast<size_t>(Bsz); ++E) {
+    LQRProblem<T, NX, NU, F> prob;
+    F Cuu[T][NU][NU], gx[T][NX], gu[T][NU], r[T - 1][NX], dx0[NX];
+    for (int t = 0; t < T; ++t) {
+      for (int i = 0; i < NX; ++i) {
+        gx[t][i] = gx_g[(E * T + t) * NX + i];
+        for (int j = 0; j < NX; ++j)
+          prob.Cxx[t][i][j] = Cxx_g[((E * T + t) * NX + i) * NX + j];
+        for (int j = 0; j < NU; ++j)
+          prob.Cxu[t][i][j] = Cxu_g[((E * T + t) * NX + i) * NU + j];
+      }
+      for (int i = 0; i < NU; ++i) {
+        gu[t][i] = gu_g[(E * T + t) * NU + i];
+        for (int j = 0; j < NU; ++j)
+          Cuu[t][i][j] = Cuu_g[((E * T + t) * NU + i) * NU + j];
+      }
+    }
+    for (int t = 0; t < T - 1; ++t) {
+      for (int i = 0; i < NX; ++i) {
+        r[t][i] = r_g[(E * (T - 1) + t) * NX + i];
+        for (int j = 0; j < NX; ++j)
+          prob.A[t][i][j] = A_g[((E * (T - 1) + t) * NX + i) * NX + j];
+        for (int j = 0; j < NU; ++j)
+          prob.B[t][i][j] = B_g[((E * (T - 1) + t) * NX + i) * NU + j];
+      }
+    }
+    for (int i = 0; i < NX; ++i) dx0[i] = dx0_g[E * NX + i];
+    F dx[T][NX], du[T][NU], lam[T][NX];
+    riccati_solve<T, NX, NU, F>(prob, Cuu, gx, gu, r, dx0, reg, dx, du, lam);
+    for (int t = 0; t < T; ++t) {
+      for (int i = 0; i < NX; ++i) {
+        dx_g[(E * T + t) * NX + i] = dx[t][i];
+        lam_g[(E * T + t) * NX + i] = lam[t][i];
+      }
+      for (int i = 0; i < NU; ++i) du_g[(E * T + t) * NU + i] = du[t][i];
+    }
+  }
+}
+template <typename F>
+int riccati_unstaged_dispatch(const void* const* in, void* const* out,
+                              int Bsz, int T, int nx, int nu, double reg) {
+#define UNSTAGED(TT, NXX, NUU)                                             \
+  if (T == TT && nx == NXX && nu == NUU) {                                \
+    riccati_unstaged<TT, NXX, NUU, F>(                                    \
+        static_cast<const F*>(in[0]), static_cast<const F*>(in[1]),       \
+        static_cast<const F*>(in[2]), static_cast<const F*>(in[3]),       \
+        static_cast<const F*>(in[4]), static_cast<const F*>(in[5]),       \
+        static_cast<const F*>(in[6]), static_cast<const F*>(in[7]),       \
+        static_cast<const F*>(in[8]), static_cast<F*>(out[0]),            \
+        static_cast<F*>(out[1]), static_cast<F*>(out[2]), Bsz,            \
+        static_cast<F>(reg));                                             \
+    return 0;                                                             \
+  }
+  RICCATI_SHAPES(UNSTAGED)
+#undef UNSTAGED
+  return 1;
+}
+}  // namespace dqmpc
+extern "C" int riccati_unstaged_f32(const void* const* in, void* const* out,
+                                    int Bsz, int T, int nx, int nu,
+                                    double reg) {
+  return dqmpc::riccati_unstaged_dispatch<float>(in, out, Bsz, T, nx, nu,
+                                                 reg);
+}
+extern "C" int riccati_unstaged_f64(const void* const* in, void* const* out,
+                                    int Bsz, int T, int nx, int nu,
+                                    double reg) {
+  return dqmpc::riccati_unstaged_dispatch<double>(in, out, Bsz, T, nx, nu,
+                                                  reg);
+}
+"""
+
+
+def riccati_staged(args, reg: float = 0.0, sanitize: bool = False):
+    """K3's unrolled kernel (``riccati_f32``/``_f64``, its block staged
+    through shared memory) on CPU tensors: ``args`` and the outputs (dx,
+    du, lam) as ``riccati_cuda.batched_lqr_kkt_solve`` takes and gives
+    them. The inputs may be views at any storage offset; they must be
+    contiguous."""
+    from diff_qp_mpc_tpu_torch.ops import riccati_cuda
+
+    Bsz, T, nx, nu = args[1].shape
+    if not all(a.is_contiguous() for a in args):
+        raise ValueError("the kernel takes contiguous inputs")
+    gx, gu = args[3], args[4]
+    outs = [torch.empty_like(gx), torch.empty_like(gu), torch.empty_like(gx)]
+    lib = load("riccati", sanitize, harness=_RICCATI_UNSTAGED)
+    fn = getattr(lib, riccati_cuda._SYMBOLS[gx.dtype])
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
+        + [ctypes.c_double, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*(a.data_ptr() for a in args), *(o.data_ptr() for o in outs),
+             Bsz, T, nx, nu, float(reg), None)
+    if err:
+        raise RuntimeError(f"emulated riccati kernel: error {err}")
+    return tuple(outs)
+
+
+def riccati_elements_per_block(dtype: torch.dtype, T: int, nx: int,
+                               nu: int) -> int:
+    """The elements a block K3's unrolled kernel serves at (T, nx, nu,
+    dtype), as the source's ``kElementsPerBlock`` fixes it at compile
+    time."""
+    lib = load("riccati", harness=_RICCATI_UNSTAGED)
+    fn = getattr(lib, "riccati_smem_" + ("f64" if dtype == torch.float64
+                                         else "f32"))
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0) for _ in range(4)]
+    if fn(T, nx, nu, *(ctypes.byref(o) for o in out)):
+        raise RuntimeError(f"no unrolled instantiation at {(T, nx, nu)}")
+    return out[0].value
+
+
+def riccati_unstaged(args, reg: float = 0.0, sanitize: bool = False):
+    """``riccati_solve`` of ``csrc/riccati_common.cuh``, one element after
+    another, loading each straight from the inputs as K3's kernel did
+    before it staged its block: (dx, du, lam) on CPU tensors."""
+    from diff_qp_mpc_tpu_torch.ops import riccati_cuda
+
+    Bsz, T, nx, nu = args[1].shape
+    gx, gu = args[3], args[4]
+    outs = [torch.empty_like(gx), torch.empty_like(gu), torch.empty_like(gx)]
+    lib = load("riccati", sanitize, harness=_RICCATI_UNSTAGED)
+    fn = getattr(lib, "riccati_unstaged_" + riccati_cuda._BITS[gx.dtype])
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 \
+        + [ctypes.c_double]
+    fn.restype = ctypes.c_int
+    ins = (ctypes.c_void_p * 9)(*(a.data_ptr() for a in args))
+    outp = (ctypes.c_void_p * 3)(*(o.data_ptr() for o in outs))
+    if fn(ins, outp, Bsz, T, nx, nu, float(reg)):
+        raise RuntimeError(f"no unstaged instantiation at {(T, nx, nu)}")
+    return tuple(outs)
+
+
+# K4's ratio test alone at (T, nx, nu) = (5, 2, 1), float64: the step
+# max_step returns for slacks and duals v (s_hi, s_lo, z_hi, z_lo, each
+# [5]) and their steps dv.
+_K4_MAX_STEP = r"""
+extern "C" double k4_max_step_f64(const double* v, const double* dv) {
+  dqmpc::IPState<5, 2, 1, double> s{};
+  dqmpc::IPStep<5, 2, 1, double> d{};
+  for (int t = 0; t < 5; ++t) {
+    s.sh[t][0] = v[t];
+    s.sl[t][0] = v[5 + t];
+    s.zh[t][0] = v[10 + t];
+    s.zl[t][0] = v[15 + t];
+    d.dsh[t][0] = dv[t];
+    d.dsl[t][0] = dv[5 + t];
+    d.dzh[t][0] = dv[10 + t];
+    d.dzl[t][0] = dv[15 + t];
+  }
+  return dqmpc::max_step<5, 2, 1, double, true>(s, d);
+}
+"""
+
+
+def k4_max_step(v, dv) -> float:
+    """K4's ratio test (``max_step`` of ``csrc/trajqp_fused.cu``, built
+    for the host) on 20 values v (s_hi, s_lo, z_hi, z_lo at T 5, one
+    control) and their steps dv, float64."""
+    v = torch.as_tensor(v, dtype=torch.float64).contiguous()
+    dv = torch.as_tensor(dv, dtype=torch.float64).contiguous()
+    if v.numel() != 20 or dv.numel() != 20:
+        raise ValueError("expected 20 values and 20 steps")
+    lib = load("trajqp_fused", harness=_K4_MAX_STEP)
+    fn = lib.k4_max_step_f64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_double
+    return fn(v.data_ptr(), dv.data_ptr())
+
+
+def fused_trajqp_solve_thread(C, c, A, B, f, x0, x_init, u_init, u_lo, u_hi,
+                              max_iter: int = 12, reg: float = 1e-9,
+                              min_slack: float = 1e-8,
+                              sanitize: bool = False):
+    """K4's thread layout (``trajqp_fused_f32``/``_f64``, one thread an
+    element) built for the host, on CPU tensors, with
+    ``trajqp_fused_cuda.fused_trajqp_solve``'s arguments and outputs."""
+    from diff_qp_mpc_tpu_torch.ops import trajqp_fused_cuda
+
+    ins = [a.contiguous() for a in (C, c, A, B, f, x0, x_init, u_init)]
+    Bsz, Tm1, nx, nu = B.shape
+    if (Tm1 + 1, nx, nu) not in trajqp_fused_cuda.BUILT:
+        raise ValueError(f"the thread layout is not built for T={Tm1 + 1}, "
+                         f"nx={nx}, nu={nu}")
+    outs = [torch.empty_like(x_init), torch.empty_like(u_init),
+            torch.empty_like(x_init)] + [torch.empty_like(u_init)
+                                         for _ in range(4)] \
+        + [x0.new_empty(Bsz)]
+    lib = load("trajqp_fused", sanitize, harness=_K4_MAX_STEP)
+    fn = getattr(lib, trajqp_fused_cuda._SYMBOLS["thread"][C.dtype])
+    dblu = ctypes.c_double * nu
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 \
+        + [ctypes.c_double] * 2 + [ctypes.POINTER(ctypes.c_double)] * 2 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*(a.data_ptr() for a in ins), *(o.data_ptr() for o in outs),
+             Bsz, Tm1 + 1, nx, nu, int(max_iter), float(reg),
+             float(min_slack), dblu(*u_lo), dblu(*u_hi), None)
+    if err:
+        raise RuntimeError(f"emulated trajqp_fused kernel: error {err}")
+    return tuple(outs)
+
+
+def _same_bits(a, b) -> bool:
+    """Bit-identical tuples of tensors."""
+    iv = lambda t: t.view(torch.int64 if t.dtype == torch.float64
+                          else torch.int32)
+    return all(torch.equal(iv(x), iv(y)) for x, y in zip(a, b))
+
+
 def self_check(sanitize: bool = False) -> dict:
     """K1's warp layout at n 16, T 5, B 3, K2's on Cartpole1L at T 5, B 2
     and on the quadrotor at T 5, B 2 at its W and at W 1 (the bits of
@@ -373,7 +607,9 @@ def self_check(sanitize: bool = False) -> dict:
     (5, 6, 1), B 3, all
     float64, against their plain versions: the largest errors (K1's and
     K3's relative to the solution's largest entry, K4's over max(1, each
-    output's largest entry))."""
+    output's largest entry)); K3's unrolled kernel at (5, 6, 1), B 35 (16
+    elements a block), bit for bit against the unstaged solve; K4's thread
+    layout at (5, 2, 1), B 3, against its plain version."""
     from diff_qp_mpc_tpu_torch.benchmarks import k2_models
     from diff_qp_mpc_tpu_torch.benchmarks import prof_trajqp_fused as prof
     from diff_qp_mpc_tpu_torch.benchmarks.kernel_layouts import (
@@ -384,6 +620,7 @@ def self_check(sanitize: bool = False) -> dict:
         al_fused_cuda,
         btsolve,
         riccati,
+        riccati_cuda,
         trajqp_fused_cuda,
     )
 
@@ -414,6 +651,16 @@ def self_check(sanitize: bool = False) -> dict:
     k4 = max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
              for g, w in zip(k4_out, trajqp_fused_cuda.
                              fused_trajqp_solve_reference(*qp)))
+    lqr = lqr_problem(35, 5, 6, 1, torch.float64, seed=4, device="cpu")
+    unstaged = riccati_unstaged(lqr, 1e-9, sanitize=sanitize)
+    k3_staged = _same_bits(riccati_staged(lqr, 1e-9, sanitize=sanitize),
+                           unstaged)
+    arrays, box = prof.problem(3, 5, 2, 1, torch.float64, device="cpu")
+    qp = (*arrays, *prof.cold_start(*arrays), box.u_lo, box.u_hi)
+    k4t_out = fused_trajqp_solve_thread(*qp, sanitize=sanitize)
+    k4t = max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+              for g, w in zip(k4t_out, trajqp_fused_cuda.
+                              fused_trajqp_solve_reference(*qp)))
     return dict(k1_n16_T5_B3_float64_max_rel_err=k1,
                 k2_cartpole1l_T5_B2_float64_max_abs_err_xu=k2,
                 k2_quadrotor_T5_B2_float64_max_abs_err_xu=k2q,
@@ -421,8 +668,11 @@ def self_check(sanitize: bool = False) -> dict:
                     k2_models._same(o, quad[1]) for o in quad.values()),
                 k3_warp_T20_12_4_B3_float64_max_rel_err=k3,
                 k4_warp_T5_6_1_B3_float64_max_scaled_err=k4,
+                k3_staged_T5_6_1_B35_float64_bits_of_unstaged=k3_staged,
+                k4_thread_T5_2_1_B3_float64_max_scaled_err=k4t,
                 finite=all(bool(torch.isfinite(o).all())
-                           for o in (x, *out, *quad[1], *k3_out, *k4_out)))
+                           for o in (x, *out, *quad[1], *k3_out, *k4_out,
+                                     *unstaged, *k4t_out)))
 
 
 def main(argv=None) -> int:

@@ -343,9 +343,10 @@ def test_riccati_kernel_matches_plain(cuda, T, nx, nu, dtype, tol):
         assert float((got - want).abs().max() / want.abs().max()) <= tol
 
 
-# K3 runs one thread per element in blocks of 128, K4 in blocks of 64: one
-# element alone, and one more than a block of either (65, 129), leave the
-# last block ragged.
+# K3 stages blocks of 16 elements (riccati_cuda.ELEMENTS_PER_BLOCK), K4
+# runs one thread per element in blocks of 64 (32 where its work is in
+# shared memory): one element alone, and one
+# more than a block of 64 or 128 (65, 129), leave the last block ragged.
 EDGE_BATCHES = (1, 65, 129)
 # Element isolation: (batch, poisoned elements). 264 = 2·128 + 8 = 4·64 + 8
 # puts element 263 in a ragged last block of either kernel, beside 5 in a
@@ -444,6 +445,73 @@ def test_riccati_kernel_isolates_elements(cuda, B, poisoned, poison, T, nx,
     keep = _unpoisoned(B, poisoned, cuda)
     for c, d in zip(clean, dirty):
         assert torch.equal(c[keep], d[keep])
+
+
+def _k3_epb_edge_cases():
+    """(T, nx, nu, dtype, B) at batches on either side of the table's
+    elements a block, and one past two blocks."""
+    return [(*shape, dtype, B) for shape in riccati_cuda.BUILT
+            for dtype in (torch.float32, torch.float64)
+            for epb in (riccati_cuda.ELEMENTS_PER_BLOCK,)
+            for B in (epb - 1, epb + 1, 2 * epb + 1)]
+
+
+@pytest.mark.parametrize("T,nx,nu,dtype,B", _k3_epb_edge_cases(), ids=str)
+def test_riccati_kernel_block_edges(cuda, T, nx, nu, dtype, B):
+    """Around the elements-a-block edge: within tolerance of the plain
+    version, and the last element (in a block of its own or at the end of
+    a full one) the bits it has when solved alone."""
+    args = _lqr_problem(B, T, nx, nu, dtype, cuda, seed=B + nx)
+    out = riccati_cuda.batched_lqr_kkt_solve(*args, 1e-9)
+    ref = riccati.batched_lqr_kkt_solve(*args, 1e-9)
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    for got, want in zip(out, (ref.dx, ref.du, ref.lam)):
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max() / want.abs().max()) <= tol
+    alone = riccati_cuda.batched_lqr_kkt_solve(
+        *(a[B - 1:].contiguous() for a in args), 1e-9)
+    for a, b in zip(out, alone):
+        assert torch.equal(_int_view(a[B - 1:]), _int_view(b))
+
+
+def _int_view(t):
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def _at_offset(a, offset):
+    """``a`` as a contiguous view ``offset`` scalars into a larger storage
+    (not 16-byte aligned for offsets that are no multiple of 16 bytes)."""
+    flat = torch.cat([a.new_zeros(offset), a.reshape(-1)])
+    return flat[offset:].view(a.shape)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("T,nx,nu", riccati_cuda.BUILT)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_riccati_kernel_unaligned_inputs(cuda, T, nx, nu, dtype, offset):
+    """Inputs that are slices at a storage offset off 16 bytes (the staged
+    copies' scalar heads and tails): the aligned inputs' bits."""
+    args = _lqr_problem(67, T, nx, nu, dtype, cuda, seed=offset)
+    sliced = [_at_offset(a, offset) for a in args]
+    assert all(a.is_contiguous() and a.data_ptr() % 16 for a in sliced)
+    want = riccati_cuda.batched_lqr_kkt_solve(*args, 1e-9)
+    got = riccati_cuda.batched_lqr_kkt_solve(*sliced, 1e-9)
+    for a, b in zip(got, want):
+        assert torch.equal(_int_view(a), _int_view(b))
+
+
+def test_riccati_kernel_shared_memory(cuda):
+    """Every (shape, dtype) serves the wrapper's elements a block and
+    fits the device; a shape the kernel is not built for raises."""
+    for shape in riccati_cuda.BUILT:
+        for dtype in (torch.float32, torch.float64):
+            sm = riccati_cuda.staged_smem(dtype, *shape, cuda)
+            epb = riccati_cuda.ELEMENTS_PER_BLOCK
+            assert sm["elements_per_block"] == epb
+            assert epb * sm["per_element"] < sm["per_block"] \
+                <= sm["device_max"]
+    with pytest.raises(ValueError, match="not built"):
+        riccati_cuda.staged_smem(torch.float32, 5, 5, 1, cuda)
 
 
 def test_riccati_kernel_refuses_unbuilt_size(cuda):
@@ -734,6 +802,45 @@ def test_trajqp_fused_kernel_isolates_elements(cuda, B, poisoned, poison, T,
     keep = _unpoisoned(B, poisoned, cuda)
     for c, d in zip(clean, dirty):
         assert torch.equal(c[keep], d[keep])
+
+
+def _f32_rule(args64, box, **kw):
+    """K4 and its plain version in float32 on ``args64`` rounded, each
+    against the float64 plain solution: per output the kernel's error, the
+    plain float32 version's and the limit max(1e-3, F32_VS_F64_RATIO ×
+    the plain version's)."""
+    args32 = [a.float() for a in args64]
+    ref = trajqp_fused_cuda.fused_trajqp_solve_reference(*args64, *box, **kw)
+    k32 = trajqp_fused_cuda.fused_trajqp_solve(*args32, *box, **kw)
+    p32 = trajqp_fused_cuda.fused_trajqp_solve_reference(*args32, *box, **kw)
+    assert all(bool(torch.isfinite(o).all()) for o in k32)
+    kern = _trajqp_errors([o.double() for o in k32], ref)
+    plain = _trajqp_errors([o.double() for o in p32], ref)
+    return [(k, p, max(1e-3, F32_VS_F64_RATIO * p))
+            for k, p in zip(kern, plain)]
+
+
+@pytest.mark.parametrize("T,nx,nu", trajqp_fused_cuda.BUILT)
+def test_trajqp_fused_f32_against_f64(cuda, T, nx, nu):
+    """The float32 kernel's error against the float64 solution within
+    F32_VS_F64_RATIO of the plain float32 version's (or 1e-3) on every
+    output, on random box QPs."""
+    args = _trajqp_problem(128, T, nx, nu, torch.float64, cuda, seed=nx + 7)
+    box = ((-1.5,) * nu, (1.5,) * nu)
+    for kern, plain, limit in _f32_rule(args, box):
+        assert kern <= limit, (kern, plain)
+
+
+def test_trajqp_fused_f32_against_f64_pendulum_ip_qps(cuda):
+    """The same rule on the pendulum's tracking QPs as its ip path poses
+    them (chip_smoke.k4_inputs), at its checkpoint's budget: qp max_iter
+    12, reg 1e-9, box ±3."""
+    import chip_smoke
+
+    args = chip_smoke.k4_inputs(256, torch.float64, seed=11)
+    for kern, plain, limit in _f32_rule(args, chip_smoke.IP_BOX,
+                                        **chip_smoke.IP_BUDGET):
+        assert kern <= limit, (kern, plain)
 
 
 def test_trajqp_fused_kernel_refuses_unbuilt_size(cuda):

@@ -87,8 +87,9 @@ def _dispatch_shapes(text, fields):
 
 
 def test_each_source_instantiates_its_wrappers_table():
-    """The warp sources' shape lists and the thread source's dispatch list
-    are the wrappers' tables, and no shape has both K4 layouts."""
+    """The warp sources' shape lists, the thread source's dispatch list and
+    the unrolled K3's shape list are the wrappers' tables, and no shape has
+    both K4 layouts."""
     read = lambda name: (CSRC / f"{name}.cu").read_text()
     assert _shapes(read("riccati_horizon_warp"),
                    "RICCATI_HORIZON_WARP_SHAPES") == set(
@@ -97,6 +98,8 @@ def test_each_source_instantiates_its_wrappers_table():
         trajqp_fused_cuda.WARP_BUILT)
     assert _dispatch_shapes(read("trajqp_fused"), ("T", "nx", "nu")) == set(
         trajqp_fused_cuda.BUILT)
+    assert _shapes(read("riccati"), "RICCATI_SHAPES") == set(
+        riccati_cuda.BUILT)
     assert not set(trajqp_fused_cuda.BUILT) & set(
         trajqp_fused_cuda.WARP_BUILT)
 
